@@ -1,0 +1,21 @@
+"""Device selection for the port's entry points.
+
+Every entry point takes `device=`, defaulting to "cuda".  Asking for CUDA
+on a machine without it raises: nothing silently runs on the CPU.  Pass
+device="cpu" to run the plain PyTorch versions of the kernels on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

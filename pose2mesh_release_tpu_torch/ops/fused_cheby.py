@@ -1,0 +1,227 @@
+"""Fused K=3 Chebyshev graph convs on band levels (deploy forward).
+
+Counterpart of the JAX package's `ops/pallas_cheby.py` deploy kernels:
+
+  fused_cheby_conv            <- fused_conv_flat (Pallas; CUDA csrc/fused_cheby.cu)
+      y = act([x, Lx, 2L(Lx) - x] @ W + b)  (+ skip | + skip @ skip_w)
+  fused_cheby_conv_commuted   <- fused_conv_flat_commuted
+      (Pallas; CUDA csrc/fused_cheby_commuted.cu)
+      y = act(x (W0 - W2) + L (x W1 + 2 L (x W2)) + b),  Wc = [W0 - W2; W1; W2]
+
+Band levels keep a vertex-major (Vp, B, F) layout at the pack-time padded
+row count Vp = nt * T; `band_val` is (2k+1, nt, T, T), k in {1, 2}.  Both
+convs use bf16 operands with float32 accumulation and round the hop
+results to the working dtype at the same points as the TPU kernels.
+
+Each wrapper runs the plain PyTorch version for a tensor on the CPU and
+launches its CUDA kernel for a tensor on the card, counting the launch in
+`launches`.  There is no fallback: a CUDA input the kernel does not take
+raises.  The bounds of each kernel on the H100 are in its source note.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ._build import load_library
+from .spmm import band_hop
+
+__all__ = ["fused_cheby_conv", "fused_cheby_conv_commuted",
+           "fused_cheby_conv_plain", "fused_cheby_conv_commuted_plain",
+           "launches"]
+
+# kernel launches since the last reset, by wrapper name
+launches = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0}
+
+_T = 128             # the kernels' band tile height
+_MAX_SMEM = 232448   # dynamic shared memory a block may use on sm_90
+_C_INT, _C_PTR = ctypes.c_int, ctypes.c_void_p
+
+
+def fused_cheby_conv_plain(band_val, x, W, b, *, relu: bool,
+                           skip: Optional[torch.Tensor] = None,
+                           skip_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of `fused_cheby_conv`."""
+    dt, Fin = x.dtype, x.shape[-1]
+    band = band_val.to(dt)
+    xf = x.float()
+    z1 = band_hop(band, x).to(dt)
+    z2 = (2.0 * band_hop(band, z1) - xf).to(dt)
+    Wf = W.to(dt).float()
+    y = (xf @ Wf[:Fin] + z1.float() @ Wf[Fin:2 * Fin] + z2.float() @ Wf[2 * Fin:]
+         + b.to(dt).float())
+    if relu:
+        y = torch.relu(y)
+    if skip is not None:
+        s = skip.to(dt).float()
+        y = y + (s if skip_w is None else s @ skip_w.to(dt).float())
+    return y.to(dt)
+
+
+def fused_cheby_conv_commuted_plain(band_val, x, Wc, b, *,
+                                    relu: bool) -> torch.Tensor:
+    """Plain PyTorch version of `fused_cheby_conv_commuted`."""
+    dt, Fin = x.dtype, x.shape[-1]
+    band = band_val.to(dt)
+    xf = x.float()
+    Wf = Wc.to(dt).float()
+    u = (xf @ Wf[2 * Fin:]).to(dt)
+    t = (xf @ Wf[Fin:2 * Fin] + 2.0 * band_hop(band, u)).to(dt)
+    y = xf @ Wf[:Fin] + band_hop(band, t) + b.to(dt).float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(dt)
+
+
+def _check_shapes(band_val, x, W, b):
+    if band_val.dim() != 4 or band_val.shape[2] != band_val.shape[3] \
+            or band_val.shape[0] not in (3, 5):
+        raise ValueError(f"band_val must be (2k+1, nt, T, T) with k in {{1, 2}}, "
+                         f"got {tuple(band_val.shape)}")
+    nbd, nt, T, _ = band_val.shape
+    if x.dim() != 3 or x.shape[0] != nt * T:
+        raise ValueError(f"x must be ({nt * T}, B, F), got {tuple(x.shape)}")
+    Fin = x.shape[2]
+    if W.dim() != 2 or W.shape[0] != 3 * Fin:
+        raise ValueError(f"W must be ({3 * Fin}, Fout), got {tuple(W.shape)}")
+    if b.shape != (W.shape[1],):
+        raise ValueError(f"b must be ({W.shape[1]},), got {tuple(b.shape)}")
+    return nbd // 2, nt, T, x.shape[1], Fin, W.shape[1]
+
+
+def _check_cuda(x, T, Fin, **tensors):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if T != _T:
+        raise ValueError(f"the kernel takes {_T}-row band tiles, got {T}")
+    if Fin % 16:
+        raise ValueError(f"the kernel takes F % 16 == 0, got F={Fin}")
+    for name, t in dict(x=x, **tensors).items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 32:
+            raise ValueError(f"{name} must be 32-byte aligned")
+
+
+def _pad_cols(w: torch.Tensor, cols: int) -> torch.Tensor:
+    return w if w.shape[-1] == cols else F.pad(w, (0, cols - w.shape[-1]))
+
+
+def _raise_on(err: int, lib, fn: str):
+    if err:
+        msg = getattr(lib, fn)(err).decode()
+        raise RuntimeError(f"CUDA kernel launch failed ({err}): {msg}")
+
+
+def _stream(x):
+    return _C_PTR(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return _C_PTR(t.data_ptr() if t is not None else 0)
+
+
+@functools.cache
+def _fused_lib():
+    lib = load_library("fused_cheby")
+    lib.p2m_fused_cheby_conv.argtypes = [_C_PTR] * 7 + [_C_INT] * 10 + [_C_PTR]
+    lib.p2m_fused_cheby_conv.restype = _C_INT
+    lib.p2m_fused_cheby_error_string.argtypes = [_C_INT]
+    lib.p2m_fused_cheby_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _commuted_lib():
+    lib = load_library("fused_cheby_commuted")
+    lib.p2m_fused_cheby_conv_commuted.argtypes = [_C_PTR] * 5 + [_C_INT] * 7 + [_C_PTR]
+    lib.p2m_fused_cheby_conv_commuted.restype = _C_INT
+    lib.p2m_fused_cheby_commuted_error_string.argtypes = [_C_INT]
+    lib.p2m_fused_cheby_commuted_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _input_chunk(k: int, Fin: int) -> int:
+    """Largest input-channel chunk whose shared-memory footprint fits:
+    z1 halo chunk + z1/z2 of the tile (bf16) + per-warp float32 staging."""
+    for fc in (64, 32, 16):
+        smem = ((2 * k + 1) * _T * fc + 2 * _T * Fin) * 2 + 8 * 16 * max(fc, 32) * 4
+        if Fin % fc == 0 and smem <= _MAX_SMEM:
+            return fc
+    raise ValueError(f"F={Fin} with band_k={k} does not fit the kernel's "
+                     f"shared memory")
+
+
+def fused_cheby_conv(band_val, x, W, b, *, relu: bool,
+                     skip: Optional[torch.Tensor] = None,
+                     skip_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = act([x, Lx, 2L(Lx) - x] @ W + b), then + skip (skip_w None) or
+    + skip @ skip_w.  band_val (2k+1, nt, T, T); x (nt*T, B, F); W (3F, Fout)
+    basis-major; b (Fout,); skip (nt*T, B, Fs); skip_w (Fs, Fout).
+    Returns (nt*T, B, Fout) in x's dtype."""
+    k, nt, T, B, Fin, Fout = _check_shapes(band_val, x, W, b)
+    Fs = 0
+    if skip is not None:
+        Fs = skip.shape[-1]
+        if skip.shape != (x.shape[0], B, Fs):
+            raise ValueError(f"skip must be ({x.shape[0]}, {B}, Fs), "
+                             f"got {tuple(skip.shape)}")
+        if skip_w is None and Fs != Fout:
+            raise ValueError(f"skip-add needs Fs == Fout ({Fs} vs {Fout})")
+        if skip_w is not None and skip_w.shape != (Fs, Fout):
+            raise ValueError(f"skip_w must be ({Fs}, {Fout}), "
+                             f"got {tuple(skip_w.shape)}")
+    elif skip_w is not None:
+        raise ValueError("skip_w given without skip")
+    if x.device.type == "cpu":
+        return fused_cheby_conv_plain(band_val, x, W, b, relu=relu,
+                                      skip=skip, skip_w=skip_w)
+    extra = {} if skip is None else {"skip": skip}
+    if skip_w is not None:
+        extra["skip_w"] = skip_w
+    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **extra)
+    if skip_w is not None and Fs % 16:
+        raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
+    fc = _input_chunk(k, Fin)
+    fo_pad = -(-Fout // 16) * 16
+    Wp = _pad_cols(W, fo_pad)
+    swp = None if skip_w is None else _pad_cols(skip_w, fo_pad)
+    skip_mode = 0 if skip is None else (1 if skip_w is None else 2)
+    out = torch.empty((x.shape[0], B, Fout), dtype=x.dtype, device=x.device)
+    lib = _fused_lib()
+    with torch.cuda.device(x.device):
+        err = lib.p2m_fused_cheby_conv(
+            _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(skip), _ptr(swp),
+            _ptr(out), nt, k, B, Fin, Fout, fo_pad, Fs, int(relu), skip_mode,
+            fc, _stream(x))
+    _raise_on(err, lib, "p2m_fused_cheby_error_string")
+    launches["fused_cheby_conv"] += 1
+    return out
+
+
+def fused_cheby_conv_commuted(band_val, x, Wc, b, *, relu: bool) -> torch.Tensor:
+    """y = act(x (W0 - W2) + L (x W1 + 2 L (x W2)) + b) with
+    Wc = [W0 - W2; W1; W2] (3F, Fo).  Returns (nt*T, B, Fo)."""
+    k, nt, T, B, Fin, Fo = _check_shapes(band_val, x, Wc, b)
+    if x.device.type == "cpu":
+        return fused_cheby_conv_commuted_plain(band_val, x, Wc, b, relu=relu)
+    _check_cuda(x, T, Fin, band_val=band_val, Wc=Wc, b=b)
+    fo_pad = -(-Fo // 32) * 32
+    Wp = _pad_cols(Wc, fo_pad)
+    out = torch.empty((x.shape[0], B, Fo), dtype=x.dtype, device=x.device)
+    lib = _commuted_lib()
+    with torch.cuda.device(x.device):
+        err = lib.p2m_fused_cheby_conv_commuted(
+            _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(out),
+            nt, k, B, Fin, Fo, fo_pad, int(relu), _stream(x))
+    _raise_on(err, lib, "p2m_fused_cheby_commuted_error_string")
+    launches["fused_cheby_conv_commuted"] += 1
+    return out

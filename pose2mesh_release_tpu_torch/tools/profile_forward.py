@@ -1,0 +1,107 @@
+"""Where the time of the SMPL deploy forward goes, on one GPU.
+
+    python -m pose2mesh_release_tpu_torch.tools.profile_forward [--batch 64]
+
+Builds the deploy forward of `deploy.smpl_deploy_forward` (bf16), warms it
+up, then traces `--steps` forwards with torch.profiler and prints: the wall
+time per forward (host clock around synchronized forwards, outside the
+trace), the device time per forward by kernel, grouped into the port's band
+kernels, matrix products and the rest, and the device's idle share of the
+traced window.  Needs a CUDA device; writes chiprun_out/profile_forward.json.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..deploy import smpl_deploy_forward
+
+GROUPS = (("band kernels", ("fused_cheby_kernel", "commuted_kernel")),
+          ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward: CUDA is not available")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    d = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0)
+    g = torch.Generator().manual_seed(1)
+    pose2d = torch.randn(args.batch, 17, 2, generator=g).cuda()
+    for _ in range(3):
+        d.eval_step(d.art_compute, pose2d)
+    torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        d.eval_step(d.art_compute, pose2d)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            d.eval_step(d.art_compute, pose2d)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+    device_ms = sum(kernels.values()) / 1e3 / args.steps
+    groups = {name: 0.0 for name, _ in GROUPS}
+    groups["other"] = 0.0
+    for key, us in kernels.items():
+        low = key.lower()
+        name = next((n for n, pats in GROUPS if any(p in low for p in pats)), "other")
+        groups[name] += us / 1e3 / args.steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    result = {
+        "card": card, "batch": args.batch, "steps": args.steps,
+        "wall_ms_per_forward": walls,
+        "traced_wall_ms_per_forward": traced_ms / args.steps,
+        "device_ms_per_forward": device_ms,
+        "device_idle_share": (max(0.0, 1.0 - device_ms * args.steps / traced_ms)
+                              if traced_ms > 0 else None),
+        "groups_ms_per_forward": groups,
+        "top_kernels_ms_per_forward": [(k, us / 1e3 / args.steps) for k, us in top],
+    }
+    print(card)
+    print(f"wall ms per forward: {[round(w, 3) for w in walls]}")
+    print(f"device ms per forward: {device_ms:.3f}; idle share of the traced "
+          f"window: {result['device_idle_share']}")
+    for name, ms in groups.items():
+        print(f"  {name:16s} {ms:8.3f} ms")
+    for key, ms in result["top_kernels_ms_per_forward"]:
+        print(f"  {ms:8.3f} ms  {key[:100]}")
+    if device_ms == 0:
+        print("the profiler recorded no device time: device breakdown not measured")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_forward.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
