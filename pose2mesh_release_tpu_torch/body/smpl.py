@@ -1,5 +1,5 @@
-"""Minimal SMPL body model for the deploy forward: faces and the 17-joint
-Human3.6M joint regressor.
+"""Minimal SMPL body model for the deploy forward and the train step: faces,
+the rest mesh and the 17-joint Human3.6M joint regressor.
 
 The real SMPL templates and the H36M regressor `.npy` are not shipped, so
 this is the deterministic stand-in of identical shape: the UV-sphere mesh
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .synthetic import SMPL_VERTS, uv_sphere
+from .synthetic import SMPL_VERTS, stand_in_template, uv_sphere
 
 __all__ = ["SMPL", "stand_in_regressor"]
 
@@ -27,12 +27,13 @@ def stand_in_regressor(num_joints: int, num_vertices: int,
 
 
 class SMPL:
-    """SMPL topology: `face` (F, 3) int64 and `joint_regressor_h36m`
-    (17, 6890) float32."""
+    """SMPL topology: `face` (F, 3) int64, the rest mesh `v_template`
+    (6890, 3) float32 and `joint_regressor_h36m` (17, 6890) float32."""
 
     vertex_num = SMPL_VERTS
 
     def __init__(self):
         _, faces = uv_sphere(SMPL_VERTS)
         self.face = faces
+        self.v_template = stand_in_template(SMPL_VERTS)
         self.joint_regressor_h36m = stand_in_regressor(17, SMPL_VERTS)

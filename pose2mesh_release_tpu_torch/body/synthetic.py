@@ -11,9 +11,17 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["uv_sphere", "SMPL_VERTS"]
+__all__ = ["uv_sphere", "stand_in_template", "SMPL_VERTS"]
 
 SMPL_VERTS = 6890
+
+
+def stand_in_template(num_vertices: int = SMPL_VERTS) -> np.ndarray:
+    """(V, 3) float32 rest mesh of the stand-in body: the UV sphere stretched
+    to a body-like aspect (the JAX package's `synthetic_body_params`
+    v_template)."""
+    verts, _ = uv_sphere(num_vertices)
+    return (verts * np.array([0.3, 0.2, 0.9])).astype(np.float32)
 
 
 def uv_sphere(num_vertices: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,10 +1,13 @@
-"""The Pose2Mesh cascade: PoseNet -> (detach) -> MeshNet, deploy form.
+"""The Pose2Mesh cascade: PoseNet -> (detach) -> MeshNet.
 
 The lifted 3D pose is detached and rescaled from millimeters to meters
-before being concatenated with the 2D pose as MeshNet input.  This module
-is the eval-mode deploy forward with BatchNorm folded into the MeshNet
-convs (load a state dict passed through `models.fold.fold_bn_variables`);
-the training forward belongs to the training slice of the port.
+before being concatenated with the 2D pose as MeshNet input.  With
+`inference_fused=True` (the default) MeshNet is the deploy form, BatchNorm
+folded into its convs (load a state dict passed through
+`models.fold.fold_bn_variables`), and the cascade only evaluates; with
+`inference_fused=False` it is the training form and `forward(..., train=True,
+generator=g)` runs the training forward (batch statistics, dropout drawn
+from g).
 """
 from __future__ import annotations
 
@@ -27,26 +30,25 @@ class Pose2Mesh(nn.Module):
     pose3d (B, J, 3) mm).
 
     coarse_vertices: art.mesh_ops[-1].num_vertices (the FC output rows).
+    dropout: PoseNet's training dropout rate.
     generator: seeds the parameter init (a fixed seed when None)."""
 
     def __init__(self, num_joint: int, coarse_vertices: int, *, mano: bool = False,
                  posenet_hidden: int = 4096,
                  blocks: Optional[Sequence[Sequence[int]]] = None,
                  dtype: torch.dtype = torch.float32,
-                 inference_fused: bool = True,
+                 inference_fused: bool = True, dropout: float = 0.5,
                  device: str | torch.device | None = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not inference_fused:
-            raise NotImplementedError(
-                "only the deploy forward (inference_fused=True) is ported; the "
-                "unfolded BatchNorm forward comes with the training slice")
         dev = resolve_device(device)
         self.num_joint = num_joint
-        self.pose_lifter = PoseNet(num_joint, hidden=posenet_hidden, dtype=dtype)
+        self.pose_lifter = PoseNet(num_joint, hidden=posenet_hidden, dtype=dtype,
+                                   dropout=dropout)
         self.pose2mesh = MeshNet(
             num_joint, coarse_vertices,
-            blocks=blocks or (MANO_BLOCKS if mano else SMPL_BLOCKS), dtype=dtype)
+            blocks=blocks or (MANO_BLOCKS if mano else SMPL_BLOCKS), dtype=dtype,
+            inference_fused=inference_fused)
         self.reset_parameters(generator)
         self.to(dev)
         self.eval()
@@ -76,13 +78,11 @@ class Pose2Mesh(nn.Module):
                 m.reset_parameters()
 
     def forward(self, art: PyramidArtifact, pose2d: torch.Tensor,
-                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        if train:
-            raise NotImplementedError(
-                "the training forward comes with the training slice of the port")
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         B = pose2d.shape[0]
-        pose3d = self.pose_lifter(pose2d.reshape(B, -1))
+        pose3d = self.pose_lifter(pose2d.reshape(B, -1), train, generator)
         pose3d = pose3d.reshape(B, self.num_joint, 3)
         combine = torch.cat([pose2d.float(), pose3d.detach() / 1000.0], dim=2)
-        mesh = self.pose2mesh(art, combine)
+        mesh = self.pose2mesh(art, combine, train)
         return mesh, pose3d

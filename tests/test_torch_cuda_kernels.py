@@ -1,7 +1,9 @@
-"""PyTorch port on the card: the two CUDA kernels against their plain
-versions at shapes the SMPL path does not reach (every input-channel chunk
-size, output widths that are not multiples of 16 or 32, band_k in {1, 2}),
-the wrapper's input checks, and a small deploy MeshNet.
+"""PyTorch port on the card: the CUDA kernels against their plain versions at
+shapes the SMPL path does not reach (every input-channel chunk size, output
+widths that are not multiples of 16 or 32, band_k in {1, 2}, row counts that
+are not a multiple of the 128-row tile), the wrappers' input checks, a small
+deploy MeshNet, and the training kernels' determinism (equal bits run to
+run).
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -21,6 +23,7 @@ import torch
 from pose2mesh_release_tpu_torch.graphs.artifact import _make_level_op
 from pose2mesh_release_tpu_torch.models.meshnet import channel_interp_matrix
 from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
+from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -162,3 +165,137 @@ def test_small_deploy_meshnet_kernels_vs_plain(cuda, monkeypatch):
     assert n_basis > 0
     assert torch.isfinite(y).all() and y.shape == ref.shape
     assert rel_l2(y, ref) <= 2e-2
+
+
+# ---- the training step's kernels ---------------------------------------------
+
+def train_inputs(op, B, F, Fout, dev, seed):
+    """x (V, B, F) at the real row count, W, b, the fold's (s, c) and an
+    output cotangent g, bf16."""
+    V = op.num_vertices
+    x, W, b, s, c, g = inputs(op, B, [((V, B, F), 0.5),
+                                      ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                      ((Fout,), 0.1), ((F,), 0.25), ((F,), 0.1),
+                                      ((V, B, Fout), 1.0)], dev, seed)
+    return x, W, b, (s.float() + 1.0).to(torch.bfloat16), c, g
+
+
+def f32(t):
+    return None if t is None else t.float()
+
+
+@pytest.mark.parametrize("k,F,Fout,fold,stats", [
+    (1, 16, 8, False, True),     # input chunk 16
+    (1, 64, 3, True, False),     # the network's last conv: 3 outputs, no stats
+    (1, 256, 256, True, True),   # the widest SMPL conv, chunk 64, two output slices
+    (2, 256, 128, False, True),  # band_k 2 at F=256: chunk 32
+    (2, 64, 8, True, True),
+    (2, 16, 3, False, False),
+])
+def test_train_conv_kernel(cuda, k, F, Fout, fold, stats):
+    op = band_level(k, seed=20 + k)  # 900 rows: the last tile is ragged
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, b, s, c, _ = train_inputs(op, 3, F, Fout, cuda, 4)
+    in_fold = (s, c) if fold else None
+    before = ft.launches["fused_cheby_conv_train"]
+    out = ft.fused_cheby_conv_train(band, x, W, b, in_fold=in_fold, emit_stats=stats)
+    torch.cuda.synchronize()
+    assert ft.launches["fused_cheby_conv_train"] == before + 1
+    ref = ft.fused_cheby_conv_train_plain(
+        band.float(), x.float(), W.float(), b.float(),
+        in_fold=(s.float(), c.float()) if fold else None, emit_stats=stats)
+    out, ref = (out, ref) if stats else ((out,), (ref,))
+    assert out[0].shape == (op.num_vertices, 3, Fout) and out[0].dtype == torch.bfloat16
+    for got, want in zip(out, ref):
+        assert torch.isfinite(got.float()).all()
+        assert rel_l2(got, want) <= TOL
+
+
+@pytest.mark.parametrize("k,F,Fout,fold", [
+    (1, 16, 8, False),
+    (1, 64, 3, True),
+    (1, 256, 256, True),
+    (2, 256, 128, False),
+    (2, 64, 8, True),
+    (2, 16, 3, True),
+])
+def test_train_bwd_kernel(cuda, k, F, Fout, fold):
+    op = band_level(k, seed=30 + k)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, _, s, c, g = train_inputs(op, 3, F, Fout, cuda, 5)
+    in_fold = (s, c) if fold else None
+    before = ft.launches["fused_cheby_conv_bwd"]
+    got = ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold)
+    torch.cuda.synchronize()
+    assert ft.launches["fused_cheby_conv_bwd"] == before + 1
+    want = ft.fused_cheby_conv_bwd_plain(
+        band.float(), g.float(), x.float(), W.float(),
+        in_fold=(s.float(), c.float()) if fold else None)
+    assert len(got) == len(want) == (5 if fold else 3)
+    assert got[0].shape == x.shape and got[0].dtype == torch.bfloat16
+    assert got[1].shape == (3 * F, Fout) and got[1].dtype == torch.float32
+    for name, t, r in zip(("dx", "dW", "db", "ds", "dc"), got, want):
+        assert torch.isfinite(t).all(), name
+        assert rel_l2(t, r) <= TOL, name
+
+
+def test_train_kernels_are_deterministic(cuda):
+    """Cross-block sums go through per-block partials added in a fixed order:
+    two runs give equal bits (stats, dx, dW, db, ds, dc)."""
+    op = band_level(1, V=1849, seed=40)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, b, s, c, g = train_inputs(op, 16, 128, 128, cuda, 6)
+    runs = []
+    for _ in range(2):
+        y, s1, s2 = ft.fused_cheby_conv_train(band, x, W, b, in_fold=(s, c),
+                                              emit_stats=True)
+        runs.append((y, s1, s2) + ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=(s, c)))
+    torch.cuda.synchronize()
+    for name, a, b2 in zip(("y", "sum_y", "sum_y2", "dx", "dW", "db", "ds", "dc"), *runs):
+        assert torch.equal(a, b2), name
+
+
+def test_train_autograd_function_runs_the_fused_backward(cuda):
+    """The folded, stats-emitting conv's backward is one K2 launch, equal to
+    K2 on the cotangent g = gy + gs + 2 y gs2 folded in float32."""
+    op = band_level(2, seed=50)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, b, s, c, gy = train_inputs(op, 2, 32, 16, cuda, 7)
+    x, W, b, s, c = (t.clone().requires_grad_() for t in (x, W, b, s, c))
+    y, s1, s2 = ft.fused_cheby_project_folded_stats(band, x, W, b, s, c)
+    gs = torch.linspace(-1, 1, 16, device=cuda)
+    gs2 = torch.linspace(0.5, -0.5, 16, device=cuda)
+    before = dict(ft.launches)
+    torch.autograd.backward((y, s1, s2), (gy, gs, gs2))
+    torch.cuda.synchronize()
+    assert ft.launches["fused_cheby_conv_bwd"] == before["fused_cheby_conv_bwd"] + 1
+    assert ft.launches["fused_cheby_conv_train"] == before["fused_cheby_conv_train"]
+    g = (gy.float() + gs + 2.0 * y.detach().float() * gs2).to(torch.bfloat16)
+    want = ft.fused_cheby_conv_bwd(band, g, x.detach(), W.detach(),
+                                   in_fold=(s.detach(), c.detach()))
+    for name, t, r in zip(("dx", "dW", "db", "ds", "dc"),
+                          (x.grad, W.grad, b.grad, s.grad, c.grad), want):
+        assert torch.equal(t, r.to(t.dtype)), name
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    op = band_level(1)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, b, s, c, g = train_inputs(op, 2, 32, 16, cuda, 8)
+    with pytest.raises(TypeError):  # float32 activations
+        ft.fused_cheby_conv_train(band, x.float(), W, b)
+    with pytest.raises(TypeError):
+        ft.fused_cheby_conv_bwd(band, g.float(), x, W)
+    with pytest.raises(ValueError):  # not contiguous
+        ft.fused_cheby_conv_train(band, x.transpose(1, 2).contiguous().transpose(1, 2),
+                                  W, b)
+    with pytest.raises(ValueError):  # F % 16 != 0
+        ft.fused_cheby_conv_train(band, x[..., :24].contiguous(), W[:72].contiguous(), b)
+    with pytest.raises(ValueError):  # the fold on another device
+        ft.fused_cheby_conv_train(band, x, W, b, in_fold=(s.cpu(), c.cpu()))
+    with pytest.raises(ValueError):  # more rows than the operator's tiles
+        ft.fused_cheby_conv_train(band, torch.zeros(op.padded_vertices + 1, 2, 32,
+                                                    dtype=torch.bfloat16, device=cuda),
+                                  W, b)
+    with pytest.raises(ValueError):  # cotangent of the wrong width
+        ft.fused_cheby_conv_bwd(band, g[..., :8].contiguous(), x, W)
