@@ -8,16 +8,24 @@ Phases (any failure exits non-zero):
      pose2mesh_release_tpu_torch/csrc with nvcc;
   2. hold each deploy kernel against its plain PyTorch version on the card
      at the SMPL deploy forward's 10 band-conv shapes (batch 64, bf16) plus
-     one synthetic band_k=2 level, and time kernel and plain version;
+     one synthetic band_k=2 level, and time kernel and plain version: the
+     group kernels, the strip conv (strip_h 128, one level at 64), the window
+     conv, and the single hop of the unfused path (forward and backward
+     through its autograd Function, beside torch.sparse.mm on the level's
+     CSR Laplacian);
   3. drive the deploy forward (SMPL stand-in, 9 levels, SMPL_BLOCKS, PoseNet
      hidden 4096, 17 H36M joints, bf16, batch 64, BatchNorm folded into
      seeded random weights) through make_eval_step on 4 request batches,
      count the kernel launches, check shapes and finiteness, and compare one
-     batch with the same forward through the plain versions;
+     batch with the same forward through the plain versions; then the same
+     on the strip path (flat_impl="strip": 10 strip convs per forward), the
+     window path (10 window convs) and the unfused path (fused=False: 20
+     hops, no fused conv), each also against the group forward;
   4. hold the training conv (K1) and its fused backward (K2) against their
      plain versions at the SMPL train step's 10 band-conv shapes, each in the
      variant the step uses (batch 64, bf16), plus the band_k=2 level, and
-     time kernel and plain version;
+     time kernel and plain version; then K1 with keep_basis (y, z1, z2) at
+     one training shape, the only run of that variant (no path takes it);
   5. drive the train step (smpl_train_setup: the same network in its
      training form, bf16 compute, batch 64, RMSprop at lr 1e-3, edge loss on)
      for 1 warm-up and 4 counted steps: finite losses, a total that falls,
@@ -29,9 +37,10 @@ Phases (any failure exits non-zero):
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
 relative L2 error <= 1e-2 over the real vertex rows, for every output (y and
-the statistics of K1; dx, dW, db, ds, dc of K2).  The forward against the
-plain forward (same bf16 rounding points): relative L2 error of the mesh and
-of the regressed joints <= 2e-2.  The train step against the same step
+the statistics of K1, and z1, z2 with keep_basis; dx, dW, db, ds, dc of K2;
+the hop and its backward).  Each forward against the plain forward of the same
+path (same bf16 rounding points), and each further path against the group
+forward: relative L2 error of the mesh and of the regressed joints <= 2e-2.  The train step against the same step
 through the plain K1 and K2: relative difference of the total loss <= 2e-2
 and relative L2 error of each parameter's gradient <= 5e-2, except the
 biases that feed a training BatchNorm, whose exact gradient is zero (they are
@@ -41,9 +50,10 @@ reported, not held).  Matmuls of the plain versions run in full float32
 Bounds: bytes over 3.35 TB/s and operations over 989 TFLOP/s (H100 SXM
 bf16 dense), the larger of the two.  Operations: the Laplacian hops at the
 operator's nonzeros, the projections densely, over the real rows (K2: two
-hops of the cotangent, the dx product and the dW product).  Bytes: each
-input read once and each output written once, vertex tensors at the real
-rows and the operator at its nonzero values.
+hops of the cotangent, the dx product and the dW product; the strip conv's
+hops on Fout columns in commuted order).  Bytes: each input read once and
+each output written once, vertex tensors at the real rows and the operator at
+its nonzero values.
 Everything written to chiprun_out/chip_smoke.json as well.
 """
 from __future__ import annotations
@@ -51,6 +61,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +81,10 @@ REPLACES = {
     "fused_cheby_conv_commuted": "pose2mesh_release_tpu/ops/pallas_cheby.py:421",
     "fused_cheby_conv_train": "pose2mesh_release_tpu/ops/pallas_cheby.py:1015",
     "fused_cheby_conv_bwd": "pose2mesh_release_tpu/ops/pallas_cheby.py:922",
+    "banded_hop": "pose2mesh_release_tpu/ops/pallas_cheby.py:240",
+    "strip_cheby_conv": "pose2mesh_release_tpu/ops/pallas_strip.py:348",
+    "window_cheby_conv": "pose2mesh_release_tpu/ops/pallas_window.py:243",
+    "fused_cheby_conv_train(keep_basis)": "pose2mesh_release_tpu/ops/pallas_cheby.py:1015",
 }
 SOURCES = {
     "fused_cheby_conv": "pose2mesh_release_tpu_torch/csrc/fused_cheby.cu",
@@ -77,8 +92,20 @@ SOURCES = {
         "pose2mesh_release_tpu_torch/csrc/fused_cheby_commuted.cu",
     "fused_cheby_conv_train": "pose2mesh_release_tpu_torch/csrc/fused_cheby_train.cu",
     "fused_cheby_conv_bwd": "pose2mesh_release_tpu_torch/csrc/fused_cheby_bwd.cu",
+    "banded_hop": "pose2mesh_release_tpu_torch/csrc/banded_hop.cu",
+    "strip_cheby_conv": "pose2mesh_release_tpu_torch/csrc/strip_cheby.cu",
+    "window_cheby_conv": "pose2mesh_release_tpu_torch/csrc/window_cheby.cu",
+    "fused_cheby_conv_train(keep_basis)":
+        "pose2mesh_release_tpu_torch/csrc/fused_cheby_train.cu",
 }
 DEPLOY_KERNELS = ("fused_cheby_conv", "fused_cheby_conv_commuted")
+# the further deploy paths: deploy.on_path's arguments, the wrapper each band
+# conv goes through and its calls per forward
+PATHS = {
+    "strip": ({"flat_impl": "strip"}, "strip_cheby_conv", 10),
+    "window": ({"flat_impl": "window"}, "window_cheby_conv", 10),
+    "unfused": ({"fused": False}, "banded_hop", 20),
+}
 TRAIN_KERNELS = ("fused_cheby_conv_train", "fused_cheby_conv_bwd")
 # The SMPL deploy forward's band convs, in forward order:
 # (level vertex count, kernel, fin, fout, epilogue)
@@ -116,10 +143,28 @@ TRAIN_CONVS = [
 ]
 # the band_k = 2 level: K1 in_fold + emit_stats, K2 in_fold
 K2_TRAIN_CONV = (128, 128, True, True)
+# K1 with keep_basis: (level vertex count, fin, fout)
+KEEP_BASIS_CONV = (1849, 256, 128)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def kernel_label(mangled: str) -> str:
+    """A ptxas entry name, shortened to the last component of its (nested)
+    name and its integer template arguments: `train_conv_kernel<64,8,1>`."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[i:])
+    if args:
+        name += f"<{','.join(re.findall(r'L[a-z]+(\d+)E', args.group(1)))}>"
+    return name
 
 
 def rel_l2(a, b) -> float:
@@ -151,18 +196,26 @@ def bound(flops: int, bytes_: int):
     return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
 
 
+def _counters():
+    from pose2mesh_release_tpu_torch.ops import fused_cheby, fused_cheby_train, hop, \
+        strip_cheby, window_cheby
+    return [m.launches for m in (fused_cheby, fused_cheby_train, hop, strip_cheby,
+                                 window_cheby)]
+
+
 def reset_launches():
-    from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
-    from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
-    for counts in (fc.launches, ft.launches):
+    for counts in _counters():
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
-    from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
-    from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
-    return {**fc.launches, **ft.launches}
+    return {k: v for counts in _counters() for k, v in counts.items()}
+
+
+def expect(**counts) -> dict:
+    """Every wrapper's launch count: `counts`, and 0 for the others."""
+    return {k: counts.get(k, 0) for k in read_launches()}
 
 
 def k2_level(V: int, seed: int = 0):
@@ -179,20 +232,32 @@ def k2_level(V: int, seed: int = 0):
                       shape=(V, V))
     L = ((L + L.T) * 0.5).tolil()
     L[0, bw] = L[bw, 0] = 0.1
-    op = _make_level_op(L.tocsr(), "band", T)
+    op = _make_level_op(L.tocsr(), "band", T, strip_h=128)
     assert op.band_k == 2, op.band_k
     return op
 
 
-def check_conv(op, name, fin, fout, epilogue, gen, tag):
-    """Kernel vs plain version on the card; returns the row of numbers."""
+def restrip(op, strip_h: int):
+    """The band level `op` packed again with strip tiles of strip_h rows."""
+    import numpy as np
+    import scipy.sparse as sp
+    from pose2mesh_release_tpu_torch.graphs.artifact import _make_level_op
+    nbd, nt, T, _ = op.band_val.shape
+    bv = op.band_val.float().cpu().numpy()
+    d, t, r, c = np.nonzero(bv)
+    L = sp.csr_matrix((bv[d, t, r, c], (t * T + r, (t + d - nbd // 2) * T + c)),
+                      shape=(op.num_vertices,) * 2)
+    return _make_level_op(L, "band", T, strip_h=strip_h)
+
+
+def conv_case(op, fin, fout, epilogue, gen):
+    """bf16 inputs of one deploy conv on the card at batch BATCH: x (Vp, B,
+    fin), W (3 fin, fout), b, and the epilogue's skip and skip_w (or None)."""
     import torch
     from pose2mesh_release_tpu_torch.models.meshnet import channel_interp_matrix
-    from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
 
     dev, bf = "cuda", torch.bfloat16
-    band = op.band_val.to(dev, bf)
-    V, Vp = op.num_vertices, op.padded_vertices
+    Vp = op.padded_vertices
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
@@ -200,7 +265,6 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag):
     x = randn(Vp, BATCH, fin, scale=0.5)
     W = randn(3 * fin, fout, scale=1.0 / math.sqrt(3 * fin))
     b = randn(fout, scale=0.1)
-    kw = {"relu": epilogue != "final"}
     skip = skip_w = None
     if epilogue == "skip_add":
         skip = randn(Vp, BATCH, fout, scale=0.5)
@@ -208,22 +272,25 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag):
         fs = 2 * fout
         skip = randn(Vp, BATCH, fs, scale=0.5)
         skip_w = torch.from_numpy(channel_interp_matrix(fs, fout).T.copy()).to(dev, bf)
+    return x, W, b, skip, skip_w
+
+
+def check_conv(op, name, fin, fout, epilogue, gen, tag):
+    """A group deploy kernel vs its plain version on the card; returns the
+    row of numbers."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
+
+    band = op.band_val.to("cuda", torch.bfloat16)
+    V = op.num_vertices
+    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen)
+    kw = {"relu": epilogue != "final"}
     if name == "fused_cheby_conv":
         kw.update(skip=skip, skip_w=skip_w)
         kernel, plain = fc.fused_cheby_conv, fc.fused_cheby_conv_plain
     else:
         kernel, plain = fc.fused_cheby_conv_commuted, fc.fused_cheby_conv_commuted_plain
-
-    y = kernel(band, x, W, b, **kw)
-    torch.cuda.synchronize()
     f32 = {k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()}
-    ref = plain(band.float(), x.float(), W.float(), b.float(), **f32)
-    err = rel_l2(y[:V], ref[:V])
-    max_abs = float((y[:V].float() - ref[:V]).abs().max())
-    finite = bool(torch.isfinite(y[:V].float()).all())
-    ms = cuda_ms(lambda: kernel(band, x, W, b, **kw), 20)
-    plain_ms = cuda_ms(lambda: plain(band, x, W, b, **kw), 5)
-
     nnz = int(torch.count_nonzero(op.band_val))
     hop_cols = BATCH * (fin if name == "fused_cheby_conv" else fout)
     flops = 2 * 2 * nnz * hop_cols + 2 * V * BATCH * 3 * fin * fout
@@ -231,21 +298,14 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag):
         flops += 2 * V * BATCH * skip.shape[-1] * fout
     # bytes by the same rule as the operations: vertex tensors at the real
     # rows, the band operator at its nonzero values
-    bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], y[:V], W, b, skip_w)
-              + nnz * band.element_size())
-    bound_ms, bound_by = bound(flops, bytes_)
-    row = {
-        "tag": tag, "name": name, "V": V, "Vp": Vp, "band_k": op.band_k,
-        "batch": BATCH, "fin": fin, "fout": fout, "epilogue": epilogue,
-        "rel_l2": err, "max_abs_err": max_abs, "ok": err <= KERNEL_TOL and finite,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": bytes_,
-    }
-    log(f"  {tag:10s} {name:26s} V={V:5d} k={op.band_k} {fin:3d}->{fout:3d} "
-        f"{epilogue:9s} rel_l2={err:.2e} max_abs={max_abs:.3e} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.4f} "
-        f"({row['bound_by']}) library_ms=null {'ok' if row['ok'] else 'FAIL'}")
-    return row
+    bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w)
+              + V * BATCH * fout * 2 + nnz * 2)
+    return measure(
+        tag, name, {"V": V, "band_k": op.band_k, "fin": fin, "fout": fout,
+                    "epilogue": epilogue},
+        lambda: kernel(band, x, W, b, **kw), lambda: plain(band, x, W, b, **kw),
+        lambda: plain(band.float(), x.float(), W.float(), b.float(), **f32),
+        ("y",), V, flops, bytes_)
 
 
 def check_train_conv(op, fin, fout, fold, stats, gen, tag):
@@ -269,60 +329,296 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag):
     nnz = int(torch.count_nonzero(op.band_val))
     band_bytes = nnz * band.element_size()
     fold_bytes = nbytes(*in_fold) if fold else 0
-    cases = {
-        "fused_cheby_conv_train": (
-            lambda: ft.fused_cheby_conv_train(band, x, W, b, in_fold=in_fold,
-                                              emit_stats=stats),
-            lambda: ft.fused_cheby_conv_train_plain(band, x, W, b, in_fold=in_fold,
-                                                    emit_stats=stats),
-            lambda: ft.fused_cheby_conv_train_plain(
-                band.float(), x.float(), W.float(), b.float(), in_fold=fold32,
-                emit_stats=stats),
-            ("y", "sum_y", "sum_y2"),
-            # two hops of u, the projection
-            2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout,
-            nbytes(x, W, b) + V * BATCH * fout * 2 + band_bytes + fold_bytes
-            + (2 * fout * 4 if stats else 0)),
-        "fused_cheby_conv_bwd": (
-            lambda: ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold),
-            lambda: ft.fused_cheby_conv_bwd_plain(band, g, x, W, in_fold=in_fold),
-            lambda: ft.fused_cheby_conv_bwd_plain(band.float(), g.float(), x.float(),
-                                                  W.float(), in_fold=fold32),
-            ("dx", "dW", "db", "ds", "dc"),
-            # two hops of g, the dx product, the dW product
-            2 * 2 * nnz * BATCH * fout + 2 * 2 * V * BATCH * 3 * fout * fin,
-            nbytes(g, x, W) + nbytes(x) + 3 * fin * fout * 4 + fout * 4 + band_bytes
-            + (fold_bytes + 2 * fin * 4 if fold else 0)),
-    }
-    rows = []
-    for name, (kernel, plain, ref32, names, flops, bytes_) in cases.items():
-        out = kernel()
+    info = {"V": V, "band_k": op.band_k, "fin": fin, "fout": fout, "in_fold": fold,
+            "emit_stats": stats}
+    k1 = measure(
+        tag, "fused_cheby_conv_train", info,
+        lambda: ft.fused_cheby_conv_train(band, x, W, b, in_fold=in_fold,
+                                          emit_stats=stats),
+        lambda: ft.fused_cheby_conv_train_plain(band, x, W, b, in_fold=in_fold,
+                                                emit_stats=stats),
+        lambda: ft.fused_cheby_conv_train_plain(
+            band.float(), x.float(), W.float(), b.float(), in_fold=fold32,
+            emit_stats=stats),
+        ("y", "sum_y", "sum_y2"), V,
+        # two hops of u, the projection
+        2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout,
+        nbytes(x, W, b) + V * BATCH * fout * 2 + band_bytes + fold_bytes
+        + (2 * fout * 4 if stats else 0))
+    k2 = measure(
+        tag, "fused_cheby_conv_bwd", info,
+        lambda: ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold),
+        lambda: ft.fused_cheby_conv_bwd_plain(band, g, x, W, in_fold=in_fold),
+        lambda: ft.fused_cheby_conv_bwd_plain(band.float(), g.float(), x.float(),
+                                              W.float(), in_fold=fold32),
+        ("dx", "dW", "db", "ds", "dc"), None,
+        # two hops of g, the dx product, the dW product
+        2 * 2 * nnz * BATCH * fout + 2 * 2 * V * BATCH * 3 * fout * fin,
+        nbytes(g, x, W) + nbytes(x) + 3 * fin * fout * 4 + fout * 4 + band_bytes
+        + (fold_bytes + 2 * fin * 4 if fold else 0))
+    return [k1, k2]
+
+
+def measure(tag, name, info, kernel, plain, ref32, names, rows, flops, bytes_,
+            library=None, timed=None, timed_plain=None):
+    """Hold the kernel's outputs (the first `rows` rows of each, or all of
+    them) against the float32 plain version; time kernel (or `timed`), plain
+    version (or `timed_plain`) and library call.  Returns the row of
+    numbers."""
+    import torch
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = ref32()
+    out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    errs = {n: rel_l2(a[:rows], r[:rows]) for n, a, r in zip(names, out, ref)}
+    max_abs = float((out[0][:rows].float() - ref[0][:rows].float()).abs().max())
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in out)
+    ms = cuda_ms(timed or kernel, 20)
+    plain_ms = cuda_ms(timed_plain or plain, 5)
+    library_ms = None if library is None else cuda_ms(library, 20)
+    bound_ms, bound_by = bound(flops, bytes_)
+    row = {"tag": tag, "name": name, **info, "batch": BATCH, "rel_l2": errs,
+           "max_abs_err": max_abs, "ok": finite and max(errs.values()) <= KERNEL_TOL,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": bytes_}
+    log(f"  {tag:10s} {name:22s} {info} rel_l2 "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" max_abs={max_abs:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms="
+        + ("null" if library_ms is None else f"{library_ms:.4f}")
+        + f" {'ok' if row['ok'] else 'FAIL'}")
+    return row
+
+
+_library_dtype = {}
+
+
+def sparse_csr(op, dtype):
+    """The level's Laplacian as a torch sparse CSR matrix of nt*T rows, in
+    `dtype`, or in float32 where the sparse product takes no `dtype`."""
+    import warnings
+
+    import torch
+    nbd, nt, T, _ = op.band_val.shape
+    d, t, r, c = torch.nonzero(op.band_val, as_tuple=True)
+    vals = op.band_val[d, t, r, c]
+    with warnings.catch_warnings():  # torch's notes on its beta sparse support
+        warnings.simplefilter("ignore", UserWarning)
+        L = torch.sparse_coo_tensor(torch.stack([t * T + r, (t + d - nbd // 2) * T + c]),
+                                    vals, (nt * T, nt * T)).coalesce().to_sparse_csr()
+    if dtype not in _library_dtype:
+        try:
+            probe = L.to(dtype)
+            torch.sparse.mm(probe, torch.zeros(nt * T, 16, dtype=dtype, device=L.device))
+            torch.cuda.synchronize()
+            _library_dtype[dtype] = dtype
+        except RuntimeError as e:
+            log(f"  torch.sparse.mm takes no {dtype} here ({str(e).splitlines()[0]}); "
+                f"library_ms in float32")
+            _library_dtype[dtype] = torch.float32
+    return L.to(_library_dtype[dtype])
+
+
+def check_hop(op, fin, gen, tag):
+    """K4 at one conv of the unfused path: the hop forward and backward
+    through its autograd Function vs the plain version; timed as the conv's
+    two hops (x and a cotangent of its shape), beside two torch.sparse.mm
+    calls on the level's CSR Laplacian."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import hop as hp
+    dev, bf = "cuda", torch.bfloat16
+    band = op.band_val.to(dev, bf)
+    V, Vp = op.num_vertices, op.padded_vertices
+    x = (torch.randn(Vp, BATCH, fin, generator=gen, device=dev) * 0.5).to(bf)
+    g = torch.randn(Vp, BATCH, fin, generator=gen, device=dev).to(bf)
+
+    def fwd_bwd(hop_fn, b_, x_, g_):
+        xr = x_.clone().requires_grad_()
+        saved, hp.hop = hp.hop, hop_fn
+        try:
+            y = hp.banded_hop(b_, xr)
+            y.backward(g_)
+        finally:
+            hp.hop = saved
+        return y.detach(), xr.grad
+
+    L = sparse_csr(op.to(dev), bf)
+    x2 = x.reshape(Vp, -1).to(L.dtype)
+    nnz = int(torch.count_nonzero(op.band_val))
+    return measure(
+        tag, "banded_hop", {"V": V, "Vp": Vp, "band_k": op.band_k, "F": fin,
+                            "library": f"torch.sparse.mm {L.dtype}"},
+        lambda: fwd_bwd(hp.hop, band, x, g), lambda: fwd_bwd(hp.hop_plain, band, x, g),
+        lambda: fwd_bwd(hp.hop_plain, band.float(), x.float(), g.float()),
+        ("y", "dx"), V, 2 * 2 * nnz * BATCH * fin,
+        # x and g read, y and dx written (real rows), the operator's nonzeros
+        4 * nbytes(x[:V]) + nnz * 2,
+        library=lambda: (torch.sparse.mm(L, x2), torch.sparse.mm(L, x2)),
+        timed=lambda: (hp.hop(band, x), hp.hop(band, g)),
+        timed_plain=lambda: (hp.hop_plain(band, x), hp.hop_plain(band, g)))
+
+
+def check_strip(op, fin, fout, epilogue, gen, tag):
+    """K5: the strip conv in the mode of the JAX rule vs its plain version."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
+    dev = "cuda"
+    V, Vp, h = op.num_vertices, op.padded_vertices, op.strip_h
+    S, off = op.strip_val.to(dev, torch.bfloat16), op.strip_off.to(dev)
+    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen)
+    mode = sc.strip_mode(fin, fout)
+    if mode == "commuted":
+        W3 = W.view(3, fin, fout)
+        W = torch.cat([W3[0] - W3[2], W3[1], W3[2]])
+    kw = dict(mode=mode, relu=epilogue != "final", skip=skip, skip_w=skip_w)
+    f32 = {k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    nnz = int(torch.count_nonzero(op.band_val))
+    flops = (2 * 2 * nnz * BATCH * (fin if mode == "basis" else fout)
+             + 2 * V * BATCH * 3 * fin * fout
+             + (0 if skip_w is None else 2 * V * BATCH * skip.shape[-1] * fout))
+    y_bytes = V * BATCH * fout * 2
+    bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w, off)
+              + y_bytes + nnz * 2)
+    return measure(
+        tag, "strip_cheby_conv", {"V": V, "band_k": op.band_k, "strip_h": h,
+                                  "W": S.shape[1], "mode": mode, "fin": fin,
+                                  "fout": fout, "epilogue": epilogue},
+        lambda: sc.strip_cheby_conv(S, off, h, x, W, b, **kw),
+        lambda: sc.strip_cheby_conv_plain(S, off, h, x, W, b, **kw),
+        lambda: sc.strip_cheby_conv_plain(S.float(), off, h, x.float(), W.float(),
+                                          b.float(), **f32),
+        ("y",), V, flops, bytes_)
+
+
+def check_window(op, fin, fout, epilogue, gen, tag):
+    """K6: the window conv (basis order) vs its plain version."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import window_cheby as wc
+    V = op.num_vertices
+    win, woff = wc.window_cat(op.band_val.to("cuda", torch.bfloat16))
+    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen)
+    kw = dict(relu=epilogue != "final", skip=skip, skip_w=skip_w)
+    f32 = {k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    nnz = int(torch.count_nonzero(op.band_val))
+    flops = (2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout
+             + (0 if skip_w is None else 2 * V * BATCH * skip.shape[-1] * fout))
+    bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w, woff)
+              + V * BATCH * fout * 2 + nnz * 2)
+    return measure(
+        tag, "window_cheby_conv", {"V": V, "band_k": op.band_k, "fin": fin,
+                                   "fout": fout, "epilogue": epilogue},
+        lambda: wc.window_cheby_conv(win, woff, x, W, b, **kw),
+        lambda: wc.window_cheby_conv_plain(win, woff, x, W, b, **kw),
+        lambda: wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(),
+                                           b.float(), **f32),
+        ("y",), V, flops, bytes_)
+
+
+def check_keep_basis(op, fin, fout, gen, tag):
+    """K1b: K1 with keep_basis (y, z1, z2) vs its plain version; the one call
+    held against it is counted as this variant's launch."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
+    dev, bf = "cuda", torch.bfloat16
+    band = op.band_val.to(dev, bf)
+    V = op.num_vertices
+    x = (torch.randn(V, BATCH, fin, generator=gen, device=dev) * 0.5).to(bf)
+    W = (torch.randn(3 * fin, fout, generator=gen, device=dev) / math.sqrt(3 * fin)).to(bf)
+    b = (torch.randn(fout, generator=gen, device=dev) * 0.1).to(bf)
+    reset_launches()
+    ft.fused_cheby_conv_train(band, x, W, b, keep_basis=True)
+    torch.cuda.synchronize()
+    launches = read_launches()["fused_cheby_conv_train"]
+    nnz = int(torch.count_nonzero(op.band_val))
+    row = measure(
+        tag, "fused_cheby_conv_train(keep_basis)", {"V": V, "fin": fin, "fout": fout},
+        lambda: ft.fused_cheby_conv_train(band, x, W, b, keep_basis=True),
+        lambda: ft.fused_cheby_conv_train_plain(band, x, W, b, keep_basis=True),
+        lambda: ft.fused_cheby_conv_train_plain(band.float(), x.float(), W.float(),
+                                                b.float(), keep_basis=True),
+        ("y", "z1", "z2"), V,
+        2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout,
+        nbytes(x, W, b) + V * BATCH * (fout + 2 * fin) * 2 + nnz * 2)
+    row["launches"] = launches
+    log(f"  {tag:10s} keep_basis: {launches} launch of the check")
+    return row
+
+
+def plain_versions(path):
+    """(module, attribute, plain version) swaps that run `path`'s band convs
+    through the plain PyTorch versions."""
+    from pose2mesh_release_tpu_torch.models import meshnet
+    from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
+    from pose2mesh_release_tpu_torch.ops import hop as hp
+    from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
+    from pose2mesh_release_tpu_torch.ops import window_cheby as wc
+    return {
+        "group": [(meshnet, "fused_cheby_conv", fc.fused_cheby_conv_plain),
+                  (meshnet, "fused_cheby_conv_commuted", fc.fused_cheby_conv_commuted_plain)],
+        "strip": [(meshnet, "strip_cheby_conv", sc.strip_cheby_conv_plain)],
+        "window": [(meshnet, "window_cheby_conv", wc.window_cheby_conv_plain)],
+        "unfused": [(hp, "hop", hp.hop_plain)],
+    }[path]
+
+
+def plain_forward(path, step, art, pose2d):
+    """One forward of `path` through the plain versions: (outputs, ms)."""
+    import torch
+    swaps = plain_versions(path)
+    saved = [getattr(m, a) for m, a, _ in swaps]
+    for m, a, fn in swaps:
+        setattr(m, a, fn)
+    try:
+        ref = step(art, pose2d)
         torch.cuda.synchronize()
-        ref = ref32()
-        out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
-        errs = {n: rel_l2(a, r) for n, a, r in zip(names, out, ref)}
-        # on the activation (y, dx); the sums are held by their rel_l2 alone
-        max_abs = float((out[0].float() - ref[0]).abs().max())
-        finite = all(bool(torch.isfinite(a.float()).all()) for a in out)
-        ms = cuda_ms(kernel, 10)
-        plain_ms = cuda_ms(plain, 3)
-        bound_ms, bound_by = bound(flops, bytes_)
-        row = {
-            "tag": tag, "name": name, "V": V, "band_k": op.band_k, "batch": BATCH,
-            "fin": fin, "fout": fout, "in_fold": fold, "emit_stats": stats,
-            "rel_l2": errs, "max_abs_err": max_abs,
-            "ok": finite and max(errs.values()) <= KERNEL_TOL,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": bytes_,
-        }
-        log(f"  {tag:10s} {name:22s} V={V:5d} k={op.band_k} {fin:3d}->{fout:3d} "
-            f"fold={int(fold)} stats={int(stats)} rel_l2 "
-            + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-            + f" max_abs={max_abs:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms=null "
-            f"{'ok' if row['ok'] else 'FAIL'}")
-        rows.append(row)
-    return rows
+        t0 = time.perf_counter()
+        step(art, pose2d)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (m, a, _), fn in zip(swaps, saved):
+            setattr(m, a, fn)
+    return ref, ms
+
+
+def drive_path(path, deploy, batches, group_out, card):
+    """Phase 3 for a further path: a model built for the path with the group
+    model's weights, warm-up, 4 counted requests, the plain forward of the
+    same path and the group forward's outputs."""
+    import torch
+    from pose2mesh_release_tpu_torch.deploy import on_path
+    kw, wrapper, per_forward = PATHS[path]
+    step, art_bf = on_path(deploy, **kw).eval_step, deploy.art_compute
+    step(art_bf, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    outs, times = [], []
+    for p in batches:
+        t0 = time.perf_counter()
+        outs.append(step(art_bf, p))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    log(f"  {path}: {REQUESTS} requests of batch {BATCH}: ms per batch "
+        f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
+    want = expect(**{wrapper: per_forward * REQUESTS})
+    if launches != want:
+        raise SystemExit(f"{path}: launch counts {launches} != {want}")
+    for out in outs:
+        assert [tuple(t.shape) for t in out] == [(BATCH, 6890, 3), (BATCH, 17, 3),
+                                                 (BATCH, 17, 3)], path
+        assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
+    ref, plain_ms = plain_forward(path, step, art_bf, batches[0])
+    errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
+            "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1]),
+            "mesh_vs_group": rel_l2(outs[0][0], group_out[0]),
+            "reg_pose_vs_group": rel_l2(outs[0][1], group_out[1])}
+    log(f"  {path}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tolerance {FORWARD_TOL}); plain forward {plain_ms:.3f} ms")
+    if max(errs.values()) > FORWARD_TOL:
+        raise SystemExit(f"{path}: forward disagrees: {errs}")
+    return {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
+            "plain_forward_ms": plain_ms, **errs}
 
 
 def train_step_vs_plain(setup, state):
@@ -400,9 +696,13 @@ def main() -> int:
     report["build_s"] = time.time() - t0
     log(f"phase 1: built {sorted(libs)} in {report['build_s']:.1f} s")
     for stem, text in _build.build_log.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas {stem}: {line.strip()}")
+            props = re.search(r"Function properties for (\S+)", line)
+            if props:
+                fn = kernel_label(props.group(1))
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas {stem} {fn}: {line.strip()}")
 
     # -- phase 2: kernel checks at the main path's shapes -----------------
     deploy = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0)
@@ -419,6 +719,26 @@ def main() -> int:
              for i, (name, fin, fout, ep) in enumerate(K2_CONVS)]
     report["convs"] = rows
     bad = [r["tag"] for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"kernel check failed: {bad}")
+    op2_64 = restrip(by_v[3475], 64)
+    log(f"phase 2: the hop, strip and window kernels; strip widths "
+        f"{[(op.num_vertices, tuple(op.strip_val.shape)) for op in art.mesh_ops[:4]]}, "
+        f"strip_h 64 at 3475: {tuple(op2_64.strip_val.shape)}")
+    path_rows = [check_hop(by_v[V], fin, gen, f"hop{i}")
+                 for i, (V, _, fin, _, _) in enumerate(MAIN_PATH_CONVS)]
+    path_rows += [check_strip(by_v[V], fin, fout, ep, gen, f"strip{i}")
+                  for i, (V, _, fin, fout, ep) in enumerate(MAIN_PATH_CONVS)]
+    path_rows += [check_strip(op2_64, 128, 128, "skip_add", gen, "h64_strip"),
+                  check_strip(op2, 128, 128, "skip_proj", gen, "k2_strip0"),
+                  check_strip(op2, 256, 128, "relu", gen, "k2_strip1")]
+    path_rows += [check_window(by_v[V], fin, fout, ep, gen, f"window{i}")
+                  for i, (V, _, fin, fout, ep) in enumerate(MAIN_PATH_CONVS)]
+    path_rows += [check_window(op2, fin, fout, ep, gen, f"k2_window{i}")
+                  for i, (_, fin, fout, ep) in enumerate(K2_CONVS)]
+    path_rows.append(check_hop(op2, 128, gen, "k2_hop"))
+    report["path_convs"] = path_rows
+    bad = [r["tag"] for r in path_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel check failed: {bad}")
 
@@ -439,8 +759,7 @@ def main() -> int:
     launches = read_launches()
     log(f"phase 3: {REQUESTS} requests of batch {BATCH}: ms per batch "
         f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
-    want = {"fused_cheby_conv": 8 * REQUESTS, "fused_cheby_conv_commuted": 2 * REQUESTS,
-            "fused_cheby_conv_train": 0, "fused_cheby_conv_bwd": 0}
+    want = expect(fused_cheby_conv=8 * REQUESTS, fused_cheby_conv_commuted=2 * REQUESTS)
     if launches != want:
         raise SystemExit(f"launch counts {launches} != {want}")
     for mesh, reg, pose3d in outs:
@@ -475,6 +794,10 @@ def main() -> int:
     report["forward"] = {"card": card, "batch": BATCH, "ms_per_batch": times,
                          "plain_forward_ms": plain_fwd_ms, "launches": launches,
                          "mesh_rel_l2": mesh_err, "reg_pose_rel_l2": reg_err}
+    path_launches = {}
+    for path in PATHS:
+        report[f"forward_{path}"] = drive_path(path, deploy, batches, outs[0], card)
+        path_launches.update({PATHS[path][1]: report[f"forward_{path}"]["launches"]})
 
     # -- phase 4: the training kernels at the train step's shapes ---------
     log(f"phase 4: K1/K2 vs plain (f32 from the same bf16 inputs), batch {BATCH}, "
@@ -483,6 +806,9 @@ def main() -> int:
     for i, (V, fin, fout, fold, stats) in enumerate(TRAIN_CONVS):
         train_rows += check_train_conv(by_v[V], fin, fout, fold, stats, gen, f"train{i}")
     train_rows += check_train_conv(op2, *K2_TRAIN_CONV, gen, "k2_train")
+    V, fin, fout = KEEP_BASIS_CONV
+    keep_row = check_keep_basis(by_v[V], fin, fout, gen, "keep_basis")
+    train_rows.append(keep_row)
     report["train_convs"] = train_rows
     bad = [(r["tag"], r["name"]) for r in train_rows if not r["ok"]]
     if bad:
@@ -512,9 +838,8 @@ def main() -> int:
     log(f"  warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps: ms per step "
         f"{[round(t, 3) for t in step_ms]} ({card}); totals "
         f"{[round(l['total'], 5) for l in step_losses]}; launches {train_launches}")
-    want = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0,
-            "fused_cheby_conv_train": 10 * TRAIN_STEPS,
-            "fused_cheby_conv_bwd": 10 * TRAIN_STEPS}
+    want = expect(fused_cheby_conv_train=10 * TRAIN_STEPS,
+                  fused_cheby_conv_bwd=10 * TRAIN_STEPS)
     if train_launches != want:
         raise SystemExit(f"launch counts {train_launches} != {want}")
     if not all(math.isfinite(v) for l in step_losses for v in l.values()):
@@ -538,21 +863,30 @@ def main() -> int:
                        "grad_rel_l2": grad_errs, "zero_grad_biases": left_out}
 
     # -- phase 6: the kernel table -----------------------------------------
+    # per kernel: its launches on its path; ms, plain ms, library ms and
+    # bound summed over the shapes of one pass of that path (one forward,
+    # one train step; K1b: its one training shape)
+    launches_of = {**{n: launches[n] for n in DEPLOY_KERNELS},
+                   **{n: train_launches[n] for n in TRAIN_KERNELS},
+                   **{n: c[n] for n, c in path_launches.items()},
+                   "fused_cheby_conv_train(keep_basis)": keep_row["launches"]}
+    main_tags = ("main", "train", "hop", "strip", "window", "keep_basis")
     kernels = []
-    for name in DEPLOY_KERNELS + TRAIN_KERNELS:
-        every = [r for r in rows + train_rows if r["name"] == name]
-        main = [r for r in every if r["tag"].startswith(("main", "train"))]
+    for name in SOURCES:
+        every = [r for r in rows + path_rows + train_rows if r["name"] == name]
+        main = [r for r in every if r["tag"].startswith(main_tags)]
+        lib = [r["library_ms"] for r in main]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": (launches if name in DEPLOY_KERNELS else train_launches)[name],
+            "launches": launches_of[name],
             "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
             "bound_ms": sum(r["bound_ms"] for r in main),
             "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in main)
                          * 2 >= len(main) else "operations"),
-            "library_ms": None,
+            "library_ms": None if None in lib else sum(lib),
             "status": "ok",
             "shapes_per_pass": len(main),
         })

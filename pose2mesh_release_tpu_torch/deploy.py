@@ -3,12 +3,14 @@
 SMPL stand-in mesh (6890 vertices), 9-level coarsening pyramid, Human3.6M
 17-joint input, SMPL_BLOCKS, PoseNet hidden 4096, BatchNorm folded into the
 MeshNet convs.  The weights are random, drawn from a seeded generator, with
-non-identity BatchNorm statistics so the fold does real work.  Used by
-chip_smoke.py and tools/profile_forward.py.
+non-identity BatchNorm statistics so the fold does real work.  flat_impl
+and fused pick MeshNet's band-conv kernels (`models.meshnet`); `on_path`
+gives the same artifact and weights on another path.  Used by chip_smoke.py
+and tools/profile_forward.py.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Dict
 
 import torch
@@ -21,7 +23,7 @@ from .graphs.build import build_pyramid
 from .models.fold import fold_bn_variables
 from .models.pose2mesh import Pose2Mesh
 
-__all__ = ["DeployForward", "smpl_deploy_forward", "with_random_batch_norm"]
+__all__ = ["DeployForward", "smpl_deploy_forward", "on_path", "with_random_batch_norm"]
 
 
 @dataclass
@@ -52,15 +54,29 @@ def with_random_batch_norm(model: Pose2Mesh, generator: torch.Generator
 
 def smpl_deploy_forward(*, dtype: torch.dtype = torch.bfloat16,
                         device: str | torch.device | None = "cuda",
-                        seed: int = 0) -> DeployForward:
+                        seed: int = 0, flat_impl: str = "group",
+                        fused: bool = True) -> DeployForward:
     smpl = SMPL()
     pyr = build_pyramid(smpl.face, joint_num=17, skeleton=HUMAN36.skeleton,
                         flip_pairs=HUMAN36.flip_pairs, levels=9)
     art = pack_pyramid(pyr, smpl.face, device=device)
     g = torch.Generator().manual_seed(seed)
     model = Pose2Mesh(17, art.mesh_ops[-1].num_vertices, dtype=dtype,
-                      device=device, generator=g)
+                      flat_impl=flat_impl, fused=fused, device=device, generator=g)
     model.load_state_dict(fold_bn_variables(with_random_batch_norm(model, g)))
     return DeployForward(
         art=art, art_compute=art.to(art.vertex_gather.device, dtype), model=model,
         eval_step=make_eval_step(model, smpl.joint_regressor_h36m, device=device))
+
+
+def on_path(d: DeployForward, *, flat_impl: str = "group",
+            fused: bool = True) -> DeployForward:
+    """`d` with MeshNet's band convs on another path: a model built for that
+    path and loaded with d.model's weights, on the same artifact."""
+    dev = d.art.vertex_gather.device
+    model = Pose2Mesh(d.model.num_joint, d.art.mesh_ops[-1].num_vertices,
+                      dtype=d.model.pose2mesh.dtype, flat_impl=flat_impl, fused=fused,
+                      device=dev, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(d.model.state_dict())
+    return replace(d, model=model, eval_step=make_eval_step(
+        model, SMPL().joint_regressor_h36m, device=dev))

@@ -3,24 +3,30 @@
 Turns the host-side scipy pyramid (`graphs.build.GraphPyramid`) into the
 constant tensors the MeshNet forward consumes.  Each mesh level is reordered
 for minimal bandwidth (reverse Cuthill-McKee over a spectral relabeling),
-then stored either
+then stored as
 
   * dense: the (V, V) matrix, for levels with V <= dense_threshold, or
   * band: strict block-banded form, `band_val[d, t]` the (T, T) block at
     block-row t, block-column t + d - band_k, with the tile count padded at
-    pack time so a whole level runs at `padded_vertices` rows.
+    pack time so a whole level runs at `padded_vertices` rows.  Band levels
+    also carry the strip form (`_pack_strip`): row tile t of `strip_h` rows
+    holds L[rows, o_t : o_t + W] with W about strip_h + 2 * bandwidth and
+    the offsets o_t in `strip_off`, built here by `strip_offset`, or
+  * bcsr: padded block-sparse rows (`blk_col`, `blk_val`).
 
-Pooling (the x2 nearest upsample between levels) and the final
-un-permutation to the original vertex order are index gathers (`up_idx`,
-`vertex_gather`).  The numpy packing mirrors the JAX package's
-`graphs/artifact.py` value for value; BCSR, ELL, strip and face tables are
-not part of this port yet.
+Every kind also carries the ELL form (`ell_idx`, `ell_w`; padded entries
+point at their own row with weight 0).  Pooling (the x2 nearest upsample
+between levels) and the final un-permutation to the original vertex order
+are index gathers (`up_idx`, `vertex_gather`).  The numpy packing mirrors
+the JAX package's `graphs/artifact.py` value for value, and
+`save_artifact` / `load_artifact` read and write its npz format (the face
+tables of the JAX package are not part of this port yet).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -30,15 +36,18 @@ from scipy.sparse.csgraph import reverse_cuthill_mckee
 from ..device import resolve_device
 from .build import GraphPyramid
 
-__all__ = ["LevelOperator", "PyramidArtifact", "pack_pyramid"]
+__all__ = ["LevelOperator", "PyramidArtifact", "pack_pyramid", "save_artifact",
+           "load_artifact", "strip_offset"]
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _empty() -> torch.Tensor:
-    return torch.zeros((0,), dtype=torch.float32)
+def _empty(*shape: int, dtype: torch.dtype = torch.float32):
+    def make() -> torch.Tensor:
+        return torch.zeros(shape or (0,), dtype=dtype)
+    return dataclasses.field(default_factory=make)
 
 
 @dataclass(frozen=True)
@@ -48,14 +57,29 @@ class LevelOperator:
     kind == "dense": `dense` is the (V, V) matrix.
     kind == "band": `band_val` is (2*band_k+1, nt, T, T); out-of-range
         blocks are zero and nt*T >= V is the pack-time padded row count.
+        With strip_h > 0 also the strip form: `strip_val` (nt*T, W) with
+        strip_val[r, j] = L[r, strip_off[r // strip_h] + j]; band_bw is the
+        scalar bandwidth max |r - c|.
+    kind == "bcsr": `blk_col[t, b]` is the column tile of the b-th nonzero
+        block of row tile t, `blk_val` (nt, maxb, T, T) its values (padding
+        blocks are zero and point at column tile 0).
+    Every kind: `ell_idx`, `ell_w` (V, D), the neighbours of each row.
     """
 
-    dense: torch.Tensor = dataclasses.field(default_factory=_empty)
-    band_val: torch.Tensor = dataclasses.field(default_factory=_empty)
+    dense: torch.Tensor = _empty()
+    band_val: torch.Tensor = _empty()
     kind: str = "dense"
     num_vertices: int = 0
     block_size: int = 128
     band_k: int = 0
+    blk_col: torch.Tensor = _empty(dtype=torch.int64)
+    blk_val: torch.Tensor = _empty()
+    ell_idx: torch.Tensor = _empty(dtype=torch.int64)
+    ell_w: torch.Tensor = _empty()
+    strip_val: torch.Tensor = _empty(0, 0)
+    strip_off: torch.Tensor = _empty(dtype=torch.int32)
+    strip_h: int = 0
+    band_bw: int = 0
 
     @property
     def padded_vertices(self) -> int:
@@ -65,11 +89,14 @@ class LevelOperator:
 
     def to(self, device, dtype: Optional[torch.dtype] = None) -> "LevelOperator":
         """Move to `device`; `dtype` casts the operator values (the compute
-        dtype of the convs that read them)."""
-        def mv(t):
-            return t.to(device=device, dtype=dtype or t.dtype)
-        return dataclasses.replace(self, dense=mv(self.dense),
-                                   band_val=mv(self.band_val))
+        dtype of the convs that read them), index tables keep their type."""
+        moved = {}
+        for f in dataclasses.fields(self):
+            t = getattr(self, f.name)
+            if torch.is_tensor(t):
+                cast = dtype if dtype is not None and t.is_floating_point() else t.dtype
+                moved[f.name] = t.to(device=device, dtype=cast)
+        return dataclasses.replace(self, **moved)
 
 
 @dataclass(frozen=True)
@@ -104,6 +131,41 @@ class PyramidArtifact:
         )
 
 
+def _pack_ell(L: sp.csr_matrix) -> Tuple[np.ndarray, np.ndarray]:
+    """(V, V) sparse matrix -> (idx, w) (V, D), D the widest row; row v's
+    padded entries point at v with weight 0."""
+    L = sp.csr_matrix(L)
+    V = L.shape[0]
+    widths = np.diff(L.indptr)
+    D = max(int(widths.max()) if V else 1, 1)
+    idx = np.tile(np.arange(V, dtype=np.int64)[:, None], (1, D))
+    w = np.zeros((V, D), dtype=np.float32)
+    rows = np.repeat(np.arange(V), widths)
+    slot = np.arange(L.nnz) - L.indptr[rows]
+    idx[rows, slot] = L.indices
+    w[rows, slot] = L.data
+    return idx, w
+
+
+def _pack_bcsr(L: sp.csr_matrix, T: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(V, V) sparse matrix -> padded BCSR (blk_col (nt, maxb), blk_val
+    (nt, maxb, T, T)): each row tile's nonzero blocks by column tile."""
+    coo = sp.csr_matrix(L).tocoo()
+    nt = _cdiv(L.shape[0], T)
+    key = (coo.row // T) * nt + coo.col // T
+    pairs = np.unique(key)
+    pt = pairs // nt
+    counts = np.bincount(pt, minlength=nt)
+    maxb = max(int(counts.max()) if len(pairs) else 1, 1)
+    slot = np.arange(len(pairs)) - np.concatenate([[0], np.cumsum(counts)[:-1]])[pt]
+    blk_col = np.zeros((nt, maxb), dtype=np.int64)
+    blk_col[pt, slot] = pairs % nt
+    blk_val = np.zeros((nt, maxb, T, T), dtype=np.float32)
+    blk_val[coo.row // T, slot[np.searchsorted(pairs, key)], coo.row % T,
+            coo.col % T] = coo.data
+    return blk_col, blk_val
+
+
 def _pack_band(L: sp.csr_matrix, T: int) -> Tuple[np.ndarray, int]:
     """(V, V) sparse matrix -> band_val (2*band_k+1, nt, T, T), band_k.
 
@@ -124,19 +186,67 @@ def _pack_band(L: sp.csr_matrix, T: int) -> Tuple[np.ndarray, int]:
     return band_val, band_k
 
 
-def _make_level_op(L: sp.csr_matrix, kind: str, block_size: int) -> LevelOperator:
+def strip_offset(t, h: int, W: int, Vp: int, align: int = 16):
+    """Window start of h-row tile t (an int or an array of them) in the strip
+    layout: a width-W window centred on the tile, floor-aligned to `align`
+    rows, clamped in bounds.  The one formula of the offsets: `_pack_strip`
+    places the entries by it and `strip_off` holds its values."""
+    o = (t * h + (h - W) // 2) // align * align
+    return np.clip(o, 0, Vp - W)
+
+
+def _pack_strip(L: sp.csr_matrix, T: int, nt: int, h: int,
+                align: int = 16) -> Tuple[np.ndarray, np.ndarray]:
+    """(V, V) sparse matrix -> (strip_val (nt*T, W), offsets (nt*T // h,)):
+    strip_val[r, j] = L[r, o_t + j] for t = r // h.  W is the smallest
+    multiple of `align` (>= h + 2 * scalar bandwidth) that covers every
+    tile's nonzeros after the offsets' alignment; the rows are padded to the
+    band pack's nt*T."""
+    coo = sp.csr_matrix(L).tocoo()
+    Vp = nt * T
+    assert Vp % h == 0, (Vp, h)
+    b = int(np.abs(coo.row - coo.col).max()) if coo.nnz else 0
+    W = min(_cdiv(h + 2 * b, align) * align, Vp)
+    tiles = np.arange(Vp // h)
+    while True:
+        offs = strip_offset(tiles, h, W, Vp, align)
+        rel = coo.col - offs[coo.row // h]
+        if W >= Vp or ((rel >= 0) & (rel < W)).all():
+            break
+        W = min(W + align, Vp)
+    strip = np.zeros((Vp, W), dtype=np.float32)
+    strip[coo.row, rel] = coo.data
+    return strip, offs.astype(np.int32)
+
+
+def _make_level_op(L: sp.csr_matrix, kind: str, block_size: int,
+                   strip_h: int = 0) -> LevelOperator:
     L = sp.csr_matrix(L, dtype=np.float64)
     V = L.shape[0]
+    ell_idx, ell_w = _pack_ell(L)
+    common = dict(kind=kind, num_vertices=V, block_size=block_size,
+                  ell_idx=torch.from_numpy(ell_idx), ell_w=torch.from_numpy(ell_w))
     if kind == "dense":
-        return LevelOperator(
-            dense=torch.from_numpy(L.toarray().astype(np.float32)),
-            kind="dense", num_vertices=V, block_size=block_size)
+        return LevelOperator(dense=torch.from_numpy(L.toarray().astype(np.float32)),
+                             **common)
+    if kind == "bcsr":
+        blk_col, blk_val = _pack_bcsr(L, block_size)
+        return LevelOperator(blk_col=torch.from_numpy(blk_col),
+                             blk_val=torch.from_numpy(blk_val), **common)
     if kind != "band":
-        raise NotImplementedError(f"level kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown level kind {kind!r}")
     band_val, band_k = _pack_band(L, block_size)
+    coo = L.tocoo()
+    strip = {}
+    nt = band_val.shape[1]
+    if strip_h and nt * block_size % strip_h == 0:
+        strip_val, offs = _pack_strip(L, block_size, nt, strip_h)
+        strip = dict(strip_val=torch.from_numpy(strip_val),
+                     strip_off=torch.from_numpy(offs), strip_h=strip_h)
     return LevelOperator(
-        band_val=torch.from_numpy(band_val), kind="band", num_vertices=V,
-        block_size=block_size, band_k=band_k)
+        band_val=torch.from_numpy(band_val), band_k=band_k,
+        band_bw=int(np.abs(coo.row - coo.col).max()) if coo.nnz else 0,
+        **strip, **common)
 
 
 def _min_bandwidth_order(adj: sp.csr_matrix, T: int) -> np.ndarray:
@@ -194,11 +304,14 @@ def pack_pyramid(
     *,
     block_size: int = 128,
     dense_threshold: int = 768,
+    strip_h: int = 128,
     device: str | torch.device | None = "cuda",
 ) -> PyramidArtifact:
     """Pack a host pyramid into the device artifact (float32 operators).
 
-    Levels with V <= dense_threshold are stored dense, the others banded.
+    Levels with V <= dense_threshold are stored dense, the others banded,
+    with the strip form of `strip_h`-row tiles (0: none), as the JAX
+    package's default.
     The binary-tree padding vertices of the reference pyramid are isolated
     in every level's graph, so all levels but the coarsest (whose padded
     layout fixes the FC layer's output size) keep real vertices only."""
@@ -232,7 +345,7 @@ def pack_pyramid(
         lay = layouts[k]
         L = sp.csr_matrix(pyr.mesh_laplacians[k])[lay][:, lay]
         kind = "dense" if L.shape[0] <= dense_threshold else "band"
-        mesh_ops.append(_make_level_op(L, kind, block_size))
+        mesh_ops.append(_make_level_op(L, kind, block_size, strip_h=strip_h))
     joint_op = _make_level_op(pyr.joint_laplacian, "dense", block_size)
 
     up_idx = []
@@ -255,4 +368,74 @@ def pack_pyramid(
         faces=torch.from_numpy(faces_np),
         joint_num=pyr.joint_num,
         num_vertices=pyr.num_vertices,
+    ).to(dev)
+
+
+_OP_ARRAYS = ("dense", "blk_col", "blk_val", "band_val", "ell_idx", "ell_w", "strip_val")
+_INT_ARRAYS = ("blk_col", "ell_idx")
+
+
+def _np(t: torch.Tensor, index: bool = False) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.to(torch.int32) if index else t.float()).numpy()
+
+
+def save_artifact(path: str, art: PyramidArtifact) -> None:
+    """Write `art` to an npz in the JAX package's format (index arrays int32,
+    operator values float32); the JAX `load_artifact` reads it."""
+    out: Dict[str, np.ndarray] = {
+        "meta/num_levels": np.int64(len(art.mesh_ops)),
+        "meta/joint_num": np.int64(art.joint_num),
+        "meta/num_vertices": np.int64(art.num_vertices),
+        "vertex_gather": _np(art.vertex_gather, True),
+        "faces": _np(art.faces, True),
+    }
+
+    def put(prefix: str, op: LevelOperator):
+        out[f"{prefix}/kind"] = np.bytes_(op.kind)
+        for f in ("num_vertices", "block_size", "band_k", "strip_h", "band_bw"):
+            out[f"{prefix}/{f}"] = np.int64(getattr(op, f))
+        for f in _OP_ARRAYS:
+            out[f"{prefix}/{f}"] = _np(getattr(op, f), f in _INT_ARRAYS)
+
+    for k, op in enumerate(art.mesh_ops):
+        put(f"mesh/{k}", op)
+    put("joint", art.joint_op)
+    for k, up in enumerate(art.up_idx):
+        out[f"up/{k}"] = _np(up, True)
+    np.savez_compressed(path, **out)
+
+
+def load_artifact(path: str, *, device: str | torch.device | None = "cuda"
+                  ) -> PyramidArtifact:
+    """Read an npz written by `save_artifact` or by the JAX package (its face
+    tables are skipped); index tensors become int64, operators float32."""
+    dev = resolve_device(device)
+    z = np.load(path, allow_pickle=False)
+
+    def arr(key: str, index: bool = False) -> torch.Tensor:
+        a = z[key]
+        return torch.from_numpy(a.astype(np.int64 if index else np.float32))
+
+    def get(prefix: str) -> LevelOperator:
+        meta = {f: int(z[f"{prefix}/{f}"]) if f"{prefix}/{f}" in z else 0
+                for f in ("num_vertices", "block_size", "band_k", "strip_h", "band_bw")}
+        fields = {f: arr(f"{prefix}/{f}", f in _INT_ARRAYS) for f in _OP_ARRAYS
+                  if f"{prefix}/{f}" in z}
+        if meta["strip_h"]:
+            Vp, W = fields["strip_val"].shape
+            fields["strip_off"] = torch.from_numpy(strip_offset(
+                np.arange(Vp // meta["strip_h"]), meta["strip_h"], W, Vp
+            ).astype(np.int32))
+        return LevelOperator(kind=bytes(z[f"{prefix}/kind"]).decode(), **meta, **fields)
+
+    n = int(z["meta/num_levels"])
+    return PyramidArtifact(
+        mesh_ops=tuple(get(f"mesh/{k}") for k in range(n)),
+        joint_op=get("joint"),
+        up_idx=tuple(arr(f"up/{k}", True) for k in range(n - 1)),
+        vertex_gather=arr("vertex_gather", True),
+        faces=arr("faces", True),
+        joint_num=int(z["meta/joint_num"]),
+        num_vertices=int(z["meta/num_vertices"]),
     ).to(dev)

@@ -9,10 +9,19 @@ Deploy form (`inference_fused=True`): BatchNorm is folded into the conv
 weights (`models.fold`) and each conv is one pass.
   * Dense levels (the joint graph and small mesh levels) run
     `chebyshev_stack` + matmul + ReLU.
-  * Band levels run the fused kernels of `ops.fused_cheby` on a vertex-major
-    (Vp, B, F) layout at the pack-time padded row count Vp, with the block's
-    residual skip fused into the last conv.  A conv that narrows its
-    channels (no skip, not the final conv) takes the commuted kernel.
+  * Band levels run on a vertex-major (Vp, B, F) layout at the pack-time
+    padded row count Vp.  `flat_impl` picks the fused kernels (the JAX
+    package's P2M_FLAT_IMPL, routed per level by `flat_route`), each with
+    the block's residual skip fused into the last conv:
+      "group": `ops.fused_cheby`; a conv that narrows its channels (no skip,
+        not the final conv) takes the commuted kernel;
+      "strip": `ops.strip_cheby` on the level's strip form, commuted order
+        where the conv narrows its channels;
+      "window": `ops.window_cheby` on the sliding-window form.
+    `fused=False` (the JAX package's P2M_FUSED=0) takes none of them: each
+    conv is two differentiable hops (`ops.hop`) and three projections
+    (`ops.fused_cheby_train.cheby_project_unfused`), then ReLU, and the skip
+    is an add after the block.
   Pad rows (>= num_vertices) carry values that never reach a real row; the
   gathers into a band level index row 0 for them.
 
@@ -27,7 +36,9 @@ count.
     relu(x*scale + shift) on its input read; training convs also emit their
     own batch-stat sums.  The block's last conv applies its BatchNorm and
     ReLU to its output; the network's last conv has neither.
-  The residual skip is an add after the block.
+  The residual skip is an add after the block.  With `fused=False` the convs
+  that the JAX package sends through `fused_cheby_project` (in eval, the first
+  conv of each band block) take its unfused form.
 
 Parameters follow the reference's state dict: `cl.N` (Linear over the
 fin-major Chebyshev stack, weight (fout, fin*K)), `bn.N` and `fc`.
@@ -45,12 +56,15 @@ from ..graphs.artifact import LevelOperator, PyramidArtifact
 from ..ops.cheby import chebyshev_stack
 from ..ops.fused_cheby import fused_cheby_conv, fused_cheby_conv_commuted
 from ..ops.fused_cheby_train import (
-    fused_cheby_project, fused_cheby_project_folded,
+    cheby_project_unfused, fused_cheby_project, fused_cheby_project_folded,
     fused_cheby_project_folded_stats, fused_cheby_project_stats,
 )
+from ..ops.strip_cheby import strip_cheby_conv, strip_mode
+from ..ops.window_cheby import window_cat, window_cheby_conv
 from .posenet import bn_affine, linear
 
-__all__ = ["MeshNet", "channel_interp_matrix", "SMPL_BLOCKS", "MANO_BLOCKS",
+__all__ = ["MeshNet", "channel_interp_matrix", "flat_route", "FLAT_IMPLS",
+           "SMPL_BLOCKS", "MANO_BLOCKS",
            "extract_mesh"]
 
 # Per-block channel schedules (reference meshnet.py:23-33).
@@ -89,14 +103,17 @@ class MeshNet(nn.Module):
 
     coarse_vertices: row count of the coarsest mesh level
     (art.mesh_ops[-1].num_vertices), the FC layer's output size.
-    inference_fused: the deploy form (BatchNorm folded) or the training form."""
+    inference_fused: the deploy form (BatchNorm folded) or the training form.
+    flat_impl, fused: the band convs' kernels (see the module note)."""
 
     def __init__(self, num_joint: int, coarse_vertices: int,
                  blocks: Sequence[Sequence[int]] = SMPL_BLOCKS, K: int = 3,
-                 dtype: torch.dtype = torch.float32, inference_fused: bool = True):
+                 dtype: torch.dtype = torch.float32, inference_fused: bool = True,
+                 flat_impl: str = "group", fused: bool = True):
         super().__init__()
         if K != 3:
             raise NotImplementedError("the band-level kernels are K=3 convs")
+        self.flat_impl, self.fused = _check_path(flat_impl, fused)
         self.blocks = tuple(tuple(c) for c in blocks)
         self.K = K
         self.dtype = dtype
@@ -111,6 +128,7 @@ class MeshNet(nn.Module):
                             coarse_vertices * self.blocks[1][0])
         self._interp = {}
         self._band_weights = {}
+        self._window_forms = {}
 
     def _skip_w(self, fin: int, fout: int, dtype, device) -> torch.Tensor:
         """(fin, fout) channel-interpolation matrix, cached per dtype/device."""
@@ -133,8 +151,8 @@ class MeshNet(nn.Module):
         weights) bumps the tensors' versions and rebuilds it."""
         w, bias = lin.weight, lin.bias
         key = (w.data_ptr(), w._version, bias.data_ptr(), bias._version,
-               self.dtype, w.device, commuted)
-        hit = self._band_weights.get(id(lin))
+               self.dtype, w.device)
+        hit = self._band_weights.get((id(lin), commuted))
         if hit is not None and hit[0] == key:
             return hit[1], hit[2]
         fout, fin_k = w.shape
@@ -145,20 +163,48 @@ class MeshNet(nn.Module):
             W = torch.stack([W[0] - W[2], W[1], W[2]])
         W = W.reshape(self.K * fin, fout).contiguous()
         b = bias.detach().to(self.dtype).contiguous()
-        self._band_weights[id(lin)] = (key, W, b)
+        self._band_weights[(id(lin), commuted)] = (key, W, b)
         return W, b
 
-    def _band_conv(self, op: LevelOperator, x, lin: nn.Linear, *, relu: bool,
-                   final: bool, skip=None, skip_w=None):
+    def _window_form_for(self, op: LevelOperator):
+        """`window_cat` of the level's operator in the compute dtype, built
+        once per operator tensor and rebuilt when it is updated in place."""
+        src = op.band_val
+        hit = self._window_forms.get(id(src))
+        if hit is None or hit[0] is not src or hit[1] != (src._version, self.dtype):
+            hit = (src, (src._version, self.dtype), window_cat(src.to(self.dtype)))
+            self._window_forms[id(src)] = hit
+        return hit[2]
+
+    def _band_conv(self, op: LevelOperator, x, lin: nn.Linear, route: str, *,
+                   relu: bool, final: bool, skip=None, skip_w=None):
+        """One deploy conv on a band level by `route`: "unfused" or a
+        `flat_route` kernel family."""
         fout, fin_k = lin.weight.shape
-        commuted = fout < fin_k // self.K and skip is None and not final
-        W, b = self._band_weights_for(lin, commuted)
+        fin = fin_k // self.K
         band = op.band_val.to(self.dtype)
         x = x.to(self.dtype).contiguous()
-        if commuted:
-            return fused_cheby_conv_commuted(band, x, W, b, relu=relu)
         if skip is not None:
             skip = skip.to(self.dtype).contiguous()
+        if route == "unfused":
+            W, b = self._band_weights_for(lin, False)
+            y = cheby_project_unfused(band, x, W, b)
+            return torch.relu(y) if relu else y
+        if route == "strip":
+            mode = strip_mode(fin, fout)
+            W, b = self._band_weights_for(lin, mode == "commuted")
+            return strip_cheby_conv(op.strip_val.to(self.dtype), op.strip_off, op.strip_h,
+                                    x, W, b, mode=mode, relu=relu, skip=skip,
+                                    skip_w=skip_w)
+        if route == "window":
+            W, b = self._band_weights_for(lin, False)
+            win, woff = self._window_form_for(op)
+            return window_cheby_conv(win, woff, x, W, b, relu=relu, skip=skip,
+                                     skip_w=skip_w)
+        commuted = fout < fin and skip is None and not final
+        W, b = self._band_weights_for(lin, commuted)
+        if commuted:
+            return fused_cheby_conv_commuted(band, x, W, b, relu=relu)
         return fused_cheby_conv(band, x, W, b, relu=relu, skip=skip, skip_w=skip_w)
 
     def _ops(self, art: PyramidArtifact) -> Tuple[LevelOperator, ...]:
@@ -200,6 +246,10 @@ class MeshNet(nn.Module):
         for i, chans in enumerate(self.blocks):
             op = ops[i]
             band = op.kind == "band"
+            route = None
+            if band:
+                route = flat_route(op, self.flat_impl) if self.fused else "unfused"
+            fuse_skip = band and self.fused
             if band and x.shape[0] != op.padded_vertices:
                 # band level straight after the FC: pad rows once
                 x = F.pad(x, (0, 0, 0, 0, 0, op.padded_vertices - x.shape[0]))
@@ -213,19 +263,20 @@ class MeshNet(nn.Module):
                     x = self._dense_conv(op, x, lin, relu=not final)
                     continue
                 skip = skip_w = None
-                if has_skip and li == len(chans) - 2:
+                if fuse_skip and has_skip and li == len(chans) - 2:
                     skip = input_x
                     if chans[0] != chans[-1]:
                         skip_w = self._skip_w(chans[0], chans[-1],
                                               self.dtype, x.device)
-                x = self._band_conv(op, x, lin, relu=not final, final=final,
+                x = self._band_conv(op, x, lin, route, relu=not final, final=final,
                                     skip=skip, skip_w=skip_w)
 
             if i == 0:
                 x = self._fc_upsample(x, B)
             elif i < n_blocks - 1:
-                if not band:
-                    # channel-interpolated residual skip (fused on band levels)
+                if not fuse_skip:
+                    # channel-interpolated residual skip (fused into the
+                    # fused kernels' last conv)
                     x = self._skip(x, input_x)
                 if i < n_blocks - 2:
                     # x2 nearest vertex upsample: a precomputed gather
@@ -262,7 +313,8 @@ class MeshNet(nn.Module):
     def _band_block(self, op: LevelOperator, x, convs, bns, train: bool):
         """One block's convs on a band level, as the JAX fold chain: a conv
         that is not the block's last hands its BatchNorm affine to the next
-        conv's input read.  bns[li] is None for the network's last conv."""
+        conv's input read.  bns[li] is None for the network's last conv.
+        fused=False: a conv without fold or stats takes the unfused form."""
         band = op.band_val.to(self.dtype)
         fold = None
         for li, (lin, bn) in enumerate(zip(convs, bns)):
@@ -270,8 +322,8 @@ class MeshNet(nn.Module):
             x = x.to(self.dtype).contiguous()
             stats = train and bn is not None
             if fold is None:
-                conv = fused_cheby_project_stats if stats else fused_cheby_project
-                out = conv(band, x, W, b)
+                out = (fused_cheby_project_stats(band, x, W, b) if stats
+                       else fused_cheby_project(band, x, W, b, fused=self.fused))
             else:
                 conv = (fused_cheby_project_folded_stats if stats
                         else fused_cheby_project_folded)
@@ -314,6 +366,36 @@ class MeshNet(nn.Module):
                     x = x.index_select(0, art.up_idx[n_mesh - i - 1])
         # (V, B, 3) -> (B, V, 3); coordinates leave the net in float32
         return x.transpose(0, 1).float()
+
+
+FLAT_IMPLS = ("group", "strip", "window")
+
+
+def flat_route(op: LevelOperator, impl: str) -> str:
+    """The kernel family a deploy conv on band level `op` takes under `impl`,
+    by the level's shapes, as the JAX package's `fused_conv_flat_dispatch`
+    does under P2M_FLAT_IMPL without its VMEM-size limits: "strip" where the
+    level has a strip form, "window" where it has nt >= 2k+1 row tiles,
+    else "group"."""
+    if impl not in FLAT_IMPLS:
+        raise ValueError(f"flat_impl={impl!r}: expected one of {FLAT_IMPLS}")
+    if impl == "strip" and op.strip_h and op.strip_val.numel() \
+            and op.strip_val.shape[0] >= op.strip_val.shape[1]:
+        return "strip"
+    if impl == "window" and op.band_val.shape[1] >= 2 * op.band_k + 1:
+        return "window"
+    return "group"
+
+
+def _check_path(flat_impl: str, fused: bool) -> Tuple[str, bool]:
+    if flat_impl not in FLAT_IMPLS:
+        raise ValueError(f"flat_impl={flat_impl!r}: expected one of {FLAT_IMPLS}")
+    if not isinstance(fused, bool):
+        raise ValueError(f"fused={fused!r}: expected True or False")
+    if not fused and flat_impl != "group":
+        raise ValueError(f"flat_impl={flat_impl!r} picks fused kernels; fused=False "
+                         f"takes none")
+    return flat_impl, fused
 
 
 def extract_mesh(art: PyramidArtifact, mesh_out: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ folded into its convs (load a state dict passed through
 `models.fold.fold_bn_variables`), and the cascade only evaluates; with
 `inference_fused=False` it is the training form and `forward(..., train=True,
 generator=g)` runs the training forward (batch statistics, dropout drawn
-from g).
+from g).  `flat_impl` and `fused` pick MeshNet's band-conv kernels (see
+`models.meshnet`).
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ class Pose2Mesh(nn.Module):
                  posenet_hidden: int = 4096,
                  blocks: Optional[Sequence[Sequence[int]]] = None,
                  dtype: torch.dtype = torch.float32,
-                 inference_fused: bool = True, dropout: float = 0.5,
+                 inference_fused: bool = True, flat_impl: str = "group",
+                 fused: bool = True, dropout: float = 0.5,
                  device: str | torch.device | None = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -48,7 +50,7 @@ class Pose2Mesh(nn.Module):
         self.pose2mesh = MeshNet(
             num_joint, coarse_vertices,
             blocks=blocks or (MANO_BLOCKS if mano else SMPL_BLOCKS), dtype=dtype,
-            inference_fused=inference_fused)
+            inference_fused=inference_fused, flat_impl=flat_impl, fused=fused)
         self.reset_parameters(generator)
         self.to(dev)
         self.eval()

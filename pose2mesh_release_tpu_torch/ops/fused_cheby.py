@@ -93,6 +93,23 @@ def _check_shapes(band_val, x, W, b):
     return nbd // 2, nt, T, x.shape[1], Fin, W.shape[1]
 
 
+def _check_skip(x, Fout: int, skip, skip_w) -> int:
+    """The skip's width Fs (0 without a skip), after checking its shapes:
+    skip (rows, B, Fs) as x, skip_w (Fs, Fout) or, for a plain add, Fs = Fout."""
+    if skip is None:
+        if skip_w is not None:
+            raise ValueError("skip_w given without skip")
+        return 0
+    Fs = skip.shape[-1]
+    if skip.shape != x.shape[:2] + (Fs,):
+        raise ValueError(f"skip must be {tuple(x.shape[:2])} + (Fs,), got {tuple(skip.shape)}")
+    if skip_w is None and Fs != Fout:
+        raise ValueError(f"skip-add needs Fs == Fout ({Fs} vs {Fout})")
+    if skip_w is not None and skip_w.shape != (Fs, Fout):
+        raise ValueError(f"skip_w must be ({Fs}, {Fout}), got {tuple(skip_w.shape)}")
+    return Fs
+
+
 def _check_cuda(x, T, Fin, **tensors):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -168,19 +185,7 @@ def fused_cheby_conv(band_val, x, W, b, *, relu: bool,
     basis-major; b (Fout,); skip (nt*T, B, Fs); skip_w (Fs, Fout).
     Returns (nt*T, B, Fout) in x's dtype."""
     k, nt, T, B, Fin, Fout = _check_shapes(band_val, x, W, b)
-    Fs = 0
-    if skip is not None:
-        Fs = skip.shape[-1]
-        if skip.shape != (x.shape[0], B, Fs):
-            raise ValueError(f"skip must be ({x.shape[0]}, {B}, Fs), "
-                             f"got {tuple(skip.shape)}")
-        if skip_w is None and Fs != Fout:
-            raise ValueError(f"skip-add needs Fs == Fout ({Fs} vs {Fout})")
-        if skip_w is not None and skip_w.shape != (Fs, Fout):
-            raise ValueError(f"skip_w must be ({Fs}, {Fout}), "
-                             f"got {tuple(skip_w.shape)}")
-    elif skip_w is not None:
-        raise ValueError("skip_w given without skip")
+    Fs = _check_skip(x, Fout, skip, skip_w)
     if x.device.type == "cpu":
         return fused_cheby_conv_plain(band_val, x, W, b, relu=relu,
                                       skip=skip, skip_w=skip_w)

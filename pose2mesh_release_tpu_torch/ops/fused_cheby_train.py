@@ -5,7 +5,8 @@ Counterpart of the training half of the JAX package's `ops/pallas_cheby.py`:
   fused_cheby_conv_train  <- _fused_call (Pallas; CUDA csrc/fused_cheby_train.cu)
       u = x, or relu(x*s + c) with in_fold = (s, c)
       y = [u, Lu, 2L(Lu) - u] @ W + b, with emit_stats also the float32
-      per-channel sums (sum y, sum y^2) over the real V*B rows
+      per-channel sums (sum y, sum y^2) over the real V*B rows, or with
+      keep_basis also the basis z1 = Lu, z2 = 2L z1 - u (no gradient)
   fused_cheby_conv_bwd    <- _fused_bwd_call (Pallas; CUDA csrc/fused_cheby_bwd.cu)
       g1 = Lg, h2 = 2L g1 - g, G = [g, g1, h2]; dx = G @ [W0^T; W1^T; W2^T]
       (through the fold's mask and scale), dW = u^T G basis-major, db = sum g,
@@ -22,6 +23,10 @@ VJPs `_fused`, `_fused_stats`, `_fused_fold` and `_fused_fold_stats`: its
 backward is the fused backward, never autograd through the forward.  With
 stats it first folds their cotangents into the output's, g = gy + gs +
 2 y gs2 in float32 rounded to y's dtype, as the JAX VJPs do.
+
+`fused_cheby_project(..., fused=False)` is the JAX package's unfused conv
+(P2M_FUSED=0): two differentiable hops (`ops.hop.banded_hop`), 2 L z1 - x in
+x's dtype, and three projections with float32 accumulation.
 
 Each kernel wrapper runs the plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on the card, counting the launch in
@@ -40,11 +45,12 @@ import torch.nn.functional as F
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _MAX_SMEM, _T, _check_cuda, _pad_cols, _ptr, \
     _raise_on, _stream
+from .hop import banded_hop
 from .spmm import band_hop
 
 __all__ = ["fused_cheby_conv_train", "fused_cheby_conv_bwd",
            "fused_cheby_conv_train_plain", "fused_cheby_conv_bwd_plain",
-           "fused_cheby_project", "fused_cheby_project_stats",
+           "fused_cheby_project", "fused_cheby_project_stats", "cheby_project_unfused",
            "fused_cheby_project_folded", "fused_cheby_project_folded_stats",
            "launches"]
 
@@ -78,7 +84,7 @@ def _hops(band_val, u):
 
 
 def fused_cheby_conv_train_plain(band_val, x, W, b, *, in_fold: Fold = None,
-                                 emit_stats: bool = False):
+                                 emit_stats: bool = False, keep_basis: bool = False):
     """Plain PyTorch version of `fused_cheby_conv_train`."""
     dt, Fin = x.dtype, x.shape[-1]
     u = x
@@ -92,6 +98,8 @@ def fused_cheby_conv_train_plain(band_val, x, W, b, *, in_fold: Fold = None,
     y = acc.to(dt)
     if emit_stats:
         return y, acc.sum((0, 1)), (acc * acc).sum((0, 1))
+    if keep_basis:
+        return y, z1, z2
     return y
 
 
@@ -168,7 +176,7 @@ def _chunk(C: int, k: int, extra: int) -> int:
 @functools.cache
 def _train_lib():
     lib = load_library("fused_cheby_train")
-    lib.p2m_train_conv.argtypes = [_C_PTR] * 9 + [_C_INT] * 11 + [_C_PTR]
+    lib.p2m_train_conv.argtypes = [_C_PTR] * 11 + [_C_INT] * 12 + [_C_PTR]
     lib.p2m_train_conv.restype = _C_INT
     lib.p2m_train_conv_error_string.argtypes = [_C_INT]
     lib.p2m_train_conv_error_string.restype = ctypes.c_char_p
@@ -186,17 +194,21 @@ def _bwd_lib():
 
 
 def fused_cheby_conv_train(band_val, x, W, b, *, in_fold: Fold = None,
-                           emit_stats: bool = False):
+                           emit_stats: bool = False, keep_basis: bool = False):
     """y = [u, Lu, 2L(Lu) - u] @ W + b with u = x or relu(x*s + c).
 
     band_val (2k+1, nt, T, T); x (V, B, F), V <= nt*T; W (3F, Fout)
     basis-major; b (Fout,); in_fold (s, c) two (F,) vectors.  Returns y
-    (V, B, Fout) in x's dtype, and with emit_stats (y, sum_y, sum_y2), the
-    sums float32 (Fout,) over the V*B rows of the float32 y before rounding."""
+    (V, B, Fout) in x's dtype; with emit_stats (y, sum_y, sum_y2), the sums
+    float32 (Fout,) over the V*B rows of the float32 y before rounding; with
+    keep_basis (y, z1, z2), z1 = Lu and z2 = 2L z1 - u (V, B, F) in x's dtype.
+    emit_stats and keep_basis exclude each other, as in the TPU kernel."""
     k, nt, T, Fin, Fout = _check_train(band_val, x, W, b)
+    if emit_stats and keep_basis:
+        raise ValueError("keep_basis and emit_stats exclude each other")
     if x.device.type == "cpu":
         return fused_cheby_conv_train_plain(band_val, x, W, b, in_fold=in_fold,
-                                            emit_stats=emit_stats)
+                                            emit_stats=emit_stats, keep_basis=keep_basis)
     fold = _fold_args(in_fold, Fin, x.device)
     _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **fold)
     V, B = x.shape[:2]
@@ -206,19 +218,24 @@ def fused_cheby_conv_train(band_val, x, W, b, *, in_fold: Fold = None,
     grid = min(nt * B * (fo_pad // fo), 2 * _sm_count(x.device))
     Wp = _pad_cols(W, fo_pad)
     out = torch.empty((V, B, Fout), dtype=x.dtype, device=x.device)
-    part = stats = None
+    part = stats = z1 = z2 = None
     if emit_stats:
         part = torch.empty((grid, 2 * Fout), dtype=torch.float32, device=x.device)
         stats = torch.empty((2, Fout), dtype=torch.float32, device=x.device)
+    if keep_basis:
+        z1, z2 = torch.empty_like(x), torch.empty_like(x)
     lib = _train_lib()
     with torch.cuda.device(x.device):
         err = lib.p2m_train_conv(
             _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(fold.get("fold_s")),
-            _ptr(fold.get("fold_c")), _ptr(out), _ptr(part), _ptr(stats),
-            V, nt, k, B, Fin, Fout, fo_pad, int(emit_stats), fc, fo, grid, _stream(x))
+            _ptr(fold.get("fold_c")), _ptr(out), _ptr(part), _ptr(stats), _ptr(z1),
+            _ptr(z2), V, nt, k, B, Fin, Fout, fo_pad, int(emit_stats), int(keep_basis),
+            fc, fo, grid, _stream(x))
     _raise_on(err, lib, "p2m_train_conv_error_string")
     launches["fused_cheby_conv_train"] += 1
-    return (out, stats[0], stats[1]) if emit_stats else out
+    if emit_stats:
+        return out, stats[0], stats[1]
+    return (out, z1, z2) if keep_basis else out
 
 
 def fused_cheby_conv_bwd(band_val, g, x, W, *, in_fold: Fold = None):
@@ -276,8 +293,8 @@ def fused_cheby_conv_bwd(band_val, g, x, W, *, in_fold: Fold = None):
 
 class _FusedChebyConv(torch.autograd.Function):
     """The training conv with the fused backward as its gradient; mirrors the
-    JAX custom VJPs `_fused` (no fold, no stats), `_fused_stats`,
-    `_fused_fold` and `_fused_fold_stats`."""
+    JAX custom VJPs `_fused` (no fold, no stats), `_fused_stats`, `_fused_fold`
+    and `_fused_fold_stats`."""
 
     @staticmethod
     def forward(ctx, band_val, x, W, b, scale, shift, emit_stats):
@@ -307,9 +324,26 @@ class _FusedChebyConv(torch.autograd.Function):
         return None, gx, dW.to(W.dtype), db.to(ctx.b_dtype), ds, dc, None
 
 
-def fused_cheby_project(band_val, x, W, b):
-    """Training conv y = [x, Lx, 2L(Lx) - x] @ W + b (JAX `fused_cheby_project`
-    on its fused path): x (V, B, F), W (3F, Fout) basis-major."""
+def cheby_project_unfused(band_val, x, W, b):
+    """The unfused conv (JAX `fused_cheby_project` with P2M_FUSED=0):
+    z1 = L x and z2 = 2 L z1 - x by two differentiable hops, z2 formed in x's
+    dtype, then x W0 + z1 W1 + z2 W2 + b accumulated in float32 and rounded
+    to x's dtype.  x (V, B, F) with V <= nt*T rows."""
+    Fin = x.shape[-1]
+    z1 = banded_hop(band_val, x)
+    z2 = 2.0 * banded_hop(band_val, z1) - x
+    Wf = W.float()
+    y = (x.float() @ Wf[:Fin] + z1.float() @ Wf[Fin:2 * Fin]
+         + z2.float() @ Wf[2 * Fin:])
+    return (y + b.float()).to(x.dtype)
+
+
+def fused_cheby_project(band_val, x, W, b, *, fused: bool = True):
+    """Training conv y = [x, Lx, 2L(Lx) - x] @ W + b (JAX `fused_cheby_project`):
+    x (V, B, F), W (3F, Fout) basis-major.  fused: the fused conv K1 with its
+    backward K2 (else `cheby_project_unfused`)."""
+    if not fused:
+        return cheby_project_unfused(band_val, x, W, b)
     return _FusedChebyConv.apply(band_val, x, W, b, None, None, False)
 
 

@@ -1,0 +1,99 @@
+"""One banded Laplacian hop, z = L x: the hop of the unfused Chebyshev conv.
+
+Counterpart of the JAX package's `banded_hop` (ops/pallas_cheby.py; Pallas
+`_hop_call`, CUDA csrc/banded_hop.cu).  x is vertex-major (V, ...) with
+V <= nt*T rows: the training layout at the real row count (missing rows
+read as zero) or the deploy layout at the padded count.  The product
+accumulates in float32 and rounds once to x's dtype.
+
+`hop` is the kernel wrapper: the plain PyTorch version for a tensor on the
+CPU, the CUDA kernel for a tensor on the card (counted in `launches`), and
+no fallback.  `banded_hop` is differentiable: L is symmetric, so its
+backward is the same hop on the cotangent, and the band gets no gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..graphs.artifact import LevelOperator
+from ._build import load_library
+from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _ptr, _raise_on, _stream
+from .spmm import band_hop
+
+__all__ = ["banded_hop", "hop", "hop_plain", "launches"]
+
+# kernel launches since the last reset, by wrapper name
+launches = {"banded_hop": 0}
+
+
+def hop_plain(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `hop`."""
+    nbd, nt, T, _ = band_val.shape
+    V, dt = x.shape[0], x.dtype
+    x2 = F.pad(x.reshape(V, -1), (0, 0, 0, nt * T - V))
+    return band_hop(band_val.to(dt), x2).to(dt)[:V].reshape(x.shape)
+
+
+@functools.cache
+def _hop_lib():
+    lib = load_library("banded_hop")
+    lib.p2m_banded_hop.argtypes = [_C_PTR] * 3 + [_C_INT] * 5 + [_C_PTR]
+    lib.p2m_banded_hop.restype = _C_INT
+    lib.p2m_banded_hop_error_string.argtypes = [_C_INT]
+    lib.p2m_banded_hop_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def hop(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """L @ x for band_val (2k+1, nt, T, T) and x (V, ...), V <= nt*T; the
+    result has x's shape and dtype."""
+    if band_val.dim() != 4 or band_val.shape[0] not in (3, 5) \
+            or band_val.shape[2] != band_val.shape[3]:
+        raise ValueError(f"band_val must be (2k+1, nt, T, T) with k in {{1, 2}}, "
+                         f"got {tuple(band_val.shape)}")
+    nbd, nt, T, _ = band_val.shape
+    if x.dim() < 2 or not 0 < x.shape[0] <= nt * T:
+        raise ValueError(f"x must be (V, ...) with V <= {nt * T}, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return hop_plain(band_val, x)
+    V, C = x.shape[0], x[0].numel()
+    _check_cuda(x, T, C, band_val=band_val)
+    cc = next(c for c in (128, 64, 32, 16) if C % c == 0)
+    out = torch.empty_like(x)
+    lib = _hop_lib()
+    with torch.cuda.device(x.device):
+        err = lib.p2m_banded_hop(_ptr(band_val), _ptr(x), _ptr(out), V, nt, nbd // 2, C,
+                                 cc, _stream(x))
+    _raise_on(err, lib, "p2m_banded_hop_error_string")
+    launches["banded_hop"] += 1
+    return out
+
+
+class _BandedHop(torch.autograd.Function):
+    """z = L x with the backward g -> L g (L symmetric); the JAX custom VJP
+    `_hop`."""
+
+    @staticmethod
+    def forward(ctx, band_val, x):
+        ctx.save_for_backward(band_val)
+        return hop(band_val, x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        (band_val,) = ctx.saved_tensors
+        return None, hop(band_val, g.contiguous())
+
+
+def banded_hop(band, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable z = L x.  band: a band-kind LevelOperator (band_k in
+    {1, 2}) or its band_val."""
+    if isinstance(band, LevelOperator):
+        if band.kind != "band" or not 1 <= band.band_k <= 2:
+            raise ValueError(f"banded_hop needs a band level with band_k in {{1, 2}}, "
+                             f"got kind {band.kind!r}, band_k {band.band_k}")
+        band = band.band_val
+    return _BandedHop.apply(band, x)

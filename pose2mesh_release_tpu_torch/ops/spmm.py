@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from ..graphs.artifact import LevelOperator
 
-__all__ = ["spmm", "spmm_dense", "spmm_band", "band_hop"]
+__all__ = ["spmm", "spmm_dense", "spmm_band", "spmm_bcsr", "spmm_ell", "band_hop"]
 
 
 def spmm_dense(op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
@@ -45,9 +45,38 @@ def spmm_band(op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
     return y[:V].reshape(x.shape)
 
 
-def spmm(op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
-    if op.kind == "dense":
-        return spmm_dense(op, x)
-    if op.kind == "band":
-        return spmm_band(op, x)
-    raise NotImplementedError(f"spmm for level kind {op.kind!r}")
+def spmm_bcsr(op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
+    """Block-sparse-row SpMM: row tile t sums blk_val[t, b] @ x[tile
+    blk_col[t, b]] over its blocks."""
+    T, V = op.block_size, op.num_vertices
+    nt, maxb = op.blk_col.shape
+    x2 = x.reshape(V, -1)
+    C = x2.shape[1]
+    xt = F.pad(x2, (0, 0, 0, nt * T - V)).reshape(nt, T, C)
+    gathered = xt.index_select(0, op.blk_col.reshape(-1)).reshape(nt, maxb, T, C)
+    y = torch.einsum("nbpq,nbqc->npc", op.blk_val.to(x.dtype).float(),
+                     gathered.float())
+    return y.to(x.dtype).reshape(nt * T, C)[:V].reshape(x.shape)
+
+
+def spmm_ell(op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
+    """ELLPACK SpMM: y[v] = sum_d ell_w[v, d] * x[ell_idx[v, d]]."""
+    x2 = x.reshape(x.shape[0], -1)
+    nbrs = x2.index_select(0, op.ell_idx.reshape(-1)).reshape(
+        op.ell_idx.shape + (x2.shape[1],))
+    y = torch.einsum("vdc,vd->vc", nbrs.float(), op.ell_w.to(x.dtype).float())
+    return y.to(x.dtype).reshape(x.shape)
+
+
+_STRATEGIES = {"dense": spmm_dense, "band": spmm_band, "bcsr": spmm_bcsr,
+               "ell": spmm_ell}
+
+
+def spmm(op: LevelOperator, x: torch.Tensor, *,
+         strategy: str | None = None) -> torch.Tensor:
+    """L @ x by the operator's packed kind, or by `strategy` ("dense",
+    "band", "bcsr", "ell") when given."""
+    kind = strategy or op.kind
+    if kind not in _STRATEGIES:
+        raise ValueError(f"unknown spmm strategy: {kind}")
+    return _STRATEGIES[kind](op, x)

@@ -1,13 +1,17 @@
 """Where the time of the SMPL deploy forward goes, on one GPU.
 
     python -m pose2mesh_release_tpu_torch.tools.profile_forward [--batch 64]
+        [--flat-impl group|strip|window] [--unfused]
 
-Builds the deploy forward of `deploy.smpl_deploy_forward` (bf16), warms it
-up, then traces `--steps` forwards with torch.profiler and prints: the wall
-time per forward (host clock around synchronized forwards, outside the
-trace), the device time per forward by kernel, grouped into the port's band
-kernels, matrix products and the rest, and the device's idle share of the
-traced window.  Needs a CUDA device; writes chiprun_out/profile_forward.json.
+Builds the deploy forward of `deploy.smpl_deploy_forward` (bf16) on the
+chosen path (the band convs' kernels: `--flat-impl`, or `--unfused` for two
+hops and three projections per conv), warms it up, then traces `--steps`
+forwards with torch.profiler and prints: the wall time per forward (host
+clock around synchronized forwards, outside the trace), the device time per
+forward by kernel, grouped into the port's band kernels, matrix products and
+the rest, and the device's idle share of the traced window.  Needs a CUDA
+device; writes chiprun_out/profile_forward.json (the group path) or
+chiprun_out/profile_forward_<path>.json.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..deploy import smpl_deploy_forward
 
-GROUPS = (("band kernels", ("fused_cheby_kernel", "commuted_kernel")),
+GROUPS = (("band kernels", ("fused_cheby_kernel", "commuted_kernel", "strip_hop_kernel",
+                            "proj_kernel", "window_cheby_kernel", "hop_kernel")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
@@ -37,13 +42,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--flat-impl", choices=("group", "strip", "window"), default="group")
+    ap.add_argument("--unfused", action="store_true",
+                    help="fused=False: each band conv as two hops and three projections")
     args = ap.parse_args(argv)
+    if args.unfused and args.flat_impl != "group":
+        ap.error("--unfused takes no fused kernels: leave --flat-impl at group")
+    path = "unfused" if args.unfused else args.flat_impl
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: CUDA is not available")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    d = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0)
+    d = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0,
+                            flat_impl=args.flat_impl, fused=not args.unfused)
     g = torch.Generator().manual_seed(1)
     pose2d = torch.randn(args.batch, 17, 2, generator=g).cuda()
     for _ in range(3):
@@ -78,7 +90,7 @@ def main(argv=None) -> int:
         groups[name] += us / 1e3 / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     result = {
-        "card": card, "batch": args.batch, "steps": args.steps,
+        "card": card, "path": path, "batch": args.batch, "steps": args.steps,
         "wall_ms_per_forward": walls,
         "traced_wall_ms_per_forward": traced_ms / args.steps,
         "device_ms_per_forward": device_ms,
@@ -88,6 +100,7 @@ def main(argv=None) -> int:
         "top_kernels_ms_per_forward": [(k, us / 1e3 / args.steps) for k, us in top],
     }
     print(card)
+    print(f"path {path}")
     print(f"wall ms per forward: {[round(w, 3) for w in walls]}")
     print(f"device ms per forward: {device_ms:.3f}; idle share of the traced "
           f"window: {result['device_idle_share']}")
@@ -98,7 +111,8 @@ def main(argv=None) -> int:
     if device_ms == 0:
         print("the profiler recorded no device time: device breakdown not measured")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_forward.json"), "w") as f:
+    name = "profile_forward" + ("" if path == "group" else f"_{path}")
+    with open(os.path.join("chiprun_out", f"{name}.json"), "w") as f:
         json.dump(result, f, indent=1)
     return 0
 

@@ -1,5 +1,7 @@
-"""PyTorch port: the packed pyramid equals the JAX package's, and the port
-imports no JAX."""
+"""PyTorch port: the packed pyramid equals the JAX package's (every level
+form: dense, band, strip, ELL, BCSR), the npz artifact round-trips between
+the two packages in both directions, spmm's strategies agree with the JAX
+ones, and the port imports no JAX."""
 import contextlib
 import os
 import subprocess
@@ -10,11 +12,17 @@ import pytest
 import scipy.sparse.linalg
 import torch
 
+import jax.numpy as jnp
+
+from pose2mesh_release_tpu.graphs import artifact as jax_artifact
 from pose2mesh_release_tpu.graphs.artifact import pack_pyramid as jax_pack_pyramid
 from pose2mesh_release_tpu.graphs.build import build_pyramid as jax_build_pyramid
+from pose2mesh_release_tpu.ops import spmm as jax_spmm
 from pose2mesh_release_tpu_torch.body.synthetic import uv_sphere
+from pose2mesh_release_tpu_torch.graphs import artifact
 from pose2mesh_release_tpu_torch.graphs.artifact import pack_pyramid
 from pose2mesh_release_tpu_torch.graphs.build import build_pyramid
+from pose2mesh_release_tpu_torch.ops import spmm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKEL = [(0, 1), (1, 2), (2, 3), (3, 4), (1, 5), (5, 6)]
@@ -112,8 +120,11 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import pose2mesh_release_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "ops = {'hop', 'strip_cheby', 'window_cheby', 'fused_cheby', 'fused_cheby_train'}\n"
+        "assert ops <= {n.rsplit('.', 1)[-1] for n in names}, names\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'pose2mesh_release_tpu'))\n"
         "print(bad)\n"
@@ -121,3 +132,101 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+OP_FIELDS = ("dense", "band_val", "blk_col", "blk_val", "ell_idx", "ell_w", "strip_val")
+OP_META = ("kind", "num_vertices", "block_size", "band_k", "strip_h", "band_bw")
+
+
+def assert_ops_equal(op, ref, strip_offsets=True):
+    """Port LevelOperator == JAX LevelOperator, field for field."""
+    for f in OP_META:
+        assert getattr(op, f) == getattr(ref, f), f
+    for f in OP_FIELDS:
+        np.testing.assert_array_equal(getattr(op, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    if strip_offsets and ref.strip_h:
+        Vp, W = op.strip_val.shape
+        want = [jax_artifact.strip_offset(t, ref.strip_h, W, Vp)
+                for t in range(Vp // ref.strip_h)]
+        np.testing.assert_array_equal(op.strip_off.numpy(), want)
+
+
+def assert_artifacts_equal(art, ref):
+    for op, r in zip(art.mesh_ops + (art.joint_op,), ref.mesh_ops + (ref.joint_op,)):
+        assert_ops_equal(op, r)
+    assert len(art.up_idx) == len(ref.up_idx)
+    for u, r in zip(art.up_idx, ref.up_idx):
+        np.testing.assert_array_equal(u.numpy(), np.asarray(r))
+    for f in ("vertex_gather", "faces"):
+        np.testing.assert_array_equal(getattr(art, f).numpy(), np.asarray(getattr(ref, f)))
+    assert (art.joint_num, art.num_vertices) == (ref.joint_num, ref.num_vertices)
+
+
+@pytest.fixture(scope="module")
+def sphere_pyramids():
+    """uv_sphere(770) pyramid (two band levels) packed by both packages at
+    strip_h 64."""
+    faces = uv_sphere(770)[1]
+    with fixed_eigsh_start():
+        pyr = build_pyramid(faces, joint_num=7, skeleton=SKEL, levels=4)
+        ref = jax_pack_pyramid(pyr, faces, dense_threshold=300, strip_h=64)
+        art = pack_pyramid(pyr, faces, dense_threshold=300, strip_h=64, device="cpu")
+    return pyr, ref, art
+
+
+def test_level_forms_equal_to_jax(sphere_pyramids):
+    """Dense, band, strip (values, width, offsets), ELL and the scalar
+    bandwidth of every level, and BCSR at two tile sizes."""
+    pyr, ref, art = sphere_pyramids
+    assert [op.kind for op in art.mesh_ops][:2] == ["band", "band"]
+    assert all(op.strip_h == 64 for op in art.mesh_ops if op.kind == "band")
+    assert_artifacts_equal(art, ref)
+    import scipy.sparse as sp
+    L = sp.csr_matrix(pyr.mesh_laplacians[0])
+    for T in (128, 64):
+        assert_ops_equal(artifact._make_level_op(L, "bcsr", T),
+                         jax_artifact._make_level_op(L, "bcsr", T))
+
+
+def test_npz_from_jax_loads_into_the_port(sphere_pyramids, tmp_path):
+    _, ref, art = sphere_pyramids
+    path = str(tmp_path / "jax_art.npz")
+    jax_artifact.save_artifact(path, ref)
+    got = artifact.load_artifact(path, device="cpu")
+    assert_artifacts_equal(got, ref)
+    assert got.vertex_gather.dtype == torch.int64 and got.up_idx[0].dtype == torch.int64
+    assert got.mesh_ops[0].strip_off.dtype == torch.int32
+
+
+def test_npz_from_the_port_loads_into_jax(sphere_pyramids, tmp_path):
+    _, ref, art = sphere_pyramids
+    path = str(tmp_path / "port_art.npz")
+    artifact.save_artifact(path, art)
+    got = jax_artifact.load_artifact(path)
+    assert_artifacts_equal(art, got)
+    for op, r in zip(got.mesh_ops, ref.mesh_ops):
+        for f in OP_FIELDS:
+            assert np.asarray(getattr(op, f)).dtype == np.asarray(getattr(r, f)).dtype, f
+    assert got.face_inv == () and np.asarray(got.face_perm).size == 0
+    # and back into the port
+    artifact.save_artifact(path, artifact.load_artifact(path, device="cpu"))
+    assert_artifacts_equal(artifact.load_artifact(path, device="cpu"), ref)
+
+
+@pytest.mark.parametrize("strategy", ["dense", "band", "bcsr", "ell"])
+def test_spmm_strategies_match_jax(sphere_pyramids, strategy):
+    """spmm(op, x, strategy=...) == the JAX spmm on the same level form."""
+    import scipy.sparse as sp
+    pyr, _, _ = sphere_pyramids
+    L = sp.csr_matrix(pyr.mesh_laplacians[0])
+    kind = "dense" if strategy in ("dense", "ell") else strategy
+    op_j = jax_artifact._make_level_op(L, kind, 128)
+    op_t = artifact._make_level_op(L, kind, 128)
+    x = np.random.default_rng(4).standard_normal((L.shape[0], 2, 3)).astype(np.float32)
+    want = jax_spmm.spmm(op_j, jnp.asarray(x), strategy=strategy)
+    got = spmm.spmm(op_t, torch.from_numpy(x), strategy=strategy)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError):
+        spmm.spmm(op_t, torch.from_numpy(x), strategy="csr")

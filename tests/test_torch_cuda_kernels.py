@@ -2,8 +2,10 @@
 shapes the SMPL path does not reach (every input-channel chunk size, output
 widths that are not multiples of 16 or 32, band_k in {1, 2}, row counts that
 are not a multiple of the 128-row tile), the wrappers' input checks, a small
-deploy MeshNet, and the training kernels' determinism (equal bits run to
-run).
+deploy MeshNet on each path, and the training kernels' determinism (equal
+bits run to run).  Kernels: the group deploy convs, the training conv K1 (and
+its keep_basis outputs) and its backward K2, the single hop K4, the strip
+conv K5 and the window conv K6.
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -24,6 +26,9 @@ from pose2mesh_release_tpu_torch.graphs.artifact import _make_level_op
 from pose2mesh_release_tpu_torch.models.meshnet import channel_interp_matrix
 from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
 from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
+from pose2mesh_release_tpu_torch.ops import hop as hp
+from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
+from pose2mesh_release_tpu_torch.ops import window_cheby as wc
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -37,8 +42,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def band_level(k: int, V: int = 900, seed: int = 0):
-    """Random symmetric operator of V rows with block-bandwidth exactly k."""
+def band_level(k: int, V: int = 900, seed: int = 0, strip_h: int = 0):
+    """Random symmetric operator of V rows with block-bandwidth exactly k
+    (and its strip form of strip_h-row tiles)."""
     T = 128
     bw = k * T - T // 2
     rng = np.random.default_rng(seed)
@@ -48,7 +54,7 @@ def band_level(k: int, V: int = 900, seed: int = 0):
                       shape=(V, V))
     L = ((L + L.T) * 0.5).tolil()
     L[0, bw] = L[bw, 0] = 0.1
-    op = _make_level_op(L.tocsr(), "band", T)
+    op = _make_level_op(L.tocsr(), "band", T, strip_h=strip_h)
     assert op.band_k == k
     return op
 
@@ -135,10 +141,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fc.fused_cheby_conv(band, x, W, b.cpu(), relu=True)
 
 
-def test_small_deploy_meshnet_kernels_vs_plain(cuda, monkeypatch):
+def small_deploy_net(cuda):
+    """A small deploy MeshNet on a strip of triangles (block-tridiagonal band
+    levels with strip forms), bf16, and its input."""
     from pose2mesh_release_tpu_torch.graphs.artifact import pack_pyramid
     from pose2mesh_release_tpu_torch.graphs.build import build_pyramid
-    from pose2mesh_release_tpu_torch.models import meshnet
     from pose2mesh_release_tpu_torch.models.meshnet import MeshNet
 
     w, h = 6, 260  # long strip: block-tridiagonal band levels
@@ -154,6 +161,12 @@ def test_small_deploy_meshnet_kernels_vs_plain(cuda, monkeypatch):
     net = MeshNet(7, art.mesh_ops[-1].num_vertices, blocks=blocks,
                   dtype=torch.bfloat16).to(cuda)
     x = torch.randn(4, 7, 5, generator=torch.Generator().manual_seed(0)).to(cuda)
+    return art, net, x
+
+
+def test_small_deploy_meshnet_kernels_vs_plain(cuda, monkeypatch):
+    from pose2mesh_release_tpu_torch.models import meshnet
+    art, net, x = small_deploy_net(cuda)
     with torch.inference_mode():
         before = dict(fc.launches)
         y = net(art, x)
@@ -299,3 +312,190 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                   W, b)
     with pytest.raises(ValueError):  # cotangent of the wrong width
         ft.fused_cheby_conv_bwd(band, g[..., :8].contiguous(), x, W)
+
+
+# ---- the single hop, the strip and window convs, K1's keep_basis -------------
+
+@pytest.mark.parametrize("k,V,B,F,deploy", [
+    (1, 900, 3, 16, False),   # training layout: rows >= V read as zero
+    (2, 900, 3, 48, False),   # 144 columns: chunk 16
+    (1, 900, 2, 64, True),    # deploy layout at nt*T rows: chunk 128
+    (2, 1849, 5, 32, True),   # 160 columns: chunk 32
+])
+def test_banded_hop_kernel(cuda, k, V, B, F, deploy):
+    op = band_level(k, V=V, seed=60 + k)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    rows = op.padded_vertices if deploy else V
+    x, g = inputs(op, B, [((rows, B, F), 0.5), ((rows, B, F), 1.0)], cuda, 9)
+    xr = x.clone().requires_grad_()
+    before = hp.launches["banded_hop"]
+    y = hp.banded_hop(band, xr)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert hp.launches["banded_hop"] == before + 2
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    assert rel_l2(y.detach()[:V], hp.hop_plain(band.float(), x.float())[:V]) <= TOL
+    assert rel_l2(xr.grad[:V], hp.hop_plain(band.float(), g.float())[:V]) <= TOL
+    if not deploy:
+        assert torch.equal(hp.hop(band, x), y.detach())  # equal bits run to run
+
+
+@pytest.mark.parametrize("k,h,mode,F,Fout,epilogue", [
+    (1, 128, "basis", 16, 16, "relu"),
+    (1, 64, "basis", 48, 40, "skip_add"),       # Fout not a multiple of 16
+    (1, 128, "commuted", 64, 3, "final"),       # the 3-wide final conv
+    (1, 64, "commuted", 256, 128, "relu"),
+    (2, 128, "basis", 96, 64, "skip_proj"),
+    (2, 64, "commuted", 128, 40, "skip_proj"),  # skip projection in the last hop
+    (2, 128, "commuted", 32, 8, "skip_add"),
+])
+def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue):
+    op = band_level(k, seed=70 + k, strip_h=h)
+    S, off = op.strip_val.to(cuda, torch.bfloat16), op.strip_off.to(cuda)
+    Vp, V, B = op.padded_vertices, op.num_vertices, 3
+    Fs = 80 if epilogue == "skip_proj" else Fout
+    x, W, b, skip, skip_w = inputs(op, B, [((Vp, B, F), 0.5),
+                                           ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                           ((Fout,), 0.1), ((Vp, B, Fs), 0.5),
+                                           ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 10)
+    kw = {"mode": mode, "relu": epilogue != "final"}
+    if epilogue in ("skip_add", "skip_proj"):
+        kw["skip"] = skip
+    if epilogue == "skip_proj":
+        kw["skip_w"] = skip_w
+    before = sc.launches["strip_cheby_conv"]
+    y = sc.strip_cheby_conv(S, off, h, x, W, b, **kw)
+    torch.cuda.synchronize()
+    assert sc.launches["strip_cheby_conv"] == before + 1
+    f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
+    ref = sc.strip_cheby_conv_plain(S.float(), off, h, x.float(), W.float(), b.float(),
+                                    **f32)
+    assert y.shape == (Vp, B, Fout) and y.dtype == torch.bfloat16
+    assert rel_l2(y[:V], ref[:V]) <= TOL
+
+
+@pytest.mark.parametrize("k,F,Fout,epilogue", [
+    (1, 16, 16, "relu"),
+    (1, 48, 40, "skip_add"),
+    (1, 32, 3, "final"),
+    (1, 64, 24, "skip_proj"),
+    (2, 256, 128, "relu"),      # band_k 2 at F=256: chunk 32
+    (2, 96, 64, "skip_proj"),
+])
+def test_window_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
+    op = band_level(k, seed=80 + k)
+    win, woff = wc.window_cat(op.band_val.to(cuda, torch.bfloat16))
+    Vp, V, B = op.padded_vertices, op.num_vertices, 3
+    Fs = 2 * Fout if epilogue == "skip_proj" else Fout
+    x, W, b, skip = inputs(op, B, [((Vp, B, F), 0.5),
+                                   ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 11)
+    kw = {"relu": epilogue != "final"}
+    if epilogue in ("skip_add", "skip_proj"):
+        kw["skip"] = skip
+    if epilogue == "skip_proj":
+        kw["skip_w"] = torch.from_numpy(
+            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, torch.bfloat16)
+    before = wc.launches["window_cheby_conv"]
+    y = wc.window_cheby_conv(win, woff, x, W, b, **kw)
+    torch.cuda.synchronize()
+    assert wc.launches["window_cheby_conv"] == before + 1
+    f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
+    ref = wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(), b.float(),
+                                     **f32)
+    assert y.shape == (Vp, B, Fout)
+    assert rel_l2(y[:V], ref[:V]) <= TOL
+
+
+@pytest.mark.parametrize("k,F,Fout,fold", [
+    (1, 64, 32, False),
+    (2, 16, 3, True),
+    (1, 256, 256, True),   # two output slices: the basis is stored once
+])
+def test_train_conv_keep_basis_kernel(cuda, k, F, Fout, fold):
+    op = band_level(k, seed=90 + k)  # 900 rows: the last tile is ragged
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, b, s, c, _ = train_inputs(op, 3, F, Fout, cuda, 12)
+    in_fold = (s, c) if fold else None
+    before = ft.launches["fused_cheby_conv_train"]
+    got = ft.fused_cheby_conv_train(band, x, W, b, in_fold=in_fold, keep_basis=True)
+    torch.cuda.synchronize()
+    assert ft.launches["fused_cheby_conv_train"] == before + 1
+    want = ft.fused_cheby_conv_train_plain(
+        band.float(), x.float(), W.float(), b.float(),
+        in_fold=(s.float(), c.float()) if fold else None, keep_basis=True)
+    assert got[1].shape == got[2].shape == x.shape
+    for name, t, r in zip(("y", "z1", "z2"), got, want):
+        assert rel_l2(t, r) <= TOL, name
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_unfused_conv_and_backward_on_the_card(cuda, k):
+    """fused=False: 2 hop launches forward and 2 backward, no fused conv;
+    its gradients agree with the fused conv's backward K2."""
+    op = band_level(k, seed=100 + k)  # 900 rows: the last tile is ragged
+    band = op.band_val.to(cuda, torch.bfloat16)
+    x, W, b, _, _, g = train_inputs(op, 3, 32, 16, cuda, 14)
+    grads = {}
+    for name, kw in (("fused", {}), ("unfused", {"fused": False})):
+        args = [t.clone().requires_grad_() for t in (x, W, b)]
+        before = {**ft.launches, **hp.launches}
+        y = ft.fused_cheby_project(band, *args, **kw)
+        y.backward(g)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in {**ft.launches, **hp.launches}.items()}
+        want = {"fused": (1, 1, 0), "unfused": (0, 0, 4)}[name]
+        assert (ran["fused_cheby_conv_train"], ran["fused_cheby_conv_bwd"],
+                ran["banded_hop"]) == want, name
+        grads[name] = [t.grad for t in args]
+    for n, got, ref in zip(("dx", "dW", "db"), grads["unfused"], grads["fused"]):
+        assert rel_l2(got, ref) <= TOL, n
+
+
+@pytest.mark.parametrize("path", ["strip", "window", "unfused"])
+def test_small_deploy_meshnet_paths_vs_plain(cuda, monkeypatch, path):
+    """Each further path through its kernels == the same path through the
+    plain versions, and == the group path (bf16)."""
+    from pose2mesh_release_tpu_torch.models import meshnet
+    art, net, x = small_deploy_net(cuda)
+    kw = {"fused": False} if path == "unfused" else {"flat_impl": path}
+    other = meshnet.MeshNet(7, art.mesh_ops[-1].num_vertices, blocks=net.blocks,
+                            dtype=torch.bfloat16, **kw).to(cuda)
+    other.load_state_dict(net.state_dict())
+    counts = {"strip": sc.launches, "window": wc.launches, "unfused": hp.launches}[path]
+    with torch.inference_mode():
+        group = net(art, x)
+        before = sum(counts.values())
+        y = other(art, x)
+        assert sum(counts.values()) > before
+        if path == "unfused":
+            monkeypatch.setattr(hp, "hop", hp.hop_plain)
+        else:
+            name = f"{path}_cheby_conv"
+            monkeypatch.setattr(meshnet, name, getattr({"strip": sc, "window": wc}[path],
+                                                       f"{name}_plain"))
+        ref = other(art, x)
+    assert torch.isfinite(y).all() and y.shape == ref.shape
+    assert rel_l2(y, ref) <= 2e-2 and rel_l2(y, group) <= 2e-2
+
+
+def test_strip_window_hop_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    op = band_level(1, strip_h=128)
+    S, off = op.strip_val.to(cuda, torch.bfloat16), op.strip_off.to(cuda)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    Vp = op.padded_vertices
+    x, W, b = inputs(op, 2, [((Vp, 2, 32), 1.0), ((96, 32), 0.1), ((32,), 0.1)], cuda, 13)
+    with pytest.raises(TypeError):  # float32 activations
+        sc.strip_cheby_conv(S, off, 128, x.float(), W, b, mode="basis", relu=True)
+    with pytest.raises(ValueError):  # offsets not int32
+        sc.strip_cheby_conv(S, off.long(), 128, x, W, b, mode="basis", relu=True)
+    with pytest.raises(ValueError):  # F % 16 != 0
+        sc.strip_cheby_conv(S, off, 128, x[..., :24].contiguous(), W[:72], b,
+                            mode="basis", relu=True)
+    win, woff = wc.window_cat(band)
+    with pytest.raises(ValueError):  # offsets on the CPU
+        wc.window_cheby_conv(win, woff.cpu(), x, W, b, relu=True)
+    with pytest.raises(TypeError):
+        hp.hop(band, x.float())
+    with pytest.raises(ValueError):  # more rows than the operator's tiles
+        hp.hop(band, torch.zeros(Vp + 1, 32, dtype=torch.bfloat16, device=cuda))

@@ -199,9 +199,13 @@ def _c_entry_points():
     return sigs
 
 
-@pytest.mark.parametrize("module,loader", [
+LOADERS = [
     ("fused_cheby", "_fused_lib"), ("fused_cheby", "_commuted_lib"),
-    ("fused_cheby_train", "_train_lib"), ("fused_cheby_train", "_bwd_lib")])
+    ("fused_cheby_train", "_train_lib"), ("fused_cheby_train", "_bwd_lib"),
+    ("hop", "_hop_lib"), ("strip_cheby", "_strip_lib"), ("window_cheby", "_window_lib")]
+
+
+@pytest.mark.parametrize("module,loader", LOADERS)
 def test_ctypes_signatures_match_the_cuda_sources(monkeypatch, module, loader):
     """The argument types each wrapper declares for ctypes are those of the C
     entry point it calls (a wrong count or width would pass pointers as
@@ -215,3 +219,16 @@ def test_ctypes_signatures_match_the_cuda_sources(monkeypatch, module, loader):
     entries = [n for n in fake.fns if not n.endswith("_error_string")]
     assert len(entries) == 1
     assert fake.fns[entries[0]].argtypes == sigs[entries[0]], entries[0]
+
+
+def test_every_cuda_entry_point_has_a_loader(monkeypatch):
+    """Each extern "C" launch function of csrc/ is declared by one loader."""
+    import importlib
+    declared = set()
+    for module, loader in LOADERS:
+        mod = importlib.import_module(f"pose2mesh_release_tpu_torch.ops.{module}")
+        fake = _FakeLib()
+        monkeypatch.setattr(mod, "load_library", lambda stem: fake)
+        getattr(mod, loader).__wrapped__()
+        declared |= {n for n in fake.fns if not n.endswith("_error_string")}
+    assert declared == set(_c_entry_points())

@@ -1,7 +1,9 @@
 """PyTorch port: the training MeshNet against the JAX MeshNet on its Pallas
 path (default env: the BatchNorm fold chain with kernel statistics, Pallas
 in interpret mode, jitted), CPU f32: output, gradients and updated running
-statistics of a training forward, and the eval forward of the same net.
+statistics of a training forward, and the eval forward of the same net (also
+with fused=False against P2M_FUSED=0, where the first conv of each band
+block takes the unfused form).
 """
 import jax
 import jax.numpy as jnp
@@ -85,3 +87,29 @@ def test_training_meshnet_eval_forward_matches_jax(fold_net):
     with torch.inference_mode():
         got = port(art_t, torch.from_numpy(x), train=False)
     _close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_training_meshnet_unfused_eval_matches_jax(fold_net, monkeypatch):
+    """fused=False == P2M_FUSED=0 on the eval forward: the convs the JAX
+    MeshNet sends through `fused_cheby_project` (the first of each band
+    block) run as two hops and three projections."""
+    from pose2mesh_release_tpu_torch.ops import hop as port_hop
+    art_j, art_t, x, net, v, _ = fold_net
+    port = MeshNet(J, art_t.mesh_ops[-1].num_vertices, blocks=FOLD_BLOCKS,
+                   inference_fused=False, fused=False)
+    port.load_state_dict(meshnet_state_dict(v["params"], v["batch_stats"]))
+    monkeypatch.setenv("P2M_FUSED", "0")
+    jax.clear_caches()  # the switch is read when the forward is traced
+    want = jax.jit(lambda vv, xx: net.apply(vv, art_j, xx, False))(v, jnp.asarray(x))
+    before = port_hop.launches["banded_hop"]
+    hops = []
+
+    def counted_hop(band, x):
+        hops.append(x.shape)
+        return port_hop.hop_plain(band, x)
+    monkeypatch.setattr(port_hop, "hop", counted_hop)
+    with torch.inference_mode():
+        got = port(art_t, torch.from_numpy(x), train=False)
+    _close(got, want, rtol=1e-4, atol=1e-5)
+    n_band_blocks = sum(op.kind == "band" for op in port._ops(art_t))
+    assert len(hops) == 2 * n_band_blocks and port_hop.launches["banded_hop"] == before
