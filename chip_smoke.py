@@ -12,7 +12,8 @@ Phases (any failure exits non-zero):
      group kernels, the strip conv (strip_h 128, one level at 64), the window
      conv, and the single hop of the unfused path (forward and backward
      through its autograd Function, beside torch.sparse.mm on the level's
-     CSR Laplacian);
+     CSR Laplacian), after the share of nonzero 16 x 16 band sub-tiles each
+     level gives the hop engine (the sub-tiles it multiplies);
   3. drive the deploy forward (SMPL stand-in, 9 levels, SMPL_BLOCKS, PoseNet
      hidden 4096, 17 H36M joints, bf16, batch 64, BatchNorm folded into
      seeded random weights) through make_eval_step on 4 request batches,
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero):
   4. hold the training conv (K1) and its fused backward (K2) against their
      plain versions at the SMPL train step's 10 band-conv shapes, each in the
      variant the step uses (batch 64, bf16), plus the band_k=2 level, and
-     time kernel and plain version; then K1 with keep_basis (y, z1, z2) at
+     time kernel and plain version, and K2's launches apart (its two hops,
+     dx, dW with the reductions); then K1 with keep_basis (y, z1, z2) at
      one training shape, the only run of that variant (no path takes it);
   5. drive the train step (smpl_train_setup: the same network in its
      training form, bf16 compute, batch 64, RMSprop at lr 1e-3, edge loss on)
@@ -356,6 +358,13 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag):
         2 * 2 * nnz * BATCH * fout + 2 * 2 * V * BATCH * 3 * fout * fin,
         nbytes(g, x, W) + nbytes(x) + 3 * fin * fout * 4 + fout * 4 + band_bytes
         + (fold_bytes + 2 * fin * 4 if fold else 0))
+    # K2's launches apart, on the same inputs (not counted as launches)
+    run, _ = ft.bwd_launcher(band, g, x, W, in_fold)
+    k2["split_ms"] = {name: cuda_ms(lambda m=mask: run(m), 20)
+                      for name, mask in ft.BWD_STAGES.items()}
+    log(f"  {tag:10s} K2 split ms: "
+        + " ".join(f"{n}={t:.4f}" for n, t in k2["split_ms"].items())
+        + f" sum={sum(k2['split_ms'].values()):.4f} (whole call {k2['ms']:.4f})")
     return [k1, k2]
 
 
@@ -417,6 +426,26 @@ def sparse_csr(op, dtype):
                 f"library_ms in float32")
             _library_dtype[dtype] = torch.float32
     return L.to(_library_dtype[dtype])
+
+
+def subtile_occupancy(op) -> dict:
+    """What the hop engine multiplies at a level: the share of nonzero 16 x 16
+    sub-tiles among the band blocks of in-range neighbour tiles, the nonzero
+    sub-tiles per 16-row group (mean, max) and the share of groups with more
+    than the HOP_CAP the engine keeps in registers."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops.hop import HOP_CAP
+    band = op.band_val.to("cuda")
+    nbd, nt, T, _ = band.shape
+    nz = band.reshape(nbd, nt, T // 16, 16, T // 16, 16).ne(0).any(5).any(3)
+    src = (torch.arange(nt, device="cuda")[None, :] + torch.arange(nbd, device="cuda")[:, None]
+           - nbd // 2)
+    valid = (src >= 0) & (src < nt)
+    per_group = (nz & valid[:, :, None, None]).sum((0, 3)).float()  # (nt, 8)
+    return {"V": op.num_vertices, "band_k": op.band_k,
+            "occupancy": float(nz[valid].float().mean()),
+            "per_group_mean": float(per_group.mean()), "per_group_max": int(per_group.max()),
+            "over_cap": float((per_group > HOP_CAP).float().mean())}
 
 
 def check_hop(op, fin, gen, tag):
@@ -725,6 +754,13 @@ def main() -> int:
     log(f"phase 2: the hop, strip and window kernels; strip widths "
         f"{[(op.num_vertices, tuple(op.strip_val.shape)) for op in art.mesh_ops[:4]]}, "
         f"strip_h 64 at 3475: {tuple(op2_64.strip_val.shape)}")
+    occ = [subtile_occupancy(op) for op in art.mesh_ops if op.kind == "band"]
+    occ.append(subtile_occupancy(op2))
+    report["hop_subtiles"] = occ
+    for o in occ:
+        log(f"  hop engine sub-tiles at V={o['V']} band_k={o['band_k']}: "
+            f"{o['occupancy']:.4f} nonzero, per 16-row group mean {o['per_group_mean']:.2f} "
+            f"max {o['per_group_max']}, share over the register slots {o['over_cap']:.4f}")
     path_rows = [check_hop(by_v[V], fin, gen, f"hop{i}")
                  for i, (V, _, fin, _, _) in enumerate(MAIN_PATH_CONVS)]
     path_rows += [check_strip(by_v[V], fin, fout, ep, gen, f"strip{i}")

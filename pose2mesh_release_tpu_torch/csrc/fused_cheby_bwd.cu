@@ -1,9 +1,8 @@
-// Fused backward of the training step's K=3 Chebyshev graph conv.
+// Fused backward of the training step's K=3 Chebyshev graph conv (K2).
 //
 //   g1 = L g,  h2 = 2 L g1 - g          (both rounded to bf16)
-//   G  = [g, g1, h2]                    (V*B, 3*Fout)
-//   du = G @ [W0^T; W1^T; W2^T]         (float32)
-//   dW = u^T G, db = sum g              (float32; dW returned basis-major)
+//   du = g W0^T + g1 W1^T + h2 W2^T     (float32)
+//   dW = u^T [g, g1, h2], db = sum g    (float32; dW returned basis-major)
 //   without fold: dx = du;  with fold (u = relu(t), t = x*s + c):
 //   dx = (du * 1[t > 0]) * s, ds = sum (du * 1[t > 0]) * x, dc = sum du * 1[t > 0]
 //
@@ -12,155 +11,220 @@
 // in_fold.  L is symmetric, so the backward hops the cotangent with the same
 // band blocks and never recomputes the forward's basis.
 //
-// Layout: band (2k+1, nt, T, T); g (V, B, Fout) and x (V, B, F) at the real
-// row count V; Wt (Gw, Fp) = [W0^T; W1^T; W2^T] with each block's rows padded
-// to Fo_pad (a multiple of 16), Gw = 3*Fo_pad rounded up to 64 and Fp = F
-// rounded up to 64, zero elsewhere; bf16 operands, float32 sums.
+// Layout: band (2k+1, nt, T, T); g (V, B, Fo_pad) and x (V, B, F) at the real
+// row count V (the wrapper pads g's channels to Fo_pad, a multiple of 16, only
+// where Fout is not one); g1 and h2 (V, B, Fo_pad) in g's layout; Wt (Gw, Fp)
+// = [W0^T; W1^T; W2^T] with each block's rows padded to Fo_pad, Gw = 3*Fo_pad
+// rounded up to 64 and Fp = F rounded up to 64, zero elsewhere; bf16 operands,
+// float32 sums.
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
-//   1. hop: a persistent grid walks (row tile, batch element); per chunk of FC
-//      cotangent channels it stages g on tiles t-2k..t+2k (rows >= V zero),
-//      runs the two hops on bf16 tensor cores (WMMA, float32 accumulation),
-//      and writes the rows of G to device memory (G is (Mp, Gw) bf16, Mp =
-//      V*B rounded up to 128; the wrapper zeroes rows >= V*B, this kernel the
-//      pad columns).  Each block keeps its db partial in shared memory.
-//   2. dx: G @ Wt in 128 x 64 tiles with the fold's mask and scale in the
-//      epilogue; ds and dc partials per block as for db.
-//   3. dW: u^T G as K-split products: block (f tile, G-column tile, row slice)
-//      stages u (the fold applied, rows >= V*B zero) and writes one float32
-//      partial tile; nothing is accumulated across blocks.
-//   4. the partials are added in a fixed order (dW into the basis-major
+//   1-2. g1 and h2: two launches of the banded hop engine (band_hop.cuh) over
+//      g viewed as (V, B*Fo_pad): band resident per row tile, zero sub-tiles
+//      skipped, cp.async staging, h2 = 2 L g1 - g rounded once.
+//   3. dx: a tensor-core GEMM (mma.sync m16n8k16) of 128 x 64 output tiles
+//      over K = 3*Fo_pad, the three operands g, g1, h2 read as the three
+//      K-blocks (nothing is concatenated), Wt streamed in 32-row k-tiles;
+//      A and B tiles through a 3-stage cp.async ring into shared memory,
+//      fragments by ldmatrix; the fold's mask and scale in the epilogue, the
+//      tile staged in shared memory and written with 16-byte stores; ds and
+//      dc kept per block in shared memory, one owner lane per (row group,
+//      column).
+//   4. dW and db: split-K over row slices, block (f tile, G-column tile,
+//      slice): u (x, or relu(x*s + c) formed in shared memory without FMA)
+//      and the G columns through the same 3-stage ring, one float32 partial
+//      tile per block; the blocks of the first f tile that hold g's columns
+//      also sum them for db, rows in order.
+//   5. the partials are added in a fixed order (dW into the basis-major
 //      (3F, Fout) layout; db; ds and dc).  No atomics: equal bits run to run.
-// The TPU kernel keeps G in VMEM and accumulates dW in its own body across an
-// ordered grid; here G goes through device memory once and dW is a second
-// hand-written product over it.
+// The TPU kernel keeps G = [g, g1, h2] in VMEM and carries dW across its
+// ordered grid; here g1 and h2 go through device memory once (about 2 x the
+// bytes of g written and read again), and the products are separate passes.
 //
 // Bound on the H100: two hops counted at the band's nonzeros plus the dx and
-// dW products (3*Fout x F per row each) over ~V*B rows; at F, Fout >= 64 the
+// dW products (3*Fout x F per row each) over V*B rows; at F, Fout >= 64 the
 // products' operations about match the bytes of g, x and dx, so the bound is
-// near the balance point.  This first version writes and re-reads G,
-// multiplies dense T x T band blocks, stages with scalar loads and does not
-// pipeline, so it sits far from that bound.
-#include "common.cuh"
+// near the balance point.
+#include "band_hop.cuh"
 
 using namespace p2m;
 
 namespace {
 
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+// the three cotangent operands g, g1, h2, each (M, Fo_pad) bf16 row-major
+struct Cot {
+  const bf16* op[3];
+};
 
-template <int FC>
-__global__ void __launch_bounds__(kThreads)
-bwd_hop_kernel(const bf16* __restrict__ band, const bf16* __restrict__ g,
-               bf16* __restrict__ G, float* __restrict__ part, int V, int nt, int k, int B,
-               int Fout, int Fo_pad, int Gw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  bf16* gh = reinterpret_cast<bf16*>(smem);         // (4k+1, T, FC) g halo
-  bf16* g1h = gh + (long)(4 * k + 1) * kT * FC;     // (2k+1, T, FC) g1 halo
-  bf16* h2 = g1h + (long)(2 * k + 1) * kT * FC;     // (T, FC) h2 of tile t
-  float* st = reinterpret_cast<float*>(h2 + kT * FC) + warp * 16 * FC;
-  float* sdb = reinterpret_cast<float*>(h2 + kT * FC) + kWarps * 16 * FC;  // (kWarps, Fo_pad)
-  for (int e = threadIdx.x; e < kWarps * Fo_pad; e += kThreads) sdb[e] = 0.0f;
-
-  const long ldg = (long)B * Fout;
-  const int tail = Gw - 3 * Fo_pad;
-  for (int w = blockIdx.x; w < nt * B; w += gridDim.x) {
-    const int bi = w % B, t = w / B;
-    const int v0 = t * kT + r0;  // the warp's first vertex row
-    for (int c0 = 0; c0 < Fo_pad; c0 += FC) {
-      stage_halo<FC>(gh, g + (long)bi * Fout, ldg, t, k, V, Fout, c0, nullptr, nullptr);
-      cheby_hops<FC>(band, gh, g1h, h2, st, t, nt, k);
-      const bf16* gt = gh + ((long)2 * k * kT + r0) * FC;
-      const bf16* g1t = g1h + ((long)k * kT + r0) * FC;
-      const bf16* h2t = h2 + (long)r0 * FC;
-      for (int e = lane; e < 16 * FC; e += 32) {
-        const int v = v0 + e / FC;
-        if (v >= V) continue;
-        bf16* row = G + ((long)v * B + bi) * Gw + c0 + e % FC;
-        row[0] = gt[e];
-        row[Fo_pad] = g1t[e];
-        row[2 * Fo_pad] = h2t[e];
-      }
-      for (int c = lane; c < FC; c += 32) {
-        float s = 0.0f;
-        for (int r = 0; r < 16 && v0 + r < V; ++r) s += to_f(gt[r * FC + c]);
-        sdb[warp * Fo_pad + c0 + c] += s;
-      }
-      __syncthreads();  // the next chunk overwrites the halos
-    }
-    for (int e = threadIdx.x; e < kT * tail; e += kThreads) {
-      const int v = t * kT + e / tail;
-      if (v < V) G[((long)v * B + bi) * Gw + 3 * Fo_pad + e % tail] = to_bf(0.0f);
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < Fout; c += kThreads) {
-    float s = 0.0f;
-    for (int i = 0; i < kWarps; ++i) s += sdb[i * Fo_pad + c];
-    part[(long)blockIdx.x * Fout + c] = s;
-  }
+// cot.op[b] for b < 3 without indexing the parameter array at run time
+__device__ __forceinline__ const bf16* operand(const Cot& cot, int b) {
+  return b == 0 ? cot.op[0] : (b == 1 ? cot.op[1] : cot.op[2]);
 }
 
-// dx = G @ Wt over M = V*B rows, 128 x 64 tiles; fold epilogue and ds/dc partials.
+constexpr int kBK = 32;                       // k-tile rows of both products
+constexpr int kStages = 3;                    // cp.async ring depth
+constexpr int kDxBM = 128, kDxBN = 64;        // dx output tile
+constexpr int kALd = kBK + 8, kBLd = kDxBN + 8, kOLd = kDxBN + 8;
+constexpr int kStageA = kDxBM * kALd, kStageB = kBK * kBLd;  // elements
+constexpr int kDwThreads = 128;               // dW: 4 warps on a 64 x 64 tile
+constexpr int kTLd = 64 + 8;                  // dW staged row stride
+
+// Shared memory of the dx kernel (ops/fused_cheby_train.py bwd_plan).
+__host__ __device__ constexpr size_t dx_smem(int Fp) {
+  return (size_t)kStages * (kStageA + kStageB) * sizeof(bf16) + 8 * (size_t)Fp * sizeof(float);
+}
+
+// dx = [g, g1, h2] @ Wt over M = V*B rows; fold epilogue and ds/dc partials.
+// Warp (wr, wc) = (warp / 2, warp % 2) owns rows 32 wr .. +32 and columns
+// 32 wc .. +32 of the tile.
 __global__ void __launch_bounds__(kThreads)
-bwd_dx_kernel(const bf16* __restrict__ G, const bf16* __restrict__ Wt,
-              const bf16* __restrict__ x, const bf16* __restrict__ fold_s,
-              const bf16* __restrict__ fold_c, bf16* __restrict__ dx,
-              float* __restrict__ part, int M, int F, int Fp, int Gw) {
+bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
+              const bf16* __restrict__ fold_s, const bf16* __restrict__ fold_c,
+              bf16* __restrict__ dx, float* __restrict__ part, int M, int F, int Fo_pad,
+              int Gw, int Fp) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = reinterpret_cast<float*>(smem) + warp * 256;
-  float* sds = reinterpret_cast<float*>(smem) + kWarps * 256;  // (kWarps, Fp)
-  float* sdc = sds + kWarps * Fp;
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + kStages * kStageA;
+  float* sds = reinterpret_cast<float*>(Bs + kStages * kStageB);  // (4, Fp)
+  float* sdc = sds + 4 * Fp;                                       // (4, Fp)
+  bf16* os = As;  // (kDxBM, kOLd) output tile, over the ring after the k loop
   const bool fold = fold_s != nullptr;
-  if (fold)
-    for (int e = threadIdx.x; e < 2 * kWarps * Fp; e += kThreads) sds[e] = 0.0f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3, wr = warp >> 1, wc = warp & 1;
+  for (int e = threadIdx.x; e < 8 * Fp; e += kThreads) sds[e] = 0.0f;
   __syncthreads();
 
-  const int nn = Fp / 64, items = (M + 127) / 128 * nn;
+  const int nn = Fp / kDxBN, items = (M + kDxBM - 1) / kDxBM * nn, KT = Gw / kBK;
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
-    const int m0 = (w / nn) * 128 + warp * 16, f0 = (w % nn) * 64;
-    FragC acc[4];
-    zero(acc);
-    rows_mma(acc, G + (long)m0 * Gw, Gw, Wt + f0, Fp, Gw);
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int fj = f0 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + e / 16, f = fj + e % 16;
-        if (m >= M || f >= F) continue;
-        float d = st[e];
-        if (fold) {
-          const float s = to_f(fold_s[f]);
-          const float t = __fadd_rn(__fmul_rn(to_f(x[(long)m * F + f]), s), to_f(fold_c[f]));
-          d = t > 0.0f ? d * s : 0.0f;
-        }
-        dx[(long)m * F + f] = to_bf(d);
+    const int m0 = (w / nn) * kDxBM, n0 = (w % nn) * kDxBN;
+    auto load = [&](int buf, int kt) {
+      bf16* a_s = As + buf * kStageA;
+      bf16* b_s = Bs + buf * kStageB;
+      for (int e = threadIdx.x; e < kDxBM * kBK / 8; e += kThreads) {
+        const int r = e / (kBK / 8), c = (e % (kBK / 8)) * 8;
+        const int kk = kt * kBK + c, b = kk / Fo_pad, o = kk % Fo_pad;
+        const long m = m0 + r;
+        const bool ok = m < M && b < 3;
+        cp_async16(a_s + r * kALd + c, ok ? operand(cot, b) + m * Fo_pad + o : Wt, ok);
       }
-      if (fold && lane < 16 && fj + lane < F) {
-        const int f = fj + lane;
-        const float s = to_f(fold_s[f]), c = to_f(fold_c[f]);
-        float a = 0.0f, b = 0.0f;
-        for (int r = 0; r < 16 && m0 + r < M; ++r) {
-          const float xv = to_f(x[(long)(m0 + r) * F + f]);
-          const float t = __fadd_rn(__fmul_rn(xv, s), c);
-          const float d = t > 0.0f ? st[r * 16 + lane] : 0.0f;
-          a += d * xv;
-          b += d;
-        }
-        sds[warp * Fp + f] += a;
-        sdc[warp * Fp + f] += b;
+      for (int e = threadIdx.x; e < kBK * kDxBN / 8; e += kThreads) {
+        const int r = e / (kDxBN / 8), c = (e % (kDxBN / 8)) * 8;
+        cp_async16(b_s + r * kBLd + c, Wt + (long)(kt * kBK + r) * Fp + n0 + c, true);
       }
-      __syncwarp();
+    };
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < KT) load(s, s);
+      cp_async_commit();
     }
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (kt + kStages - 1 < KT) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+      cp_async_commit();
+      const bf16* a_s = As + (kt % kStages) * kStageA;
+      const bf16* b_s = Bs + (kt % kStages) * kStageB;
+#pragma unroll
+      for (int k16 = 0; k16 < kBK; k16 += 16) {
+        unsigned af[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4(af[mi], a_s + (wr * 32 + mi * 16 + lane % 16) * kALd + k16 +
+                                  (lane / 16) * 8);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * kBLd + wc * 32 + p * 16 +
+                                    (lane / 16) * 8);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
+            mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring: os reuses it
+
+    float ps[4][2], pc[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) ps[ni][0] = ps[ni][1] = pc[ni][0] = pc[ni][1] = 0.0f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr * 32 + mi * 16 + gq + 8 * h;
+        const long m = m0 + r;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int cl = wc * 32 + ni * 8 + 2 * cq, f = n0 + cl;
+          float d0 = acc[mi][ni][2 * h], d1 = acc[mi][ni][2 * h + 1];
+          if (fold && m < M && f < F) {
+            const float2 xv =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + m * F + f));
+            const float2 sv =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(fold_s + f));
+            const float2 cv =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(fold_c + f));
+            d0 = __fadd_rn(__fmul_rn(xv.x, sv.x), cv.x) > 0.0f ? d0 : 0.0f;
+            d1 = __fadd_rn(__fmul_rn(xv.y, sv.y), cv.y) > 0.0f ? d1 : 0.0f;
+            ps[ni][0] += d0 * xv.x;
+            ps[ni][1] += d1 * xv.y;
+            pc[ni][0] += d0;
+            pc[ni][1] += d1;
+            d0 *= sv.x;
+            d1 *= sv.y;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(os + r * kOLd + cl) =
+              __floats2bfloat162_rn(d0, d1);
+        }
+      }
+    if (fold) {
+      // column sums over the warp's 32 rows (lanes of equal lane % 4), then
+      // into the (row group, column) slot this lane alone owns
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            ps[ni][j] += __shfl_xor_sync(0xffffffffu, ps[ni][j], off);
+            pc[ni][j] += __shfl_xor_sync(0xffffffffu, pc[ni][j], off);
+          }
+      if (gq == 0)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int f = n0 + wc * 32 + ni * 8 + 2 * cq + j;
+            if (f < F) {
+              sds[wr * Fp + f] += ps[ni][j];
+              sdc[wr * Fp + f] += pc[ni][j];
+            }
+          }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kDxBM * kDxBN / 8; e += kThreads) {
+      const int r = e / (kDxBN / 8), c = (e % (kDxBN / 8)) * 8;
+      const long m = m0 + r;
+      if (m < M && n0 + c < F)
+        *reinterpret_cast<uint4*>(dx + m * F + n0 + c) =
+            *reinterpret_cast<const uint4*>(os + r * kOLd + c);
+    }
+    __syncthreads();  // the next tile's loads refill the ring
   }
   if (fold) {
-    __syncthreads();
     for (int f = threadIdx.x; f < F; f += kThreads) {
       float a = 0.0f, b = 0.0f;
-      for (int i = 0; i < kWarps; ++i) {
+      for (int i = 0; i < 4; ++i) {
         a += sds[i * Fp + f];
         b += sdc[i * Fp + f];
       }
@@ -170,49 +234,121 @@ bwd_dx_kernel(const bf16* __restrict__ G, const bf16* __restrict__ Wt,
   }
 }
 
-// One K-slice of dW_cf = u^T G: block (f tile fm, G-column tile nn, slice s)
-// writes part[s][fm*64 .. +64][nn*64 .. +64].  Warp w owns f rows (w % 4)*16
-// and G columns (w / 4)*32 .. +32 of the tile.
-__global__ void __launch_bounds__(kThreads)
-bwd_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ G,
-              const bf16* __restrict__ fold_s, const bf16* __restrict__ fold_c,
-              float* __restrict__ part, int M, int Mp, int F, int Fp, int Gw, int S,
-              int slice_rows) {
-  __shared__ __align__(128) bf16 us[64 * 64];  // u rows m0 .. m0+64, f tile
-  const int warp = threadIdx.x / 32;
+// One K-slice of dW_cf = u^T [g, g1, h2]: block (f tile fm, G-column tile nn,
+// slice s) writes part[s][fm*64 .. +64][nn*64 .. +64]; the blocks with fm = 0
+// whose columns hold g also write part_db[s][o] = sum of g[:, o] over the
+// slice.  Warp (wf, wn) = (warp / 2, warp % 2) owns f rows 32 wf .. +32 and
+// G columns 32 wn .. +32 of the tile.
+__global__ void __launch_bounds__(kDwThreads)
+bwd_dw_kernel(Cot cot, const bf16* __restrict__ x, const bf16* __restrict__ fold_s,
+              const bf16* __restrict__ fold_c, float* __restrict__ part,
+              float* __restrict__ part_db, int M, int F, int Fout, int Fo_pad, int Fp, int Gw,
+              int S, int slice_rows) {
+  __shared__ __align__(128) bf16 us[kStages][kBK * kTLd];  // u rows of the k-tile, f tile
+  __shared__ __align__(128) bf16 gs[kStages][kBK * kTLd];  // G rows of the k-tile, column tile
   const int ng = Gw / 64;
   const int s = blockIdx.x % S, nn = (blockIdx.x / S) % ng, fm = blockIdx.x / (S * ng);
-  const int fw = (warp % 4) * 16, cw = nn * 64 + (warp / 4) * 32;
-  FragC acc[2];
-  zero(acc);
-  const int m_end = min(Mp, (s + 1) * slice_rows);
-  for (int m0 = s * slice_rows; m0 < m_end; m0 += 64) {
-    for (int e = threadIdx.x; e < 64 * 64; e += kThreads) {
-      const int m = m0 + e / 64, f = fm * 64 + e % 64;
-      bf16 u = to_bf(0.0f);
-      if (m < M && f < F) {
-        u = x[(long)m * F + f];
-        if (fold_s)
-          u = to_bf(fmaxf(__fadd_rn(__fmul_rn(to_f(u), to_f(fold_s[f])), to_f(fold_c[f])),
-                          0.0f));
-      }
-      us[e] = u;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < 64; kk += 16) {
-      FragAc fa;  // (f, m) = us[m * 64 + f]
-      wmma::load_matrix_sync(fa, us + kk * 64 + fw, 64);
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, G + (long)(m0 + kk) * Gw + cw + j * 16, Gw);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
+  const int f0 = fm * 64, n0 = nn * 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3, wf = warp >> 1, wn = warp & 1;
+  const bool fold = fold_s != nullptr;
+  const int r_begin = s * slice_rows, r_end = min(M, r_begin + slice_rows);
+  const int KT = r_end > r_begin ? (r_end - r_begin + kBK - 1) / kBK : 0;
+  const bool do_db = fm == 0 && n0 < Fo_pad && threadIdx.x < 64;
+  float dbs = 0.0f;
+  // the 8 u columns this thread stages in every k-tile, and their fold
+  const int fc0 = (threadIdx.x % 8) * 8;
+  float sf[8], cf[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool ok = fold && f0 + fc0 + i < F;
+    sf[i] = ok ? to_f(fold_s[f0 + fc0 + i]) : 0.0f;
+    cf[i] = ok ? to_f(fold_c[f0 + fc0 + i]) : 0.0f;
   }
-  float* out = part + ((long)s * Fp + fm * 64 + fw) * Gw + cw;
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], Gw, wmma::mem_row_major);
+
+  auto load = [&](int buf, int kt) {
+    const int mb = r_begin + kt * kBK;
+    for (int e = threadIdx.x; e < kBK * 8; e += kDwThreads) {
+      const int r = e / 8, c = (e % 8) * 8;
+      const long m = mb + r;
+      const bool ok = m < r_end && f0 + c < F;
+      cp_async16(&us[buf][r * kTLd + c], ok ? x + m * F + f0 + c : x, ok);
+      const int j = n0 + c, b = j / Fo_pad, o = j % Fo_pad;
+      const bool okg = m < r_end && b < 3;
+      cp_async16(&gs[buf][r * kTLd + c], okg ? operand(cot, b) + m * Fo_pad + o : x, okg);
+    }
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < KT) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    const int buf = kt % kStages;
+    cp_async_wait<kStages - 2>();
+    if (fold && f0 + fc0 < F) {  // u = relu(x*s + c) on the vectors this thread copied
+      const int mb = r_begin + kt * kBK;
+      for (int e = threadIdx.x; e < kBK * 8; e += kDwThreads) {
+        const int r = e / 8;
+        if (mb + r >= r_end) continue;
+        uint4* u = reinterpret_cast<uint4*>(&us[buf][r * kTLd + fc0]);
+        uint4 v = *u;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(h[i]);
+          h[i] = __floats2bfloat162_rn(
+              fmaxf(__fadd_rn(__fmul_rn(f.x, sf[2 * i]), cf[2 * i]), 0.0f),
+              fmaxf(__fadd_rn(__fmul_rn(f.y, sf[2 * i + 1]), cf[2 * i + 1]), 0.0f));
+        }
+        *u = v;
+      }
+    }
+    __syncthreads();
+    if (kt + kStages - 1 < KT) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+    if (do_db)
+      for (int r = 0; r < kBK; ++r) dbs += to_f(gs[buf][r * kTLd + threadIdx.x]);
+#pragma unroll
+    for (int k16 = 0; k16 < kBK; k16 += 16) {
+      unsigned af[2][4];  // A = u^T: ldmatrix.trans of u's (m, f) rows
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4_trans(af[mi], &us[buf][(k16 + lane % 8 + 8 * (lane / 16)) * kTLd +
+                                           wf * 32 + mi * 16 + 8 * ((lane / 8) % 2)]);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        unsigned bq[4];
+        ldmatrix_x4_trans(bq, &gs[buf][(k16 + lane % 16) * kTLd + wn * 32 + p * 16 +
+                                       (lane / 16) * 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
+          mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  float* out = part + (long)s * Fp * Gw;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = f0 + wf * 32 + mi * 16 + gq + 8 * h;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        *reinterpret_cast<float2*>(out + (long)f * Gw + n0 + wn * 32 + ni * 8 + 2 * cq) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+    }
+  if (do_db && n0 + (int)threadIdx.x < Fout) part_db[(long)s * Fout + n0 + threadIdx.x] = dbs;
 }
 
 // dW[(b*F + f)*Fout + o] = sum over s of part[s][f][b*Fo_pad + o], s in order.
@@ -227,73 +363,76 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, int S, int F, i
   dW[i] = sum;
 }
 
-template <int FC>
-cudaError_t launch_hop(const void* band, const void* g, void* G, float* part, int V,
-                       int nt, int k, int B, int Fout, int Fo_pad, int Gw, int grid,
-                       cudaStream_t stream) {
-  const size_t smem = hop_smem(FC, k) + (size_t)kWarps * Fo_pad * sizeof(float);
-  if (smem > (size_t)kMaxSmem || Fo_pad % FC) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_hop_kernel<FC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  bwd_hop_kernel<FC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(band), static_cast<const bf16*>(g), static_cast<bf16*>(G),
-      part, V, nt, k, B, Fout, Fo_pad, Gw);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Pointers: band, g, x, Wt, fold_s, fold_c (null without the fold) in; G
-// (Mp, Gw) bf16 scratch; dx (V, B, F) bf16, dW (3F, Fout), db (Fout,) and
-// dsdc (2, F) [ds; dc] float32 out; part_hop (grid_hop, Fout), part_dx
-// (grid_dx, 2F) and part_dw (S, Fp, Gw) float32 scratch.  fc: cotangent-channel
-// chunk (16, 32 or 64, dividing Fo_pad); S row slices of slice_rows rows (a
-// multiple of 64) for dW.  Returns a cudaError_t.
+// Pointers: band, g (V, B, Fo_pad), x, Wt, fold_s, fold_c (null without the
+// fold) in; g1, h2 (V, B, Fo_pad) bf16 scratch; dx (V, B, F) bf16, dW (3F,
+// Fout), db (Fout,) and dsdc (2, F) [ds; dc] float32 out; part_db (S, Fout),
+// part_dx (grid_dx, 2F) and part_dw (S, Fp, Gw) float32 scratch.  The launch
+// plan (ops/fused_cheby_train.py bwd_plan): the hop engine's chunk, grid and
+// items per block; grid_dx; S row slices of slice_rows rows (a multiple of
+// 32) for dW.  stages: which launches run, 1 the two hops, 2 dx (and the
+// ds/dc partials), 4 dW, db and every reduction; 7 is the whole backward (the
+// parts alone only time the split).  Returns a cudaError_t.
 extern "C" int p2m_fused_cheby_bwd(const void* band, const void* g, const void* x,
                                    const void* Wt, const void* fold_s, const void* fold_c,
-                                   void* G, void* dx, void* dW, void* db, void* dsdc,
-                                   void* part_hop, void* part_dx, void* part_dw, int V,
-                                   int nt, int k, int B, int F, int Fout, int Fo_pad,
-                                   int Gw, int Fp, int fc, int grid_hop, int grid_dx, int S,
-                                   int slice_rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* ph = static_cast<float*>(part_hop);
-  float* px = static_cast<float*>(part_dx);
-  float* pw = static_cast<float*>(part_dw);
-  const int M = V * B, Mp = (M + 127) / 128 * 128;
-  if (Gw % 64 || Fp % 64 || slice_rows % 64) return cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (fc) {
-    case 16: err = launch_hop<16>(band, g, G, ph, V, nt, k, B, Fout, Fo_pad, Gw, grid_hop, s); break;
-    case 32: err = launch_hop<32>(band, g, G, ph, V, nt, k, B, Fout, Fo_pad, Gw, grid_hop, s); break;
-    case 64: err = launch_hop<64>(band, g, G, ph, V, nt, k, B, Fout, Fo_pad, Gw, grid_hop, s); break;
-    default: return cudaErrorInvalidValue;
+                                   void* g1, void* h2, void* dx, void* dW, void* db,
+                                   void* dsdc, void* part_db, void* part_dx, void* part_dw,
+                                   int V, int nt, int k, int B, int F, int Fout, int Fo_pad,
+                                   int Gw, int Fp, int hop_cc, int hop_grid,
+                                   int hop_per_block, int grid_dx, int S, int slice_rows,
+                                   int stages, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = V * B;
+  if (Fo_pad % 16 || Fout > Fo_pad || F % 16 || Gw % 64 || Gw < 3 * Fo_pad || Fp % 64 ||
+      Fp < F || slice_rows % kBK || (long)S * slice_rows < M || grid_dx <= 0)
+    return cudaErrorInvalidValue;
+  const bf16* gb = static_cast<const bf16*>(g);
+  bf16* g1b = static_cast<bf16*>(g1);
+  bf16* h2b = static_cast<bf16*>(h2);
+  const bf16* bb = static_cast<const bf16*>(band);
+  const int C = B * Fo_pad;
+  cudaError_t err = cudaSuccess;
+  if (stages & 1) {
+    err = launch_band_hop(HopArgs{bb, gb, nullptr, g1b, 1.0f, 0.0f, V, nt, k, C}, hop_cc,
+                          hop_grid, hop_per_block, st);
+    if (err != cudaSuccess) return err;
+    err = launch_band_hop(HopArgs{bb, g1b, gb, h2b, 2.0f, -1.0f, V, nt, k, C}, hop_cc,
+                          hop_grid, hop_per_block, st);
+    if (err != cudaSuccess) return err;
   }
-  if (err != cudaSuccess) return err;
 
-  const size_t smem_dx = ((size_t)kWarps * 256 + 2 * (size_t)kWarps * Fp) * sizeof(float);
-  err = cudaFuncSetAttribute(bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dx);
-  if (err != cudaSuccess) return err;
-  bwd_dx_kernel<<<grid_dx, kThreads, smem_dx, s>>>(
-      static_cast<const bf16*>(G), static_cast<const bf16*>(Wt),
-      static_cast<const bf16*>(x), static_cast<const bf16*>(fold_s),
-      static_cast<const bf16*>(fold_c), static_cast<bf16*>(dx), px, M, F, Fp, Gw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const Cot cot{{gb, g1b, h2b}};
+  const auto* fs = static_cast<const bf16*>(fold_s);
+  const auto* fc = static_cast<const bf16*>(fold_c);
+  const auto* xb = static_cast<const bf16*>(x);
+  if (stages & 2) {
+    const size_t smem_dx = dx_smem(Fp);
+    if (smem_dx > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_dx);
+    if (err != cudaSuccess) return err;
+    bwd_dx_kernel<<<grid_dx, kThreads, smem_dx, st>>>(
+        cot, static_cast<const bf16*>(Wt), xb, fs, fc, static_cast<bf16*>(dx),
+        static_cast<float*>(part_dx), M, F, Fo_pad, Gw, Fp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (!(stages & 4)) return cudaSuccess;
 
-  bwd_dw_kernel<<<(Fp / 64) * (Gw / 64) * S, kThreads, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(G),
-      static_cast<const bf16*>(fold_s), static_cast<const bf16*>(fold_c), pw, M, Mp, F,
-      Fp, Gw, S, slice_rows);
+  float* pw = static_cast<float*>(part_dw);
+  float* pdb = static_cast<float*>(part_db);
+  bwd_dw_kernel<<<(Fp / 64) * (Gw / 64) * S, kDwThreads, 0, st>>>(
+      cot, xb, fs, fc, pw, pdb, M, F, Fout, Fo_pad, Fp, Gw, S, slice_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n = 3 * F * Fout;
-  dw_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(pw, S, F, Fp, Gw, Fout, Fo_pad,
+  dw_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(pw, S, F, Fp, Gw, Fout, Fo_pad,
                                                    static_cast<float*>(dW));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = launch_reduce(ph, grid_hop, Fout, static_cast<float*>(db), s)) != cudaSuccess)
+  if ((err = launch_reduce(pdb, S, Fout, static_cast<float*>(db), st)) != cudaSuccess)
     return err;
-  if (fold_s) return launch_reduce(px, grid_dx, 2 * F, static_cast<float*>(dsdc), s);
+  if (fold_s)
+    return launch_reduce(static_cast<const float*>(part_dx), grid_dx, 2 * F,
+                         static_cast<float*>(dsdc), st);
   return cudaSuccess;
 }
 

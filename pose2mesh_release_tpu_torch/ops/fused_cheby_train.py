@@ -8,9 +8,10 @@ Counterpart of the training half of the JAX package's `ops/pallas_cheby.py`:
       per-channel sums (sum y, sum y^2) over the real V*B rows, or with
       keep_basis also the basis z1 = Lu, z2 = 2L z1 - u (no gradient)
   fused_cheby_conv_bwd    <- _fused_bwd_call (Pallas; CUDA csrc/fused_cheby_bwd.cu)
-      g1 = Lg, h2 = 2L g1 - g, G = [g, g1, h2]; dx = G @ [W0^T; W1^T; W2^T]
-      (through the fold's mask and scale), dW = u^T G basis-major, db = sum g,
-      and with in_fold ds, dc
+      g1 = Lg, h2 = 2L g1 - g (two launches of the banded hop engine);
+      dx = g W0^T + g1 W1^T + h2 W2^T (through the fold's mask and scale),
+      dW = u^T [g, g1, h2] basis-major, db = sum g, and with in_fold ds, dc;
+      `bwd_plan` lays out its launches
 
 Activations keep the JAX training layout (V, B, F) at the real row count;
 `band_val` is (2k+1, nt, T, T) with nt*T >= V, k in {1, 2}.  Rows >= V are
@@ -36,6 +37,7 @@ raises.  Each kernel's bound on the H100 is in its source note.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -45,10 +47,11 @@ import torch.nn.functional as F
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _MAX_SMEM, _T, _check_cuda, _pad_cols, _ptr, \
     _raise_on, _stream
-from .hop import banded_hop
+from .hop import HopPlan, banded_hop, hop_plan, sm_count
 from .spmm import band_hop
 
-__all__ = ["fused_cheby_conv_train", "fused_cheby_conv_bwd",
+__all__ = ["BWD_STAGES", "BwdPlan", "bwd_launcher", "bwd_plan",
+           "fused_cheby_conv_train", "fused_cheby_conv_bwd",
            "fused_cheby_conv_train_plain", "fused_cheby_conv_bwd_plain",
            "fused_cheby_project", "fused_cheby_project_stats", "cheby_project_unfused",
            "fused_cheby_project_folded", "fused_cheby_project_folded_stats",
@@ -155,22 +158,66 @@ def _fold_args(in_fold: Fold, Fin: int, dev):
             "fold_c": c.to(torch.bfloat16).contiguous()}
 
 
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _hop_smem(fc: int, k: int) -> int:
     """Shared memory of one hop chunk (csrc/common.cuh hop_smem)."""
     return ((4 * k + 1) + (2 * k + 1) + 1) * _T * fc * 2 + _WARPS * 16 * fc * 4
 
 
 def _chunk(C: int, k: int, extra: int) -> int:
-    """Largest channel chunk dividing C whose shared memory fits."""
+    """K1's largest channel chunk dividing C whose shared memory fits."""
     for fc in (64, 32, 16):
         if C % fc == 0 and _hop_smem(fc, k) + extra <= _MAX_SMEM:
             return fc
     raise ValueError(f"{C} channels with band_k={k} do not fit the kernel's "
                      f"shared memory")
+
+
+# the dx and dW kernels' tiles (csrc/fused_cheby_bwd.cu)
+_BK, _STAGES, _DX_BM, _DX_BN = 32, 3, 128, 64
+_DX_BLOCKS_PER_SM = 3
+_DW_BLOCKS_PER_SM = 4
+_DW_SMEM = 2 * _STAGES * _BK * (64 + 8) * 2  # static: u and G rings
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The launches of K2 for one shape: the channel padding, the two hop
+    engine launches (`hop`), the dx GEMM's persistent grid over `dx_items`
+    128 x 64 tiles with `dx_smem` bytes, and dW's `slices` row slices of
+    `slice_rows` rows over (Fp/64) x (gw/64) tiles, `dw_grid` blocks."""
+    fo_pad: int
+    gw: int
+    fp: int
+    hop: HopPlan
+    dx_items: int
+    grid_dx: int
+    dx_smem: int
+    slices: int
+    slice_rows: int
+    dw_grid: int
+    dw_smem: int
+
+
+def dx_smem(fp: int) -> int:
+    """Dynamic shared memory of the dx kernel (csrc dx_smem)."""
+    return _STAGES * (_DX_BM * (_BK + 8) + _BK * (_DX_BN + 8)) * 2 + 8 * fp * 4
+
+
+def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int) -> BwdPlan:
+    """K2's launch plan at V rows, batch B, Fin -> Fout on a card of `sms` SMs."""
+    M = V * B
+    fo_pad = _cdiv(Fout, 16) * 16
+    gw = _cdiv(3 * fo_pad, 64) * 64
+    fp = _cdiv(Fin, 64) * 64
+    dx_items = _cdiv(M, _DX_BM) * (fp // _DX_BN)
+    tiles = (fp // 64) * (gw // 64)
+    k_tiles = _cdiv(M, _BK)
+    slices = min(k_tiles, max(1, _cdiv(_DW_BLOCKS_PER_SM * sms, tiles)))
+    slice_rows = _cdiv(k_tiles, slices) * _BK
+    slices = _cdiv(M, slice_rows)
+    return BwdPlan(fo_pad, gw, fp, hop_plan(nt, k, B * fo_pad, sms), dx_items,
+                   min(dx_items, _DX_BLOCKS_PER_SM * sms), dx_smem(fp), slices, slice_rows,
+                   tiles * slices, _DW_SMEM)
 
 
 @functools.cache
@@ -186,7 +233,7 @@ def _train_lib():
 @functools.cache
 def _bwd_lib():
     lib = load_library("fused_cheby_bwd")
-    lib.p2m_fused_cheby_bwd.argtypes = [_C_PTR] * 14 + [_C_INT] * 14 + [_C_PTR]
+    lib.p2m_fused_cheby_bwd.argtypes = [_C_PTR] * 15 + [_C_INT] * 16 + [_C_PTR]
     lib.p2m_fused_cheby_bwd.restype = _C_INT
     lib.p2m_fused_cheby_bwd_error_string.argtypes = [_C_INT]
     lib.p2m_fused_cheby_bwd_error_string.restype = ctypes.c_char_p
@@ -215,7 +262,7 @@ def fused_cheby_conv_train(band_val, x, W, b, *, in_fold: Fold = None,
     fo_pad = _cdiv(Fout, 16) * 16
     fo = next(f for f in (128, 64, 32, 16) if fo_pad % f == 0)
     fc = _chunk(Fin, k, 2 * _WARPS * fo_pad * 4)
-    grid = min(nt * B * (fo_pad // fo), 2 * _sm_count(x.device))
+    grid = min(nt * B * (fo_pad // fo), 2 * sm_count(x.device))
     Wp = _pad_cols(W, fo_pad)
     out = torch.empty((V, B, Fout), dtype=x.dtype, device=x.device)
     part = stats = z1 = z2 = None
@@ -248,47 +295,56 @@ def fused_cheby_conv_bwd(band_val, g, x, W, *, in_fold: Fold = None):
         raise ValueError(f"g must be {tuple(x.shape[:2]) + (Fout,)}, got {tuple(g.shape)}")
     if x.device.type == "cpu":
         return fused_cheby_conv_bwd_plain(band_val, g, x, W, in_fold=in_fold)
+    run, out = bwd_launcher(band_val, g, x, W, in_fold)
+    run(_ALL_STAGES)
+    launches["fused_cheby_conv_bwd"] += 1
+    return out
+
+
+# K2's launches (csrc/fused_cheby_bwd.cu `stages`): the two hops, dx, then
+# dW with db and the reductions
+BWD_STAGES = {"hops": 1, "dx": 2, "dW": 4}
+_ALL_STAGES = 7
+
+
+def bwd_launcher(band_val, g, x, W, in_fold: Fold):
+    """K2 on CUDA inputs (checked here): (run, outputs), where run(stages) launches
+    the stages named by the bit mask (BWD_STAGES) into the outputs.  The
+    wrapper runs all of them once; running them apart only times the split."""
+    k, nt, T, Fin, Fout = _check_train(band_val, x, W)
     fold = _fold_args(in_fold, Fin, x.device)
     _check_cuda(x, T, Fin, band_val=band_val, g=g, W=W, **fold)
     V, B = x.shape[:2]
-    M, dev = V * B, x.device
-    Mp = _cdiv(M, 128) * 128
-    fo_pad = _cdiv(Fout, 16) * 16
-    Gw = _cdiv(3 * fo_pad, 64) * 64
-    Fp = _cdiv(Fin, 64) * 64
-    fc = _chunk(fo_pad, k, _WARPS * fo_pad * 4)
-    sm2 = 2 * _sm_count(dev)
-    grid_hop = min(nt * B, sm2)
-    grid_dx = min(Mp // 128 * (Fp // 64), sm2)
-    tiles = (Fp // 64) * (Gw // 64)
-    slice_rows = _cdiv(Mp // 64, max(1, min(_cdiv(sm2, tiles), Mp // 64))) * 64
-    S = _cdiv(Mp, slice_rows)
-    # [W0^T; W1^T; W2^T], each block's rows padded to fo_pad, columns to Fp
-    Wt = torch.zeros((Gw, Fp), dtype=W.dtype, device=dev)
-    Wt[:3 * fo_pad].view(3, fo_pad, Fp)[:, :Fout, :Fin] = \
+    dev = x.device
+    p = bwd_plan(V, B, nt, k, Fin, Fout, sm_count(dev))
+    fo_pad, gw, fp = p.fo_pad, p.gw, p.fp
+    # g at fo_pad channels (a copy only where Fout is not a multiple of 16)
+    gp = _pad_cols(g, fo_pad).contiguous()
+    # [W0^T; W1^T; W2^T], each block's rows padded to fo_pad, columns to fp
+    Wt = torch.zeros((gw, fp), dtype=W.dtype, device=dev)
+    Wt[:3 * fo_pad].view(3, fo_pad, fp)[:, :Fout, :Fin] = \
         W.view(3, Fin, Fout).transpose(1, 2)
-    G = torch.empty((Mp, Gw), dtype=x.dtype, device=dev)
-    G[M:].zero_()
+    g1, h2 = torch.empty_like(gp), torch.empty_like(gp)
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=dev)
     dW, db = torch.empty((3 * Fin, Fout), **f32), torch.empty((Fout,), **f32)
     dsdc = torch.empty((2, Fin), **f32) if fold else None
-    part_hop = torch.empty((grid_hop, Fout), **f32)
-    part_dx = torch.empty((grid_dx, 2 * Fin), **f32) if fold else None
-    part_dw = torch.empty((S, Fp, Gw), **f32)
+    part_db = torch.empty((p.slices, Fout), **f32)
+    part_dx = torch.empty((p.grid_dx, 2 * Fin), **f32) if fold else None
+    part_dw = torch.empty((p.slices, fp, gw), **f32)
     lib = _bwd_lib()
-    with torch.cuda.device(dev):
-        err = lib.p2m_fused_cheby_bwd(
-            _ptr(band_val), _ptr(g), _ptr(x), _ptr(Wt), _ptr(fold.get("fold_s")),
-            _ptr(fold.get("fold_c")), _ptr(G), _ptr(dx), _ptr(dW), _ptr(db),
-            _ptr(dsdc), _ptr(part_hop), _ptr(part_dx), _ptr(part_dw),
-            V, nt, k, B, Fin, Fout, fo_pad, Gw, Fp, fc, grid_hop, grid_dx, S,
-            slice_rows, _stream(x))
-    _raise_on(err, lib, "p2m_fused_cheby_bwd_error_string")
-    launches["fused_cheby_conv_bwd"] += 1
-    if fold:
-        return dx, dW, db, dsdc[0], dsdc[1]
-    return dx, dW, db
+
+    def run(stages: int):
+        with torch.cuda.device(dev):
+            err = lib.p2m_fused_cheby_bwd(
+                _ptr(band_val), _ptr(gp), _ptr(x), _ptr(Wt), _ptr(fold.get("fold_s")),
+                _ptr(fold.get("fold_c")), _ptr(g1), _ptr(h2), _ptr(dx), _ptr(dW), _ptr(db),
+                _ptr(dsdc), _ptr(part_db), _ptr(part_dx), _ptr(part_dw),
+                V, nt, k, B, Fin, Fout, fo_pad, gw, fp, p.hop.cc, p.hop.grid,
+                p.hop.per_block, p.grid_dx, p.slices, p.slice_rows, stages, _stream(x))
+        _raise_on(err, lib, "p2m_fused_cheby_bwd_error_string")
+
+    return run, ((dx, dW, db, dsdc[0], dsdc[1]) if fold else (dx, dW, db))
 
 
 class _FusedChebyConv(torch.autograd.Function):

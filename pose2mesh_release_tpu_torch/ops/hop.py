@@ -7,13 +7,16 @@ read as zero) or the deploy layout at the padded count.  The product
 accumulates in float32 and rounds once to x's dtype.
 
 `hop` is the kernel wrapper: the plain PyTorch version for a tensor on the
-CPU, the CUDA kernel for a tensor on the card (counted in `launches`), and
-no fallback.  `banded_hop` is differentiable: L is symmetric, so its
-backward is the same hop on the cotangent, and the band gets no gradient.
+CPU, the CUDA kernel (the banded hop engine, csrc/band_hop.cuh, one launch
+per hop as `hop_plan` lays it out) for a tensor on the card (counted in
+`launches`), and no fallback.  `banded_hop` is differentiable: L is
+symmetric, so its backward is the same hop on the cotangent, and the band
+gets no gradient.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -21,10 +24,10 @@ import torch.nn.functional as F
 
 from ..graphs.artifact import LevelOperator
 from ._build import load_library
-from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _ptr, _raise_on, _stream
+from .fused_cheby import _C_INT, _C_PTR, _T, _check_cuda, _ptr, _raise_on, _stream
 from .spmm import band_hop
 
-__all__ = ["banded_hop", "hop", "hop_plain", "launches"]
+__all__ = ["HopPlan", "banded_hop", "hop", "hop_plain", "hop_plan", "launches"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"banded_hop": 0}
@@ -38,14 +41,63 @@ def hop_plain(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return band_hop(band_val.to(dt), x2).to(dt)[:V].reshape(x.shape)
 
 
+# the engine's constants (csrc/band_hop.cuh): pipeline stages of x chunks,
+# blocks per SM its registers allow, and the shared memory of one SM
+_HOP_STAGES = 2
+_HOP_BLOCKS_PER_SM = 2  # kHopBlocksPerSm
+HOP_CAP = 12  # nonzero band sub-tiles a warp keeps in registers (kHopCap)
+_SM_SMEM = 233472
+_BLOCK_SMEM_RESERVED = 1024 + 64  # the runtime's per-block reserve + static masks
+
+
+@dataclasses.dataclass(frozen=True)
+class HopPlan:
+    """A launch of the banded hop engine: `cc`-column chunks, `grid` blocks
+    of `per_block` (row tile, chunk) items each, `smem` bytes of dynamic
+    shared memory per block."""
+    cc: int
+    grid: int
+    per_block: int
+    smem: int
+    items: int
+
+
+def hop_smem(cc: int, k: int) -> int:
+    """Dynamic shared memory of the engine's x ring (band_hop_smem)."""
+    return _HOP_STAGES * (2 * k + 1) * _T * (cc + 8) * 2
+
+
+def hop_plan(nt: int, k: int, C: int, sms: int) -> HopPlan:
+    """The engine's launch for C columns over nt row tiles at band_k k on a
+    card of `sms` SMs: the widest chunk dividing C that keeps
+    `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that fits one; a
+    persistent grid of that many blocks per SM walking contiguous runs of
+    items."""
+    if C % 16 or k not in (1, 2):
+        raise ValueError(f"the hop engine takes C % 16 == 0 and band_k in {{1, 2}}, "
+                         f"got C={C}, k={k}")
+    fits = [cc for cc in (64, 32, 16) if C % cc == 0]
+    full = [cc for cc in fits
+            if _HOP_BLOCKS_PER_SM * (hop_smem(cc, k) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
+    cc = (full or fits)[0]
+    items = nt * (C // cc)
+    per_block = -(-items // min(items, sms * _HOP_BLOCKS_PER_SM))
+    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, k), items)
+
+
 @functools.cache
 def _hop_lib():
     lib = load_library("banded_hop")
-    lib.p2m_banded_hop.argtypes = [_C_PTR] * 3 + [_C_INT] * 5 + [_C_PTR]
+    lib.p2m_banded_hop.argtypes = [_C_PTR] * 3 + [_C_INT] * 7 + [_C_PTR]
     lib.p2m_banded_hop.restype = _C_INT
     lib.p2m_banded_hop_error_string.argtypes = [_C_INT]
     lib.p2m_banded_hop_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of the card `dev`."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def hop(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -62,12 +114,12 @@ def hop(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return hop_plain(band_val, x)
     V, C = x.shape[0], x[0].numel()
     _check_cuda(x, T, C, band_val=band_val)
-    cc = next(c for c in (128, 64, 32, 16) if C % c == 0)
+    plan = hop_plan(nt, nbd // 2, C, sm_count(x.device))
     out = torch.empty_like(x)
     lib = _hop_lib()
     with torch.cuda.device(x.device):
         err = lib.p2m_banded_hop(_ptr(band_val), _ptr(x), _ptr(out), V, nt, nbd // 2, C,
-                                 cc, _stream(x))
+                                 plan.cc, plan.grid, plan.per_block, _stream(x))
     _raise_on(err, lib, "p2m_banded_hop_error_string")
     launches["banded_hop"] += 1
     return out

@@ -35,7 +35,7 @@ from ..train_setup import smpl_train_setup
 
 LR = 1e-3
 GROUPS = (("K1 fused_cheby_conv_train", ("train_conv_kernel",)),
-          ("K2 fused_cheby_conv_bwd", ("bwd_hop_kernel", "bwd_dx_kernel",
+          ("K2 fused_cheby_conv_bwd", ("band_hop_kernel", "bwd_dx_kernel",
                                        "bwd_dw_kernel", "dw_reduce_kernel")),
           ("K1/K2 partial-sum passes", ("reduce_partials",)),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))

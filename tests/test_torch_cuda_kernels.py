@@ -5,7 +5,10 @@ are not a multiple of the 128-row tile), the wrappers' input checks, a small
 deploy MeshNet on each path, and the training kernels' determinism (equal
 bits run to run).  Kernels: the group deploy convs, the training conv K1 (and
 its keep_basis outputs) and its backward K2, the single hop K4, the strip
-conv K5 and the window conv K6.
+conv K5 and the window conv K6.  K4 and K2's hops run on the banded hop
+engine, which skips all-zero 16 x 16 band sub-tiles: their cases include
+bands shaped to break that skip (a dense band block, single nonzeros in
+sub-tile corners, an all-zero row tile).
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -224,17 +227,22 @@ def test_train_conv_kernel(cuda, k, F, Fout, fold, stats):
         assert rel_l2(got, want) <= TOL
 
 
-@pytest.mark.parametrize("k,F,Fout,fold", [
-    (1, 16, 8, False),
-    (1, 64, 3, True),
-    (1, 256, 256, True),
-    (2, 256, 128, False),
-    (2, 64, 8, True),
-    (2, 16, 3, True),
+@pytest.mark.parametrize("k,F,Fout,fold,kind", [
+    (1, 16, 8, False, "random"),
+    (1, 64, 3, True, "random"),
+    (1, 256, 256, True, "random"),
+    (2, 256, 128, False, "random"),
+    (2, 64, 8, True, "random"),
+    (2, 16, 3, True, "random"),
+    (1, 64, 3, True, "dense"),       # the network's last conv with the fold
+    (2, 256, 256, False, "random"),  # the widest conv at band_k 2: Wt 768 x 256
+    (2, 32, 16, True, "dense"),
+    (1, 48, 40, False, "corner"),
+    (2, 16, 3, True, "zero_tile"),
 ])
-def test_train_bwd_kernel(cuda, k, F, Fout, fold):
+def test_train_bwd_kernel(cuda, k, F, Fout, fold, kind):
     op = band_level(k, seed=30 + k)
-    band = op.band_val.to(cuda, torch.bfloat16)
+    band = shaped_band(op, kind).to(cuda, torch.bfloat16)
     x, W, _, s, c, g = train_inputs(op, 3, F, Fout, cuda, 5)
     in_fold = (s, c) if fold else None
     before = ft.launches["fused_cheby_conv_bwd"]
@@ -316,15 +324,42 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 # ---- the single hop, the strip and window convs, K1's keep_basis -------------
 
-@pytest.mark.parametrize("k,V,B,F,deploy", [
-    (1, 900, 3, 16, False),   # training layout: rows >= V read as zero
-    (2, 900, 3, 48, False),   # 144 columns: chunk 16
-    (1, 900, 2, 64, True),    # deploy layout at nt*T rows: chunk 128
-    (2, 1849, 5, 32, True),   # 160 columns: chunk 32
+def shaped_band(op, kind: str, seed: int = 0) -> torch.Tensor:
+    """op's band_val (CPU, float32) reshaped to break the hop engine's
+    sub-tile skip: "dense" fills row tile 1's diagonal and first neighbour
+    blocks (more nonzero 16 x 16 sub-tiles per warp than it keeps in
+    registers); "corner" leaves row tile 1 one nonzero in the corner of three
+    sub-tiles; "zero_tile" makes row tile 1 all zero; "random" keeps op's."""
+    band = op.band_val.float().clone()
+    k = band.shape[0] // 2
+    g = torch.Generator().manual_seed(seed)
+    if kind == "dense":
+        band[k - 1:k + 1, 1] = torch.randn(2, 128, 128, generator=g) * 0.05
+    elif kind == "corner":
+        band[:, 1] = 0.0
+        band[k, 1, 15, 15] = 0.7
+        band[k + 1, 1, 16, 0] = -0.4
+        band[k - 1, 1, 127, 127] = 0.3
+    elif kind == "zero_tile":
+        band[:, 1] = 0.0
+    return band
+
+
+@pytest.mark.parametrize("k,V,B,F,deploy,kind", [
+    (1, 900, 3, 16, False, "random"),     # training layout: rows >= V read as zero
+    (2, 900, 3, 48, False, "random"),     # 144 columns: chunk 16
+    (1, 900, 2, 64, True, "random"),      # deploy layout at nt*T rows: chunk 64
+    (2, 1849, 5, 32, True, "random"),     # 160 columns: chunk 32
+    (1, 900, 1, 16, False, "dense"),      # C = 16; sub-tiles beyond the register slots
+    (2, 1000, 3, 16, False, "dense"),     # C = 48, ragged V
+    (1, 1000, 12, 16, False, "corner"),   # C = 192
+    (2, 900, 1, 16, False, "corner"),
+    (1, 900, 3, 16, False, "zero_tile"),  # C = 48
+    (2, 1849, 4, 48, True, "zero_tile"),  # C = 192
 ])
-def test_banded_hop_kernel(cuda, k, V, B, F, deploy):
+def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind):
     op = band_level(k, V=V, seed=60 + k)
-    band = op.band_val.to(cuda, torch.bfloat16)
+    band = shaped_band(op, kind).to(cuda, torch.bfloat16)
     rows = op.padded_vertices if deploy else V
     x, g = inputs(op, B, [((rows, B, F), 0.5), ((rows, B, F), 1.0)], cuda, 9)
     xr = x.clone().requires_grad_()
@@ -334,8 +369,13 @@ def test_banded_hop_kernel(cuda, k, V, B, F, deploy):
     torch.cuda.synchronize()
     assert hp.launches["banded_hop"] == before + 2
     assert y.shape == x.shape and y.dtype == torch.bfloat16
-    assert rel_l2(y.detach()[:V], hp.hop_plain(band.float(), x.float())[:V]) <= TOL
+    ref = hp.hop_plain(band.float(), x.float())
+    assert rel_l2(y.detach()[:V], ref[:V]) <= TOL
     assert rel_l2(xr.grad[:V], hp.hop_plain(band.float(), g.float())[:V]) <= TOL
+    if kind == "zero_tile":  # the all-zero row tile gives exact zeros
+        assert not y.detach()[128:256].any()
+    if kind == "corner":  # row tile 1 holds three products, each exact to bf16
+        assert torch.allclose(y.detach()[128:256].float(), ref[128:256], rtol=1e-2, atol=1e-3)
     if not deploy:
         assert torch.equal(hp.hop(band, x), y.detach())  # equal bits run to run
 

@@ -1,0 +1,108 @@
+"""PyTorch port: the launch plans of the banded hop engine (K4, and K2's two
+hops) and of the fused training backward K2, computed on the CPU for a card
+of 132 SMs (an H100 SXM).
+
+At every shape of the unfused deploy path (the hop of each SMPL band conv,
+batch 64) and of the train path (K2 of each SMPL training conv, batch 64),
+plus band_k = 2 levels: each block's shared memory fits the 232,448 bytes a
+block may use on sm_90, the engine keeps two blocks on an SM where it
+claims to, and the work items of every launch cover every row and column
+exactly once.
+"""
+import pytest
+
+from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
+from pose2mesh_release_tpu_torch.ops import hop as hp
+
+SMS = 132
+MAX_SMEM = 232448
+SM_SMEM = 233472
+T = 128
+BATCH = 64
+# (V, nt) of the SMPL band levels
+LEVELS = {6890: 56, 3475: 28, 1849: 16, 981: 8}
+# the unfused deploy path's hops: (V, input channels) per conv, two hops each
+UNFUSED_HOPS = [(981, 256), (981, 256), (1849, 256), (1849, 128), (3475, 128),
+                (3475, 128), (6890, 128), (6890, 128), (6890, 128), (6890, 64)]
+# the train path's K2: (V, Fin, Fout)
+TRAIN_CONVS = [(981, 256, 256), (981, 256, 256), (1849, 256, 128), (1849, 128, 128),
+               (3475, 128, 128), (3475, 128, 128), (6890, 128, 128), (6890, 128, 128),
+               (6890, 128, 64), (6890, 64, 3)]
+
+
+def cdiv(a, b):
+    return -(-a // b)
+
+
+def check_hop_plan(p: hp.HopPlan, V: int, nt: int, k: int, C: int):
+    assert C % p.cc == 0 and p.cc in (16, 32, 64)
+    assert p.smem == hp.hop_smem(p.cc, k) <= MAX_SMEM
+    assert p.items == nt * (C // p.cc)
+    assert p.grid <= 2 * SMS
+    # block b walks items [b * per_block, min(items, (b + 1) * per_block)):
+    # every item once, no block empty
+    assert p.grid * p.per_block >= p.items > (p.grid - 1) * p.per_block
+    covered = [0] * p.items
+    for blk in range(p.grid):
+        for it in range(blk * p.per_block, min(p.items, (blk + 1) * p.per_block)):
+            covered[it] += 1
+    assert set(covered) == {1}
+    # items (row tile, chunk), t-major: every row tile and every column once
+    nch = C // p.cc
+    cols = sorted((it % nch) * p.cc for it in range(nch))
+    assert cols == list(range(0, C, p.cc))
+    assert {it // nch for it in range(p.items)} == set(range(nt))
+    assert nt * T >= V
+
+
+@pytest.mark.parametrize("V,F", sorted(set(UNFUSED_HOPS)))
+def test_hop_plan_at_the_unfused_path_shapes(V, F):
+    nt, C = LEVELS[V], BATCH * F
+    p = hp.hop_plan(nt, 1, C, SMS)
+    check_hop_plan(p, V, nt, 1, C)
+    assert p.cc == 64  # the widest chunk keeps two blocks on an SM
+    assert 2 * (p.smem + 1088) <= SM_SMEM
+
+
+@pytest.mark.parametrize("C", [16, 48, 144, 160, 192, 8192, 16384])
+@pytest.mark.parametrize("k", [1, 2])
+def test_hop_plan_at_odd_widths_and_band_k_2(k, C):
+    V, nt = 3475, 28
+    p = hp.hop_plan(nt, k, C, SMS)
+    check_hop_plan(p, V, nt, k, C)
+    assert 2 * (p.smem + 1088) <= SM_SMEM  # two blocks on an SM at every width
+
+
+def test_hop_plan_rejects_what_the_engine_does_not_take():
+    with pytest.raises(ValueError):
+        hp.hop_plan(8, 1, 24, SMS)
+    with pytest.raises(ValueError):
+        hp.hop_plan(8, 3, 64, SMS)
+
+
+@pytest.mark.parametrize("V,k,Fin,Fout", [(V, 1, fi, fo) for V, fi, fo in sorted(set(TRAIN_CONVS))]
+                         + [(3475, 2, 128, 128), (3475, 2, 256, 256), (900, 2, 16, 3)])
+def test_bwd_plan_at_the_train_path_shapes(V, k, Fin, Fout):
+    nt = LEVELS.get(V, cdiv(V, T))
+    p = ft.bwd_plan(V, BATCH, nt, k, Fin, Fout, SMS)
+    M = V * BATCH
+    # channels: g padded to fo_pad, the three K-blocks inside gw, F inside fp
+    assert p.fo_pad % 16 == 0 and Fout <= p.fo_pad < Fout + 16
+    assert p.gw % 64 == 0 and 3 * p.fo_pad <= p.gw < 3 * p.fo_pad + 64
+    assert p.fp % 64 == 0 and Fin <= p.fp < Fin + 64
+    # the two hops over (V, B * fo_pad)
+    check_hop_plan(p.hop, V, nt, k, BATCH * p.fo_pad)
+    # dx: 128 x 64 tiles over (M, fp), a persistent grid-stride walk
+    assert p.dx_items == cdiv(M, 128) * (p.fp // 64)
+    assert 0 < p.grid_dx <= p.dx_items and p.dx_smem == ft.dx_smem(p.fp) <= MAX_SMEM
+    # dW: row slices cover the M rows once, every (f tile, column tile) each
+    assert p.slice_rows % 32 == 0
+    assert p.slices * p.slice_rows >= M > (p.slices - 1) * p.slice_rows
+    assert p.dw_grid == (p.fp // 64) * (p.gw // 64) * p.slices
+    assert p.dw_smem <= 48 * 1024  # static shared memory
+
+
+def test_bwd_plan_copies_g_only_for_narrow_outputs():
+    """fo_pad equals Fout at every train-path width but the last conv's 3."""
+    pads = {fo: ft.bwd_plan(6890, BATCH, 56, 1, 64, fo, SMS).fo_pad for fo in (3, 64, 128, 256)}
+    assert pads == {3: 16, 64: 64, 128: 128, 256: 256}
