@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
   2. hold each deploy kernel against its plain PyTorch version on the card
      at the SMPL deploy forward's 10 band-conv shapes (batch 64, bf16) plus
      one synthetic band_k=2 level, and time kernel and plain version: the
-     group kernels, the strip conv (strip_h 128, one level at 64), the window
+     group kernels (the basis-order conv also its launches apart: its two
+     hops, its projection), the strip conv (strip_h 128, one level at 64), the window
      conv, and the single hop of the unfused path (forward and backward
      through its autograd Function, beside torch.sparse.mm on the level's
      CSR Laplacian), after the share of nonzero 16 x 16 band sub-tiles each
@@ -25,9 +26,11 @@ Phases (any failure exits non-zero):
   4. hold the training conv (K1) and its fused backward (K2) against their
      plain versions at the SMPL train step's 10 band-conv shapes, each in the
      variant the step uses (batch 64, bf16), plus the band_k=2 level, and
-     time kernel and plain version, and K2's launches apart (its two hops,
-     dx, dW with the reductions); then K1 with keep_basis (y, z1, z2) at
-     one training shape, the only run of that variant (no path takes it);
+     time kernel and plain version, and each one's launches apart (K1: the
+     fold pass, its two hops, the projection with the statistics; K2: its
+     two hops, dx, dW with the reductions); then K1 with keep_basis (y, z1,
+     z2) at one training shape, the only run of that variant (no path takes
+     it);
   5. drive the train step (smpl_train_setup: the same network in its
      training form, bf16 compute, batch 64, RMSprop at lr 1e-3, edge loss on)
      for 1 warm-up and 4 counted steps: finite losses, a total that falls,
@@ -155,7 +158,7 @@ def log(*a):
 
 def kernel_label(mangled: str) -> str:
     """A ptxas entry name, shortened to the last component of its (nested)
-    name and its integer template arguments: `train_conv_kernel<64,8,1>`."""
+    name and its integer template arguments: `cheby_proj_kernel<128,1>`."""
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -302,12 +305,24 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag):
     # rows, the band operator at its nonzero values
     bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w)
               + V * BATCH * fout * 2 + nnz * 2)
-    return measure(
+    row = measure(
         tag, name, {"V": V, "band_k": op.band_k, "fin": fin, "fout": fout,
                     "epilogue": epilogue},
         lambda: kernel(band, x, W, b, **kw), lambda: plain(band, x, W, b, **kw),
         lambda: plain(band.float(), x.float(), W.float(), b.float(), **f32),
         ("y",), V, flops, bytes_)
+    if name == "fused_cheby_conv":  # its launches apart (not counted as launches)
+        run, _ = fc.conv_launcher(band, x, W, b, kw["relu"], skip, skip_w)
+        row["split_ms"] = split_ms(tag, "group", run, fc.CONV_STAGES, row["ms"])
+    return row
+
+
+def split_ms(tag, label, run, stages, whole_ms) -> dict:
+    """Time each stage of a launcher alone (20 runs each) and print the split."""
+    ms = {name: cuda_ms(lambda m=mask: run(m), 20) for name, mask in stages.items()}
+    log(f"  {tag:10s} {label} split ms: " + " ".join(f"{n}={t:.4f}" for n, t in ms.items())
+        + f" sum={sum(ms.values()):.4f} (whole call {whole_ms:.4f})")
+    return ms
 
 
 def check_train_conv(op, fin, fout, fold, stats, gen, tag):
@@ -358,13 +373,12 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag):
         2 * 2 * nnz * BATCH * fout + 2 * 2 * V * BATCH * 3 * fout * fin,
         nbytes(g, x, W) + nbytes(x) + 3 * fin * fout * 4 + fout * 4 + band_bytes
         + (fold_bytes + 2 * fin * 4 if fold else 0))
-    # K2's launches apart, on the same inputs (not counted as launches)
+    # each kernel's launches apart, on the same inputs (not counted as launches)
+    run, _ = ft.train_launcher(band, x, W, b, in_fold, stats, False)
+    k1_stages = {n: m for n, m in ft.TRAIN_STAGES.items() if fold or n != "fold"}
+    k1["split_ms"] = split_ms(tag, "K1", run, k1_stages, k1["ms"])
     run, _ = ft.bwd_launcher(band, g, x, W, in_fold)
-    k2["split_ms"] = {name: cuda_ms(lambda m=mask: run(m), 20)
-                      for name, mask in ft.BWD_STAGES.items()}
-    log(f"  {tag:10s} K2 split ms: "
-        + " ".join(f"{n}={t:.4f}" for n, t in k2["split_ms"].items())
-        + f" sum={sum(k2['split_ms'].values()):.4f} (whole call {k2['ms']:.4f})")
+    k2["split_ms"] = split_ms(tag, "K2", run, ft.BWD_STAGES, k2["ms"])
     return [k1, k2]
 
 

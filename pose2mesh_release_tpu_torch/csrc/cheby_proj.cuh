@@ -1,0 +1,326 @@
+// The projection of the K=3 Chebyshev convs, one GEMM over three operands:
+//
+//   y[m, :Fout] = epi(A0[m] W0 + A1[m] W1 + A2[m] W2 + b)   for m < M
+//
+// A0, A1, A2 are (M, F) bf16 row-major (u or x, z1 = L u, z2 = 2 L z1 - u),
+// read as the three K-blocks of the basis-major W (3F, Np) = [W0; W1; W2];
+// nothing is concatenated.  float32 accumulation, one rounding to bf16.
+// Used by the training conv K1 (csrc/fused_cheby_train.cu) and the group
+// deploy conv (csrc/fused_cheby.cu) after two launches of the hop engine
+// (band_hop.cuh) have written z1 and z2.
+//
+// Epilogues (a template parameter, so each instance carries only its own):
+//   kEpiBias   y = acc + b
+//   kEpiStats  y = acc + b, and per column the float32 sums of y and y^2 over
+//              the M rows (after the bias, before rounding): one partial per
+//              block, rows in a fixed order, each (row group, column) slot in
+//              shared memory owned by one lane; launch_reduce adds the
+//              blocks' partials in block order.  No atomics.
+//   kEpiDeploy y = act(acc + b), then + skip (Fs == Fout) or + skip @ skip_w:
+//              the skip projection is a fourth K-loop into the same
+//              registers, run after the bias and the ReLU are applied.
+//
+// Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores):
+//   * Output tiles of 128 rows x BN columns (BN 16, 32, 64 or 128; W padded
+//     to Np, a multiple of BN, so Fout = 3 computes 16 columns and stores
+//     3); a persistent grid walks the tiles m-major, so the blocks in flight
+//     share the rows of A in L2.
+//   * A and W k-tiles of 32 rows through a 3-stage 16-byte cp.async ring in
+//     shared memory (rows >= M and k >= K zero-filled by the copy),
+//     fragments by ldmatrix (.trans for W).
+//   * The tile is staged in shared memory as bf16 and written with 16-byte
+//     stores where Fout % 8 == 0, element by element otherwise.
+// Bound on the H100: at F, Fout >= 64 the product does ~3 Fout / 2 operations
+// per byte of A, far below the 295 of the tensor cores' balance point, so
+// device memory bounds it: A0-A2 read once (M x 3F bf16), y written once.
+#pragma once
+
+#include "band_hop.cuh"
+
+namespace p2m {
+
+constexpr int kEpiBias = 0, kEpiStats = 1, kEpiDeploy = 2;
+constexpr int kProjBM = 128;           // output tile rows
+constexpr int kProjBK = 32;            // k-tile rows
+constexpr int kProjStages = 3;         // cp.async ring depth
+constexpr int kProjBlocksPerSm = 2;    // registers: at most 128 a thread
+constexpr int kProjALd = kProjBK + 8;  // staged A row stride (16 bytes of pad)
+
+struct ProjArgs {
+  const bf16* a[3];     // A0, A1, A2: (M, F)
+  const bf16* W;        // (3F, Np) basis-major, zero beyond Fout
+  const bf16* bias;     // (Fout,)
+  const bf16* skip;     // kEpiDeploy: (M, Fs), or null
+  const bf16* skip_w;   // kEpiDeploy: (Fs, Np) for the skip projection, null for the add
+  bf16* y;              // (M, Fout)
+  float* part;          // kEpiStats: (gridDim.x, 2 Fout) [sum y; sum y^2] per block
+  int M, F, Fout, Np, Fs, relu;
+};
+
+// warps across the tile's columns: 2 for BN >= 64, else 1
+__host__ __device__ constexpr int proj_wc(int BN) { return BN >= 64 ? 2 : 1; }
+
+// Dynamic shared memory of the projection (ops/fused_cheby.py proj_plan):
+// the ring, or the staged output tile if larger, then the statistics slots.
+__host__ __device__ constexpr size_t proj_smem(int BN, int Np, bool stats) {
+  const size_t ring = (size_t)kProjStages * (kProjBM * kProjALd + kProjBK * (BN + 8)) * 2;
+  const size_t tile = (size_t)kProjBM * (BN + 8) * 2;
+  return (ring > tile ? ring : tile) +
+         (stats ? (size_t)2 * (kWarps / proj_wc(BN)) * Np * sizeof(float) : 0);
+}
+
+// ops[b] for b < 3 without indexing the parameter array at run time
+__device__ __forceinline__ const bf16* proj_operand(const ProjArgs& p, int b) {
+  return b == 0 ? p.a[0] : (b == 1 ? p.a[1] : p.a[2]);
+}
+
+// acc += [ops over K columns] @ Wk[:, n0 .. n0+BN) for the tile at row m0.
+// The k-th column of the operand block is column k % lda of operand k / lda
+// (the skip: one operand, lda = K).  Warp (wr, wc) owns rows wr*WM .. +WM and
+// columns wc*WN .. +WN of the tile.  Ends with the ring drained and synced.
+template <int BN, int MI, int NI>
+__device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjArgs& p,
+                                           bool skip_ops, int lda, int K, const bf16* Wk,
+                                           int m0, int n0, bf16* As, bf16* Bs) {
+  constexpr int WC = proj_wc(BN), WM = kProjBM / (kWarps / WC), WN = BN / WC;
+  constexpr int LDB = BN + 8, SA = kProjBM * kProjALd, SB = kProjBK * LDB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp / WC, wc = warp % WC;
+  const int KT = (K + kProjBK - 1) / kProjBK;
+  auto load = [&](int buf, int kt) {
+    bf16* a_s = As + buf * SA;
+    bf16* b_s = Bs + buf * SB;
+    for (int e = threadIdx.x; e < kProjBM * kProjBK / 8; e += kThreads) {
+      const int r = e / (kProjBK / 8), c = (e % (kProjBK / 8)) * 8;
+      const int kk = kt * kProjBK + c;
+      const long m = m0 + r;
+      const bool ok = m < p.M && kk < K;
+      const int b = ok ? kk / lda : 0;
+      const bf16* src = skip_ops ? p.skip : proj_operand(p, b);
+      cp_async16(a_s + r * kProjALd + c, ok ? src + m * lda + (kk - b * lda) : Wk, ok);
+    }
+    for (int e = threadIdx.x; e < kProjBK * BN / 8; e += kThreads) {
+      const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+      const int kk = kt * kProjBK + r;
+      cp_async16(b_s + r * LDB + c, kk < K ? Wk + (long)kk * p.Np + n0 + c : Wk, kk < K);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kProjStages - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kProjStages - 2>();
+    __syncthreads();
+    if (kt + kProjStages - 1 < KT) load((kt + kProjStages - 1) % kProjStages, kt + kProjStages - 1);
+    cp_async_commit();
+    const bf16* a_s = As + (kt % kProjStages) * SA;
+    const bf16* b_s = Bs + (kt % kProjStages) * SB;
+#pragma unroll
+    for (int k16 = 0; k16 < kProjBK; k16 += 16) {
+      unsigned af[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        ldmatrix_x4(af[mi], a_s + (wr * WM + mi * 16 + lane % 16) * kProjALd + k16 +
+                                (lane / 16) * 8);
+#pragma unroll
+      for (int q = 0; q < NI / 2; ++q) {
+        unsigned bq[4];
+        ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * LDB + wc * WN + q * 16 +
+                                  (lane / 16) * 8);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          mma16816(acc[mi][2 * q], af[mi], bq[0], bq[1]);
+          mma16816(acc[mi][2 * q + 1], af[mi], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
+cheby_proj_kernel(ProjArgs p) {
+  constexpr int WC = proj_wc(BN), WR = kWarps / WC;
+  constexpr int WM = kProjBM / WR, WN = BN / WC, MI = WM / 16, NI = WN / 8;
+  constexpr int LDO = BN + 8;
+  constexpr size_t kRing = proj_smem(BN, 0, false);
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + kProjStages * kProjBM * kProjALd;
+  bf16* os = As;  // (kProjBM, LDO) output tile, over the ring after the k-loops
+  float* ssum = reinterpret_cast<float*>(smem + kRing);  // (WR, Np)
+  float* ssq = ssum + WR * p.Np;                         // (WR, Np)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3, wr = warp / WC, wc = warp % WC;
+  if constexpr (EPI == kEpiStats) {
+    for (int e = threadIdx.x; e < 2 * WR * p.Np; e += kThreads) ssum[e] = 0.0f;
+    __syncthreads();
+  }
+
+  const int nn = p.Np / BN, items = (p.M + kProjBM - 1) / kProjBM * nn;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const int m0 = (w / nn) * kProjBM, n0 = (w % nn) * BN;
+    float acc[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
+    proj_kloop<BN>(acc, p, false, p.F, 3 * p.F, p.W, m0, n0, As, Bs);
+
+    // bias (and the activation) in registers
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int f = n0 + wc * WN + ni * 8 + 2 * cq;
+      const float b0 = f < p.Fout ? to_f(p.bias[f]) : 0.0f;
+      const float b1 = f + 1 < p.Fout ? to_f(p.bias[f + 1]) : 0.0f;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[mi][ni][2 * h] + b0, v1 = acc[mi][ni][2 * h + 1] + b1;
+          if (EPI == kEpiDeploy && p.relu) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          acc[mi][ni][2 * h] = v0;
+          acc[mi][ni][2 * h + 1] = v1;
+        }
+    }
+    if constexpr (EPI == kEpiDeploy) {
+      if (p.skip_w)  // + skip @ skip_w, after the activation
+        proj_kloop<BN>(acc, p, true, p.Fs, p.Fs, p.skip_w, m0, n0, As, Bs);
+    }
+
+    if constexpr (EPI == kEpiStats) {
+      // column sums over the warp's rows (lanes of equal lane % 4), then into
+      // the (row group, column) slot this lane alone owns
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        float s[2] = {0.0f, 0.0f}, q[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (m0 + wr * WM + mi * 16 + gq + 8 * h >= p.M) continue;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float v = acc[mi][ni][2 * h + j];
+              s[j] += v;
+              q[j] += v * v;
+            }
+          }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+            q[j] += __shfl_xor_sync(0xffffffffu, q[j], off);
+          }
+        if (gq == 0)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int f = n0 + wc * WN + ni * 8 + 2 * cq + j;
+            if (f < p.Fout) {
+              ssum[wr * p.Np + f] += s[j];
+              ssq[wr * p.Np + f] += q[j];
+            }
+          }
+      }
+    }
+
+    // stage the tile as bf16 (the skip add in float32 first)
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr * WM + mi * 16 + gq + 8 * h;
+        const long m = m0 + r;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int cl = wc * WN + ni * 8 + 2 * cq, f = n0 + cl;
+          float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+          if constexpr (EPI == kEpiDeploy) {
+            if (p.skip && !p.skip_w && m < p.M) {
+              if (f < p.Fout) v0 += to_f(p.skip[m * p.Fs + f]);
+              if (f + 1 < p.Fout) v1 += to_f(p.skip[m * p.Fs + f + 1]);
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(os + r * LDO + cl) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    __syncthreads();
+    if (p.Fout % 8 == 0) {
+      for (int e = threadIdx.x; e < kProjBM * BN / 8; e += kThreads) {
+        const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+        const long m = m0 + r;
+        if (m < p.M && n0 + c < p.Fout)
+          *reinterpret_cast<uint4*>(p.y + m * p.Fout + n0 + c) =
+              *reinterpret_cast<const uint4*>(os + r * LDO + c);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kProjBM * BN; e += kThreads) {
+        const int r = e / BN, c = e % BN;
+        const long m = m0 + r;
+        if (m < p.M && n0 + c < p.Fout) p.y[m * p.Fout + n0 + c] = os[r * LDO + c];
+      }
+    }
+    __syncthreads();  // the next tile's loads refill the ring
+  }
+  if constexpr (EPI == kEpiStats) {
+    for (int f = threadIdx.x; f < p.Fout; f += kThreads) {
+      float s = 0.0f, q = 0.0f;
+      for (int i = 0; i < WR; ++i) {
+        s += ssum[i * p.Np + f];
+        q += ssq[i * p.Np + f];
+      }
+      p.part[(long)blockIdx.x * 2 * p.Fout + f] = s;
+      p.part[(long)blockIdx.x * 2 * p.Fout + p.Fout + f] = q;
+    }
+  }
+}
+
+template <int BN, int EPI>
+inline cudaError_t launch_proj_bn(const ProjArgs& p, int grid, cudaStream_t stream) {
+  const size_t smem = proj_smem(BN, p.Np, EPI == kEpiStats);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(cheby_proj_kernel<BN, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cheby_proj_kernel<BN, EPI><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// One projection launch over the plan's grid (ops/fused_cheby.py proj_plan):
+// bn columns per tile (16, 32, 64 or 128, dividing Np); with kEpiStats also
+// the ordered reduction of the blocks' partials into stats (2, Fout).
+template <int EPI>
+inline cudaError_t launch_proj(const ProjArgs& p, int bn, int grid, float* stats,
+                               cudaStream_t stream) {
+  if (p.M <= 0 || p.F % 16 || p.Fout <= 0 || p.Fout > p.Np || bn <= 0 || p.Np % bn ||
+      grid <= 0 || (p.skip_w && p.Fs % 16) || (p.skip && !p.skip_w && p.Fs != p.Fout))
+    return cudaErrorInvalidValue;
+  uintptr_t al = reinterpret_cast<uintptr_t>(p.a[0]) | reinterpret_cast<uintptr_t>(p.a[1]) |
+                 reinterpret_cast<uintptr_t>(p.a[2]) | reinterpret_cast<uintptr_t>(p.W) |
+                 reinterpret_cast<uintptr_t>(p.skip_w) |
+                 (p.skip_w ? reinterpret_cast<uintptr_t>(p.skip) : 0) |
+                 (p.Fout % 8 == 0 ? reinterpret_cast<uintptr_t>(p.y) : 0);
+  if (al % 16) return cudaErrorMisalignedAddress;
+  cudaError_t err;
+  switch (bn) {
+    case 16: err = launch_proj_bn<16, EPI>(p, grid, stream); break;
+    case 32: err = launch_proj_bn<32, EPI>(p, grid, stream); break;
+    case 64: err = launch_proj_bn<64, EPI>(p, grid, stream); break;
+    case 128: err = launch_proj_bn<128, EPI>(p, grid, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || EPI != kEpiStats) return err;
+  return launch_reduce(p.part, grid, 2 * p.Fout, stats, stream);
+}
+
+}  // namespace p2m

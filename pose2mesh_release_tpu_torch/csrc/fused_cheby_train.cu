@@ -1,4 +1,4 @@
-// Fused K=3 Chebyshev graph conv of the training step (forward).
+// Fused K=3 Chebyshev graph conv of the training step (forward), K1.
 //
 //   u = x, or relu(x*s + c) with (s, c) the previous BatchNorm's affine
 //   y = [u, Lu, 2L(Lu) - u] @ W + b,   optionally (sum y, sum y^2) per channel,
@@ -9,200 +9,115 @@
 // emit_stats, in_fold and in_fold + emit_stats forms, and with keep_basis.
 //
 // Layout: band (2k+1, nt, T, T); x (V, B, F) at the real row count V <= nt*T;
-// W (3F, Fo_pad) basis-major, zero-padded to Fo_pad (a multiple of 16); bias
-// (Fout,); fold scale and shift (F,); y (V, B, Fout); z1, z2 (V, B, F); all
-// bf16.  Rows >= V read as zero and are never written, so nothing of a pad row
-// reaches the statistics or, in the backward, the gradients.
+// W (3F, Np) basis-major, zero-padded to Np columns; bias (Fout,); fold scale
+// and shift (F,); u, z1, z2 (V, B, F) scratch (z1, z2 the keep_basis
+// outputs); y (V, B, Fout); all bf16.  Rows >= V read as zero and are never
+// written, so nothing of a pad row reaches the statistics or, in the
+// backward, the gradients.
 //
-// Design: a persistent grid of a fixed number of blocks walks the work items
-// (row tile t, batch element, FO-wide slice of the output channels).  Per item
-// and per chunk of FC input channels the block stages u on tiles t-2k..t+2k in
-// shared memory (masking rows >= V, applying the fold), computes z1 = Lu on
-// tiles t-k..t+k and z2 = 2 L z1 - u on tile t on bf16 tensor cores (WMMA,
-// float32 accumulation), rounds both to bf16 where the TPU kernel does, and
-// adds the chunk's share of the projection to accumulators held in registers.
-// Bias, statistics, rounding and the store follow.  With keep_basis (its own
-// instantiation, so the other forms carry none of its stores or registers) the
-// items of the first output slice also store each chunk's z1 and z2 of tile t
-// (real rows only), the values the projection used.  The statistics are taken
-// from the float32 values after the bias, over real rows only.  Each block
-// keeps its partial sums in shared memory (one lane per column and warp, rows
-// in order) and writes them once; a second launch adds the blocks' partials in
-// block order.  No atomics: two runs give equal bits.
+// Design, in launches on one stream (the wrapper counts them as one call):
+//   1. with the fold: u = bf16(relu(x*s + c)) in float32 without FMA, as the
+//      plain version, one 16-byte vector a thread (u has only the V real
+//      rows, so the hops below read its missing rows as zero, not relu(c));
+//   2-3. z1 = L u and z2 = 2 L z1 - u: two launches of the banded hop engine
+//      (band_hop.cuh) over u viewed as (V, B*F): band fragments resident per
+//      row tile, zero 16 x 16 sub-tiles skipped, cp.async staging, each
+//      result rounded once to bf16 where the TPU kernel rounds it;
+//   4. y = [u, z1, z2] @ W + b: the projection GEMM (cheby_proj.cuh) over
+//      M = V*B rows, the three operands as W's three K-blocks, with the
+//      statistics epilogue (one float32 partial per block) where asked;
+//   5. with the statistics, the partials added in block order.  No atomics:
+//      two runs give equal bits.
+// With keep_basis the wrapper returns the z1 and z2 of steps 2-3.
 //
 // Bound on the H100: counted at the band's nonzeros the conv does few
 // operations per byte and is bound by device memory (x read once, y written
-// once).  This first version recomputes the z1 halo per item and per output
-// slice, multiplies dense T x T band blocks (~2% nonzero), stages operands
-// with scalar loads and does not pipeline, so it sits far from that bound.
-#include "common.cuh"
+// once).  This design moves more: z1 and z2 (and u with the fold) are
+// written and read back, and each hop re-reads its x rows' halo from L2, so
+// its own floor is about 3-5x the bound's bytes.
+#include "cheby_proj.cuh"
 
 using namespace p2m;
 
 namespace {
 
-template <int FC, int NJO, bool KB>
-__global__ void __launch_bounds__(kThreads)
-train_conv_kernel(const bf16* __restrict__ band, const bf16* __restrict__ x,
-                  const bf16* __restrict__ W, const bf16* __restrict__ bias,
-                  const bf16* __restrict__ fold_s, const bf16* __restrict__ fold_c,
-                  bf16* __restrict__ out, float* __restrict__ part, bf16* __restrict__ z1_out,
-                  bf16* __restrict__ z2_out, int V, int nt, int k, int B, int F, int Fout,
-                  int Fo_pad, int emit_stats) {
-  constexpr int FO = NJO * 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  bf16* uh = reinterpret_cast<bf16*>(smem);         // (4k+1, T, FC) u halo
-  bf16* z1h = uh + (long)(4 * k + 1) * kT * FC;     // (2k+1, T, FC) z1 halo
-  bf16* z2 = z1h + (long)(2 * k + 1) * kT * FC;     // (T, FC) z2 of tile t
-  float* st = reinterpret_cast<float*>(z2 + kT * FC) + warp * 16 * FC;
-  float* ssum = reinterpret_cast<float*>(z2 + kT * FC) + kWarps * 16 * FC;
-  float* ssq = ssum + kWarps * Fo_pad;                // (kWarps, Fo_pad) each
-  if (emit_stats)
-    for (int e = threadIdx.x; e < 2 * kWarps * Fo_pad; e += kThreads) ssum[e] = 0.0f;
-
-  const long ldx = (long)B * F;
-  const int nz = Fo_pad / FO, items = nt * B * nz;
-  for (int w = blockIdx.x; w < items; w += gridDim.x) {
-    const int oz = w % nz, bi = (w / nz) % B, t = w / (nz * B);
-    FragC acc[NJO];
-    zero(acc);
-    for (int c0 = 0; c0 < F; c0 += FC) {
-      stage_halo<FC>(uh, x + (long)bi * F, ldx, t, k, V, F, c0, fold_s, fold_c);
-      cheby_hops<FC>(band, uh, z1h, z2, st, t, nt, k);
-      if constexpr (KB) {
-        if (oz == 0) {  // the warp's own rows of z1 and z2
-          const bf16* z1t = z1h + ((long)k * kT + r0) * FC;
-          for (int e = lane; e < 16 * FC; e += 32) {
-            const long v = (long)t * kT + r0 + e / FC;
-            if (v >= V) continue;
-            const long o = (v * B + bi) * F + c0 + e % FC;
-            z1_out[o] = z1t[e];
-            z2_out[o] = z2[(long)r0 * FC + e];
-          }
-        }
-      }
-      // this chunk's share of [u, z1, z2] @ W for the warp's 16 rows
-      const bf16* wc = W + (long)c0 * Fo_pad + oz * FO;
-      rows_mma(acc, uh + ((long)2 * k * kT + r0) * FC, FC, wc, Fo_pad, FC);
-      rows_mma(acc, z1h + ((long)k * kT + r0) * FC, FC, wc + (long)F * Fo_pad, Fo_pad, FC);
-      rows_mma(acc, z2 + (long)r0 * FC, FC, wc + 2L * F * Fo_pad, Fo_pad, FC);
-      __syncthreads();  // the next chunk overwrites the halos
+// u = bf16(relu(x*s + c)) over n 8-element vectors of (rows, F), float32
+// without FMA; s and c bf16 per channel.
+__global__ void fold_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s,
+                            const bf16* __restrict__ c, bf16* __restrict__ u, long n, int F) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const int f0 = (int)((i * 8) % F);
+    uint4 v = reinterpret_cast<const uint4*>(x)[i];
+    const uint4 sv = *reinterpret_cast<const uint4*>(s + f0);
+    const uint4 cv = *reinterpret_cast<const uint4*>(c + f0);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    const __nv_bfloat162* hs = reinterpret_cast<const __nv_bfloat162*>(&sv);
+    const __nv_bfloat162* hc = reinterpret_cast<const __nv_bfloat162*>(&cv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 xf = __bfloat1622float2(h[j]), sf = __bfloat1622float2(hs[j]),
+                   cf = __bfloat1622float2(hc[j]);
+      h[j] = __floats2bfloat162_rn(fmaxf(__fadd_rn(__fmul_rn(xf.x, sf.x), cf.x), 0.0f),
+                                   fmaxf(__fadd_rn(__fmul_rn(xf.y, sf.y), cf.y), 0.0f));
     }
-    const int v0 = t * kT + r0;  // the warp's first vertex row
-    for (int j = 0; j < NJO; ++j) {
-      wmma::store_matrix_sync(st, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int cj = oz * FO + j * 16;
-      if (emit_stats && lane < 16 && cj + lane < Fout) {
-        const float bc = to_f(bias[cj + lane]);
-        float s = 0.0f, s2 = 0.0f;
-        for (int r = 0; r < 16 && v0 + r < V; ++r) {
-          const float y = st[r * 16 + lane] + bc;
-          s += y;
-          s2 += y * y;
-        }
-        ssum[warp * Fo_pad + cj + lane] += s;
-        ssq[warp * Fo_pad + cj + lane] += s2;
-      }
-      for (int e = lane; e < 256; e += 32) {
-        const int v = v0 + e / 16, c = cj + e % 16;
-        if (v < V && c < Fout)
-          out[((long)v * B + bi) * Fout + c] = to_bf(st[e] + to_f(bias[c]));
-      }
-      __syncwarp();
-    }
-  }
-  if (emit_stats) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < Fout; c += kThreads) {
-      float s = 0.0f, s2 = 0.0f;
-      for (int i = 0; i < kWarps; ++i) {
-        s += ssum[i * Fo_pad + c];
-        s2 += ssq[i * Fo_pad + c];
-      }
-      part[(long)blockIdx.x * 2 * Fout + c] = s;
-      part[(long)blockIdx.x * 2 * Fout + Fout + c] = s2;
-    }
-  }
-}
-
-template <int FC, int NJO>
-cudaError_t launch(const void* band, const void* x, const void* W, const void* bias,
-                   const void* fold_s, const void* fold_c, void* out, float* part,
-                   float* stats, void* z1_out, void* z2_out, int V, int nt, int k, int B,
-                   int F, int Fout, int Fo_pad, int emit_stats, int keep_basis, int grid,
-                   cudaStream_t stream) {
-  const size_t smem = hop_smem(FC, k) + 2 * (size_t)kWarps * Fo_pad * sizeof(float);
-  if (smem > (size_t)kMaxSmem || Fo_pad % (NJO * 16) || F % FC) return cudaErrorInvalidValue;
-  auto kernel =
-      keep_basis ? train_conv_kernel<FC, NJO, true> : train_conv_kernel<FC, NJO, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(band), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(W), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(fold_s), static_cast<const bf16*>(fold_c),
-      static_cast<bf16*>(out), part, static_cast<bf16*>(z1_out), static_cast<bf16*>(z2_out),
-      V, nt, k, B, F, Fout, Fo_pad, emit_stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !emit_stats) return err;
-  return launch_reduce(part, grid, 2 * Fout, stats, stream);
-}
-
-template <int FC>
-cudaError_t launch_fo(int fo, const void* band, const void* x, const void* W,
-                      const void* bias, const void* fold_s, const void* fold_c, void* out,
-                      float* part, float* stats, void* z1_out, void* z2_out, int V, int nt,
-                      int k, int B, int F, int Fout, int Fo_pad, int emit_stats,
-                      int keep_basis, int grid, cudaStream_t s) {
-  switch (fo) {
-#define P2M_FO(N)                                                                      \
-  case N * 16:                                                                         \
-    return launch<FC, N>(band, x, W, bias, fold_s, fold_c, out, part, stats, z1_out,   \
-                         z2_out, V, nt, k, B, F, Fout, Fo_pad, emit_stats, keep_basis,  \
-                         grid, s);
-    P2M_FO(1) P2M_FO(2) P2M_FO(4) P2M_FO(8)
-#undef P2M_FO
-    default:
-      return cudaErrorInvalidValue;
+    reinterpret_cast<uint4*>(u)[i] = v;
   }
 }
 
 }  // namespace
 
-// fold_s / fold_c: null without the fold.  part: (grid, 2*Fout) float32
-// scratch and stats: (2, Fout) float32 [sum y; sum y^2], used with emit_stats.
-// z1_out / z2_out: (V, B, F) bf16, written with keep_basis (not with emit_stats).
-// fc: input-channel chunk (16, 32 or 64, dividing F); fo: output channels per
-// work item (16, 32, 64 or 128, dividing Fo_pad); grid: the persistent grid's
-// block count.  Returns a cudaError_t.
+// fold_s / fold_c: null without the fold, and then u is not used (x is u).
+// z1, z2: (V, B, F) bf16, written by the hops.  part: (proj_grid, 2*Fout)
+// float32 scratch and stats: (2, Fout) float32 [sum y; sum y^2], used with
+// emit_stats.  The launch plan (ops/fused_cheby_train.py train_launcher):
+// the hop engine's chunk, grid and items per block (hop_plan over B*F
+// columns); the projection's tile width bn and grid (proj_plan).  stages:
+// which launches run, 1 the fold, 2 the two hops, 4 the projection (and
+// the statistics' reduction); 7 is the whole conv (the parts alone only time
+// the split).  Returns a cudaError_t.
 extern "C" int p2m_train_conv(const void* band, const void* x, const void* W,
                               const void* bias, const void* fold_s, const void* fold_c,
-                              void* out, void* part, void* stats, void* z1_out,
-                              void* z2_out, int V, int nt, int k, int B, int F, int Fout,
-                              int Fo_pad, int emit_stats, int keep_basis, int fc, int fo,
-                              int grid, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  float* st = static_cast<float*>(stats);
-  switch (fc) {
-    case 16:
-      return launch_fo<16>(fo, band, x, W, bias, fold_s, fold_c, out, p, st, z1_out,
-                           z2_out, V, nt, k, B, F, Fout, Fo_pad, emit_stats, keep_basis,
-                           grid, s);
-    case 32:
-      return launch_fo<32>(fo, band, x, W, bias, fold_s, fold_c, out, p, st, z1_out,
-                           z2_out, V, nt, k, B, F, Fout, Fo_pad, emit_stats, keep_basis,
-                           grid, s);
-    case 64:
-      return launch_fo<64>(fo, band, x, W, bias, fold_s, fold_c, out, p, st, z1_out,
-                           z2_out, V, nt, k, B, F, Fout, Fo_pad, emit_stats, keep_basis,
-                           grid, s);
-    default:
-      return cudaErrorInvalidValue;
+                              void* u, void* z1, void* z2, void* out, void* part,
+                              void* stats, int V, int nt, int k, int B, int F, int Fout,
+                              int Np, int emit_stats, int hop_cc, int hop_grid,
+                              int hop_per_block, int bn, int proj_grid, int stages,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F % 16 || V <= 0 || B <= 0) return cudaErrorInvalidValue;
+  const bool fold = fold_s != nullptr;
+  const bf16* ub = fold ? static_cast<const bf16*>(u) : static_cast<const bf16*>(x);
+  bf16* z1b = static_cast<bf16*>(z1);
+  bf16* z2b = static_cast<bf16*>(z2);
+  cudaError_t err = cudaSuccess;
+  if (fold && (stages & 1)) {
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(u) |
+         reinterpret_cast<uintptr_t>(fold_s) | reinterpret_cast<uintptr_t>(fold_c)) % 16)
+      return cudaErrorMisalignedAddress;
+    const long n = (long)V * B * F / 8;
+    const long blocks = (n + 255) / 256;
+    fold_kernel<<<(int)(blocks < 65536 ? blocks : 65536), 256, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(fold_s),
+        static_cast<const bf16*>(fold_c), static_cast<bf16*>(u), n, F);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  if (stages & 2) {
+    const bf16* bb = static_cast<const bf16*>(band);
+    const int C = B * F;
+    err = launch_band_hop(HopArgs{bb, ub, nullptr, z1b, 1.0f, 0.0f, V, nt, k, C}, hop_cc,
+                          hop_grid, hop_per_block, st);
+    if (err != cudaSuccess) return err;
+    err = launch_band_hop(HopArgs{bb, z1b, ub, z2b, 2.0f, -1.0f, V, nt, k, C}, hop_cc,
+                          hop_grid, hop_per_block, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (!(stages & 4)) return cudaSuccess;
+  ProjArgs p{{ub, z1b, z2b}, static_cast<const bf16*>(W), static_cast<const bf16*>(bias),
+             nullptr, nullptr, static_cast<bf16*>(out), static_cast<float*>(part),
+             V * B, F, Fout, Np, 0, 0};
+  if (emit_stats)
+    return launch_proj<kEpiStats>(p, bn, proj_grid, static_cast<float*>(stats), st);
+  return launch_proj<kEpiBias>(p, bn, proj_grid, nullptr, st);
 }
 
 extern "C" const char* p2m_train_conv_error_string(int err) {

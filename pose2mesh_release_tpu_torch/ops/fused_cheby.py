@@ -13,14 +13,21 @@ row count Vp = nt * T; `band_val` is (2k+1, nt, T, T), k in {1, 2}.  Both
 convs use bf16 operands with float32 accumulation and round the hop
 results to the working dtype at the same points as the TPU kernels.
 
+`fused_cheby_conv` runs on the card as two launches of the banded hop
+engine (z1 = L x, z2 = 2 L z1 - x, csrc/band_hop.cuh) and one of the
+three-operand projection GEMM (csrc/cheby_proj.cuh); `proj_plan` lays out
+that GEMM's launch in pure Python, `conv_launcher` runs the launches apart.
+
 Each wrapper runs the plain PyTorch version for a tensor on the CPU and
-launches its CUDA kernel for a tensor on the card, counting the launch in
-`launches`.  There is no fallback: a CUDA input the kernel does not take
-raises.  The bounds of each kernel on the H100 are in its source note.
+launches its CUDA kernel for a tensor on the card, counting the call in
+`launches` (once, whatever the number of CUDA launches).  There is no
+fallback: a CUDA input the kernel does not take raises.  The bounds of each
+kernel on the H100 are in its source note.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -30,9 +37,9 @@ import torch.nn.functional as F
 from ._build import load_library
 from .spmm import band_hop
 
-__all__ = ["fused_cheby_conv", "fused_cheby_conv_commuted",
-           "fused_cheby_conv_plain", "fused_cheby_conv_commuted_plain",
-           "launches"]
+__all__ = ["CONV_STAGES", "ProjPlan", "conv_launcher", "fused_cheby_conv",
+           "fused_cheby_conv_commuted", "fused_cheby_conv_plain",
+           "fused_cheby_conv_commuted_plain", "launches", "proj_plan", "proj_smem"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0}
@@ -149,7 +156,7 @@ def _ptr(t: Optional[torch.Tensor]):
 @functools.cache
 def _fused_lib():
     lib = load_library("fused_cheby")
-    lib.p2m_fused_cheby_conv.argtypes = [_C_PTR] * 7 + [_C_INT] * 10 + [_C_PTR]
+    lib.p2m_fused_cheby_conv.argtypes = [_C_PTR] * 9 + [_C_INT] * 15 + [_C_PTR]
     lib.p2m_fused_cheby_conv.restype = _C_INT
     lib.p2m_fused_cheby_error_string.argtypes = [_C_INT]
     lib.p2m_fused_cheby_error_string.restype = ctypes.c_char_p
@@ -167,14 +174,102 @@ def _commuted_lib():
 
 
 def _input_chunk(k: int, Fin: int) -> int:
-    """Largest input-channel chunk whose shared-memory footprint fits:
-    z1 halo chunk + z1/z2 of the tile (bf16) + per-warp float32 staging."""
+    """The window conv's (csrc/window_cheby.cu) largest input-channel chunk
+    whose shared-memory footprint fits: z1 halo chunk + z1/z2 of the tile
+    (bf16) + per-warp float32 staging."""
     for fc in (64, 32, 16):
         smem = ((2 * k + 1) * _T * fc + 2 * _T * Fin) * 2 + 8 * 16 * max(fc, 32) * 4
         if Fin % fc == 0 and smem <= _MAX_SMEM:
             return fc
     raise ValueError(f"F={Fin} with band_k={k} does not fit the kernel's "
                      f"shared memory")
+
+
+# the projection GEMM's tiles (csrc/cheby_proj.cuh)
+_PROJ_BM, _PROJ_BK, _PROJ_STAGES = 128, 32, 3
+_PROJ_BLOCKS_PER_SM = 2  # kProjBlocksPerSm
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjPlan:
+    """A launch of the projection GEMM: `bn`-column output tiles of 128 rows
+    over W padded to `np` columns (Fout rounded up to 16, then to `bn`), a
+    persistent grid of `grid` blocks walking `items` tiles, `smem` bytes of
+    dynamic shared memory per block."""
+    bn: int
+    np: int
+    items: int
+    grid: int
+    smem: int
+
+
+def proj_smem(bn: int, np_: int, stats: bool) -> int:
+    """Dynamic shared memory of the projection (csrc proj_smem): the cp.async
+    ring or the staged output tile, and with the statistics one float32 sum
+    and sum of squares per (warp row group, column)."""
+    ring = _PROJ_STAGES * (_PROJ_BM * (_PROJ_BK + 8) + _PROJ_BK * (bn + 8)) * 2
+    tile = _PROJ_BM * (bn + 8) * 2
+    row_groups = 8 // (2 if bn >= 64 else 1)
+    return max(ring, tile) + (2 * row_groups * np_ * 4 if stats else 0)
+
+
+def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False) -> ProjPlan:
+    """The projection's launch for M rows, F -> Fout, on a card of `sms` SMs
+    (with `stats`, the statistics epilogue's shared memory)."""
+    if M <= 0 or F <= 0 or F % 16 or Fout <= 0:
+        raise ValueError(f"the projection takes M > 0, F % 16 == 0 and Fout > 0, "
+                         f"got M={M}, F={F}, Fout={Fout}")
+    fo_pad = -(-Fout // 16) * 16
+    if fo_pad <= 64:
+        bn = next(b for b in (16, 32, 64) if fo_pad <= b)
+    else:
+        bn = 128 if fo_pad % 128 == 0 else 64
+    np_ = -(-fo_pad // bn) * bn
+    items = -(-M // _PROJ_BM) * (np_ // bn)
+    return ProjPlan(bn, np_, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
+                    proj_smem(bn, np_, stats))
+
+
+# the group conv's launches (csrc/fused_cheby.cu `stages`): the two hops,
+# then the projection
+CONV_STAGES = {"hops": 1, "proj": 2}
+_CONV_ALL_STAGES = 3
+
+
+def conv_launcher(band_val, x, W, b, relu: bool, skip=None, skip_w=None):
+    """`fused_cheby_conv` on CUDA inputs (checked here): (run, out), where
+    run(stages) launches the stages named by the bit mask (CONV_STAGES) into
+    out.  The wrapper runs all of them once; running them apart only times
+    the split."""
+    # hop.py imports this module's helpers, so its plan is imported here
+    from .hop import hop_plan, sm_count
+    k, nt, T, B, Fin, Fout = _check_shapes(band_val, x, W, b)
+    Fs = _check_skip(x, Fout, skip, skip_w)
+    extra = {} if skip is None else {"skip": skip}
+    if skip_w is not None:
+        extra["skip_w"] = skip_w
+    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **extra)
+    if skip_w is not None and Fs % 16:
+        raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
+    sms = sm_count(x.device)
+    hp = hop_plan(nt, k, B * Fin, sms)
+    pp = proj_plan(x.shape[0] * B, Fin, Fout, sms)
+    Wp = _pad_cols(W, pp.np)
+    swp = None if skip_w is None else _pad_cols(skip_w, pp.np)
+    skip_mode = 0 if skip is None else (1 if skip_w is None else 2)
+    z1, z2 = torch.empty_like(x), torch.empty_like(x)
+    out = torch.empty((x.shape[0], B, Fout), dtype=x.dtype, device=x.device)
+    lib = _fused_lib()
+
+    def run(stages: int):
+        with torch.cuda.device(x.device):
+            err = lib.p2m_fused_cheby_conv(
+                _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(skip), _ptr(swp),
+                _ptr(z1), _ptr(z2), _ptr(out), nt, k, B, Fin, Fout, pp.np, Fs, int(relu),
+                skip_mode, hp.cc, hp.grid, hp.per_block, pp.bn, pp.grid, stages, _stream(x))
+        _raise_on(err, lib, "p2m_fused_cheby_error_string")
+
+    return run, out
 
 
 def fused_cheby_conv(band_val, x, W, b, *, relu: bool,
@@ -184,30 +279,13 @@ def fused_cheby_conv(band_val, x, W, b, *, relu: bool,
     + skip @ skip_w.  band_val (2k+1, nt, T, T); x (nt*T, B, F); W (3F, Fout)
     basis-major; b (Fout,); skip (nt*T, B, Fs); skip_w (Fs, Fout).
     Returns (nt*T, B, Fout) in x's dtype."""
-    k, nt, T, B, Fin, Fout = _check_shapes(band_val, x, W, b)
-    Fs = _check_skip(x, Fout, skip, skip_w)
+    _check_shapes(band_val, x, W, b)
+    _check_skip(x, W.shape[1], skip, skip_w)
     if x.device.type == "cpu":
         return fused_cheby_conv_plain(band_val, x, W, b, relu=relu,
                                       skip=skip, skip_w=skip_w)
-    extra = {} if skip is None else {"skip": skip}
-    if skip_w is not None:
-        extra["skip_w"] = skip_w
-    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **extra)
-    if skip_w is not None and Fs % 16:
-        raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
-    fc = _input_chunk(k, Fin)
-    fo_pad = -(-Fout // 16) * 16
-    Wp = _pad_cols(W, fo_pad)
-    swp = None if skip_w is None else _pad_cols(skip_w, fo_pad)
-    skip_mode = 0 if skip is None else (1 if skip_w is None else 2)
-    out = torch.empty((x.shape[0], B, Fout), dtype=x.dtype, device=x.device)
-    lib = _fused_lib()
-    with torch.cuda.device(x.device):
-        err = lib.p2m_fused_cheby_conv(
-            _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(skip), _ptr(swp),
-            _ptr(out), nt, k, B, Fin, Fout, fo_pad, Fs, int(relu), skip_mode,
-            fc, _stream(x))
-    _raise_on(err, lib, "p2m_fused_cheby_error_string")
+    run, out = conv_launcher(band_val, x, W, b, relu, skip, skip_w)
+    run(_CONV_ALL_STAGES)
     launches["fused_cheby_conv"] += 1
     return out
 

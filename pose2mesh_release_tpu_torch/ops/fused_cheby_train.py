@@ -6,7 +6,9 @@ Counterpart of the training half of the JAX package's `ops/pallas_cheby.py`:
       u = x, or relu(x*s + c) with in_fold = (s, c)
       y = [u, Lu, 2L(Lu) - u] @ W + b, with emit_stats also the float32
       per-channel sums (sum y, sum y^2) over the real V*B rows, or with
-      keep_basis also the basis z1 = Lu, z2 = 2L z1 - u (no gradient)
+      keep_basis also the basis z1 = Lu, z2 = 2L z1 - u (no gradient);
+      the fold pass, two launches of the banded hop engine and the
+      three-operand projection GEMM, which `train_launcher` runs apart
   fused_cheby_conv_bwd    <- _fused_bwd_call (Pallas; CUDA csrc/fused_cheby_bwd.cu)
       g1 = Lg, h2 = 2L g1 - g (two launches of the banded hop engine);
       dx = g W0^T + g1 W1^T + h2 W2^T (through the fold's mask and scale),
@@ -45,24 +47,22 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .fused_cheby import _C_INT, _C_PTR, _MAX_SMEM, _T, _check_cuda, _pad_cols, _ptr, \
-    _raise_on, _stream
+from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, \
+    _stream, proj_plan
 from .hop import HopPlan, banded_hop, hop_plan, sm_count
 from .spmm import band_hop
 
-__all__ = ["BWD_STAGES", "BwdPlan", "bwd_launcher", "bwd_plan",
+__all__ = ["BWD_STAGES", "BwdPlan", "TRAIN_STAGES", "bwd_launcher", "bwd_plan",
            "fused_cheby_conv_train", "fused_cheby_conv_bwd",
            "fused_cheby_conv_train_plain", "fused_cheby_conv_bwd_plain",
            "fused_cheby_project", "fused_cheby_project_stats", "cheby_project_unfused",
            "fused_cheby_project_folded", "fused_cheby_project_folded_stats",
-           "launches"]
+           "launches", "train_launcher"]
 
 Fold = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"fused_cheby_conv_train": 0, "fused_cheby_conv_bwd": 0}
-
-_WARPS = 8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -158,20 +158,6 @@ def _fold_args(in_fold: Fold, Fin: int, dev):
             "fold_c": c.to(torch.bfloat16).contiguous()}
 
 
-def _hop_smem(fc: int, k: int) -> int:
-    """Shared memory of one hop chunk (csrc/common.cuh hop_smem)."""
-    return ((4 * k + 1) + (2 * k + 1) + 1) * _T * fc * 2 + _WARPS * 16 * fc * 4
-
-
-def _chunk(C: int, k: int, extra: int) -> int:
-    """K1's largest channel chunk dividing C whose shared memory fits."""
-    for fc in (64, 32, 16):
-        if C % fc == 0 and _hop_smem(fc, k) + extra <= _MAX_SMEM:
-            return fc
-    raise ValueError(f"{C} channels with band_k={k} do not fit the kernel's "
-                     f"shared memory")
-
-
 # the dx and dW kernels' tiles (csrc/fused_cheby_bwd.cu)
 _BK, _STAGES, _DX_BM, _DX_BN = 32, 3, 128, 64
 _DX_BLOCKS_PER_SM = 3
@@ -223,7 +209,7 @@ def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int) -> 
 @functools.cache
 def _train_lib():
     lib = load_library("fused_cheby_train")
-    lib.p2m_train_conv.argtypes = [_C_PTR] * 11 + [_C_INT] * 12 + [_C_PTR]
+    lib.p2m_train_conv.argtypes = [_C_PTR] * 12 + [_C_INT] * 14 + [_C_PTR]
     lib.p2m_train_conv.restype = _C_INT
     lib.p2m_train_conv_error_string.argtypes = [_C_INT]
     lib.p2m_train_conv_error_string.restype = ctypes.c_char_p
@@ -250,39 +236,59 @@ def fused_cheby_conv_train(band_val, x, W, b, *, in_fold: Fold = None,
     float32 (Fout,) over the V*B rows of the float32 y before rounding; with
     keep_basis (y, z1, z2), z1 = Lu and z2 = 2L z1 - u (V, B, F) in x's dtype.
     emit_stats and keep_basis exclude each other, as in the TPU kernel."""
-    k, nt, T, Fin, Fout = _check_train(band_val, x, W, b)
+    _check_train(band_val, x, W, b)
     if emit_stats and keep_basis:
         raise ValueError("keep_basis and emit_stats exclude each other")
     if x.device.type == "cpu":
         return fused_cheby_conv_train_plain(band_val, x, W, b, in_fold=in_fold,
                                             emit_stats=emit_stats, keep_basis=keep_basis)
+    run, out = train_launcher(band_val, x, W, b, in_fold, emit_stats, keep_basis)
+    run(_TRAIN_ALL_STAGES)
+    launches["fused_cheby_conv_train"] += 1
+    return out
+
+
+# K1's launches (csrc/fused_cheby_train.cu `stages`): the fold pass, the two
+# hops, then the projection with the statistics' reduction
+TRAIN_STAGES = {"fold": 1, "hops": 2, "proj": 4}
+_TRAIN_ALL_STAGES = 7
+
+
+def train_launcher(band_val, x, W, b, in_fold: Fold, emit_stats: bool, keep_basis: bool):
+    """K1 on CUDA inputs (checked here): (run, outputs), where run(stages)
+    launches the stages named by the bit mask (TRAIN_STAGES) into the
+    outputs, those `fused_cheby_conv_train` returns.  The wrapper runs all of
+    them once; running them apart only times the split."""
+    k, nt, T, Fin, Fout = _check_train(band_val, x, W, b)
     fold = _fold_args(in_fold, Fin, x.device)
     _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **fold)
     V, B = x.shape[:2]
-    fo_pad = _cdiv(Fout, 16) * 16
-    fo = next(f for f in (128, 64, 32, 16) if fo_pad % f == 0)
-    fc = _chunk(Fin, k, 2 * _WARPS * fo_pad * 4)
-    grid = min(nt * B * (fo_pad // fo), 2 * sm_count(x.device))
-    Wp = _pad_cols(W, fo_pad)
-    out = torch.empty((V, B, Fout), dtype=x.dtype, device=x.device)
-    part = stats = z1 = z2 = None
+    dev = x.device
+    sms = sm_count(dev)
+    hp = hop_plan(nt, k, B * Fin, sms)
+    pp = proj_plan(V * B, Fin, Fout, sms, stats=emit_stats)
+    Wp = _pad_cols(W, pp.np)
+    u = torch.empty_like(x) if fold else None
+    z1, z2 = torch.empty_like(x), torch.empty_like(x)
+    out = torch.empty((V, B, Fout), dtype=x.dtype, device=dev)
+    part = stats = None
     if emit_stats:
-        part = torch.empty((grid, 2 * Fout), dtype=torch.float32, device=x.device)
-        stats = torch.empty((2, Fout), dtype=torch.float32, device=x.device)
-    if keep_basis:
-        z1, z2 = torch.empty_like(x), torch.empty_like(x)
+        part = torch.empty((pp.grid, 2 * Fout), dtype=torch.float32, device=dev)
+        stats = torch.empty((2, Fout), dtype=torch.float32, device=dev)
     lib = _train_lib()
-    with torch.cuda.device(x.device):
-        err = lib.p2m_train_conv(
-            _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(fold.get("fold_s")),
-            _ptr(fold.get("fold_c")), _ptr(out), _ptr(part), _ptr(stats), _ptr(z1),
-            _ptr(z2), V, nt, k, B, Fin, Fout, fo_pad, int(emit_stats), int(keep_basis),
-            fc, fo, grid, _stream(x))
-    _raise_on(err, lib, "p2m_train_conv_error_string")
-    launches["fused_cheby_conv_train"] += 1
+
+    def run(stages: int):
+        with torch.cuda.device(dev):
+            err = lib.p2m_train_conv(
+                _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(fold.get("fold_s")),
+                _ptr(fold.get("fold_c")), _ptr(u), _ptr(z1), _ptr(z2), _ptr(out), _ptr(part),
+                _ptr(stats), V, nt, k, B, Fin, Fout, pp.np, int(emit_stats), hp.cc, hp.grid,
+                hp.per_block, pp.bn, pp.grid, stages, _stream(x))
+        _raise_on(err, lib, "p2m_train_conv_error_string")
+
     if emit_stats:
-        return out, stats[0], stats[1]
-    return (out, z1, z2) if keep_basis else out
+        return run, (out, stats[0], stats[1])
+    return run, ((out, z1, z2) if keep_basis else out)
 
 
 def fused_cheby_conv_bwd(band_val, g, x, W, *, in_fold: Fold = None):

@@ -7,14 +7,17 @@ RMSprop at lr 1e-3, edge loss on), warms it up, then:
   1. times `--steps` steps on the host clock, each ending in a synchronize:
      the end-to-end metric "train step ms per batch";
   2. traces `--steps` steps with torch.profiler: device time per step by
-     kernel, grouped into K1 (`fused_cheby_conv_train`), K2
-     (`fused_cheby_conv_bwd`), their partial-sum passes, matrix products and
-     the rest, and the device's idle share of the traced window;
+     kernel, grouped into K1 (`fused_cheby_conv_train`: its fold pass and
+     projection), K2 (`fused_cheby_conv_bwd`: dx, dW), the hop engine that
+     both run, their partial-sum passes, matrix products and the rest, and
+     the device's idle share of the traced window;
   3. traces `--steps` steps again, each cut into phases (network forward,
      loss forward, loss backward, network backward, optimizer) marked with
-     a marker kernel, and splits the kernels that no name claims by the
-     phase they run in: the network's BatchNorm, elementwise, gather and
-     cast kernels, the losses, the optimizer.
+     a marker kernel, and splits by the phase they run in the hop engine's
+     kernels (K1's hops in the network forward, K2's in its backward) and
+     the kernels that no name claims: the network's BatchNorm, elementwise,
+     gather and cast kernels, the losses, the optimizer.  K1's and K2's
+     totals are their named kernels (2.) plus their engine time (3.).
 Needs a CUDA device; writes chiprun_out/profile_train.json.
 """
 from __future__ import annotations
@@ -34,9 +37,10 @@ from ..models.meshnet import extract_mesh
 from ..train_setup import smpl_train_setup
 
 LR = 1e-3
-GROUPS = (("K1 fused_cheby_conv_train", ("train_conv_kernel",)),
-          ("K2 fused_cheby_conv_bwd", ("band_hop_kernel", "bwd_dx_kernel",
-                                       "bwd_dw_kernel", "dw_reduce_kernel")),
+ENGINE = "hop engine (K1 and K2)"
+GROUPS = (("K1 fused_cheby_conv_train", ("cheby_proj_kernel", "fold_kernel")),
+          ("K2 fused_cheby_conv_bwd", ("bwd_dx_kernel", "bwd_dw_kernel", "dw_reduce_kernel")),
+          (ENGINE, ("band_hop_kernel",)),
           ("K1/K2 partial-sum passes", ("reduce_partials",)),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 PHASES = ("network forward", "loss forward", "loss backward", "network backward",
@@ -97,19 +101,24 @@ def _phased_step(setup, state, jreg):
 
 
 def _by_phase(prof):
-    """{phase: device us of the kernels of that phase that no name group
-    claims}: the device kernels in time order, the phase advancing at each
-    marker kernel."""
+    """({phase: device us of the kernels of that phase that no name group
+    claims}, {phase: device us of the hop engine}, markers seen): the device
+    kernels in time order, the phase advancing at each marker kernel."""
     dev = sorted((e for e in _device_events(prof) if not _is_annotation(e)),
                  key=lambda e: e.time_range.start)
     out = {p: 0.0 for p in PHASES}
+    engine = {p: 0.0 for p in PHASES}
     i = 0
     for e in dev:
         if "spin_kernel" in e.name:
             i += 1
-        elif _group(e.name) is None:
+            continue
+        group = _group(e.name)
+        if group is None:
             out[PHASES[i % len(PHASES)]] += e.device_time_total
-    return out, i
+        elif group == ENGINE:
+            engine[PHASES[i % len(PHASES)]] += e.device_time_total
+    return out, engine, i
 
 
 def main(argv=None) -> int:
@@ -161,7 +170,7 @@ def main(argv=None) -> int:
         for _ in range(n):
             _phased_step(s, state, jreg)
         torch.cuda.synchronize()
-    phases, markers = _by_phase(prof2)
+    phases, engine, markers = _by_phase(prof2)
     if markers != len(PHASES) * n:
         raise SystemExit(f"profile_train: {markers} phase markers in the trace, "
                          f"expected {len(PHASES) * n}")
@@ -170,6 +179,11 @@ def main(argv=None) -> int:
     for p, ms in phase_ms.items():
         other_split[PHASE_GROUPS[p]] = other_split.get(PHASE_GROUPS[p], 0.0) + ms
     phased_device_ms = sum(us for _, us in _device_kernels(prof2)) / 1e3 / n
+    engine_ms = {p: us / 1e3 / n for p, us in engine.items()}
+    totals = {"K1 (named + hops in the network forward)":
+              groups["K1 fused_cheby_conv_train"] + engine_ms["network forward"],
+              "K2 (named + hops in the network backward)":
+              groups["K2 fused_cheby_conv_bwd"] + engine_ms["network backward"]}
 
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     result = {
@@ -182,6 +196,8 @@ def main(argv=None) -> int:
         "groups_ms_per_step": groups,
         "other_by_phase_ms_per_step": other_split,
         "unnamed_kernels_by_phase_ms_per_step": phase_ms,
+        "hop_engine_by_phase_ms_per_step": engine_ms,
+        "k1_k2_ms_per_step": totals,
         "phased_device_ms_per_step": phased_device_ms,
         "top_kernels_ms_per_step": [(k, us / 1e3 / n) for k, us in top],
     }
@@ -194,6 +210,10 @@ def main(argv=None) -> int:
     print(f"'other' split by the phase it runs in (phased steps, device "
           f"{phased_device_ms:.3f} ms per step):")
     for name, ms in other_split.items():
+        print(f"  {name:40s} {ms:8.3f} ms")
+    print("hop engine by phase: " + ", ".join(f"{p} {ms:.3f} ms" for p, ms in engine_ms.items()
+                                              if ms))
+    for name, ms in totals.items():
         print(f"  {name:40s} {ms:8.3f} ms")
     for key, ms in result["top_kernels_ms_per_step"]:
         print(f"  {ms:8.3f} ms  {key[:100]}")

@@ -5,10 +5,13 @@ are not a multiple of the 128-row tile), the wrappers' input checks, a small
 deploy MeshNet on each path, and the training kernels' determinism (equal
 bits run to run).  Kernels: the group deploy convs, the training conv K1 (and
 its keep_basis outputs) and its backward K2, the single hop K4, the strip
-conv K5 and the window conv K6.  K4 and K2's hops run on the banded hop
-engine, which skips all-zero 16 x 16 band sub-tiles: their cases include
-bands shaped to break that skip (a dense band block, single nonzeros in
-sub-tile corners, an all-zero row tile).
+conv K5 and the window conv K6.  The hops of K4, K1, K2 and the group
+deploy conv run on the banded hop engine, which skips all-zero 16 x 16 band
+sub-tiles: their cases include bands shaped to break that skip (a dense band
+block, single nonzeros in sub-tile corners, an all-zero row tile) and a band
+whose pad columns are nonzero (K1's fold must leave the missing rows zero).
+K1 and the group conv project through one GEMM whose 3-wide outputs are
+computed 16 wide and stored 3 wide.
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -76,6 +79,7 @@ def inputs(op, B, shapes, dev, seed):
     (1, 16, 16, "relu"),        # input chunk 16
     (1, 48, 40, "skip_add"),    # chunk 16, Fout not a multiple of 16
     (1, 32, 3, "final"),        # chunk 32, the 3-wide final conv
+    (1, 64, 3, "final"),        # the network's last conv: 3 of a 16-column tile stored
     (1, 64, 24, "skip_proj"),   # chunk 64
     (1, 256, 256, "skip_add"),  # chunk 64 at the widest SMPL width
     (2, 256, 128, "relu"),      # band_k 2 at F=256: chunk 32
@@ -104,6 +108,7 @@ def test_fused_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
     ref = fc.fused_cheby_conv_plain(band.float(), x.float(), W.float(),
                                     b.float(), **f32)
     assert y.shape == (Vp, B, Fout) and y.dtype == torch.bfloat16
+    assert y.untyped_storage().nbytes() == y.numel() * 2  # exactly (Vp, B, Fout)
     assert rel_l2(y[:V], ref[:V]) <= TOL
 
 
@@ -203,6 +208,7 @@ def f32(t):
 @pytest.mark.parametrize("k,F,Fout,fold,stats", [
     (1, 16, 8, False, True),     # input chunk 16
     (1, 64, 3, True, False),     # the network's last conv: 3 outputs, no stats
+    (1, 128, 3, False, False),   # 3 of a 16-column projection tile stored
     (1, 256, 256, True, True),   # the widest SMPL conv, chunk 64, two output slices
     (2, 256, 128, False, True),  # band_k 2 at F=256: chunk 32
     (2, 64, 8, True, True),
@@ -222,6 +228,7 @@ def test_train_conv_kernel(cuda, k, F, Fout, fold, stats):
         in_fold=(s.float(), c.float()) if fold else None, emit_stats=stats)
     out, ref = (out, ref) if stats else ((out,), (ref,))
     assert out[0].shape == (op.num_vertices, 3, Fout) and out[0].dtype == torch.bfloat16
+    assert out[0].untyped_storage().nbytes() == out[0].numel() * 2  # exactly (V, B, Fout)
     for got, want in zip(out, ref):
         assert torch.isfinite(got.float()).all()
         assert rel_l2(got, want) <= TOL
@@ -467,6 +474,43 @@ def test_train_conv_keep_basis_kernel(cuda, k, F, Fout, fold):
     assert got[1].shape == got[2].shape == x.shape
     for name, t, r in zip(("y", "z1", "z2"), got, want):
         assert rel_l2(t, r) <= TOL, name
+
+
+def pad_column_band(op) -> torch.Tensor:
+    """op's band_val (CPU, float32) with nonzero values in the band columns
+    of the missing rows V .. nt*T, in every block that reaches the last row
+    tile: a nonzero u on a missing row would reach z1 on real rows."""
+    band = op.band_val.float().clone()
+    k, nt, V = band.shape[0] // 2, band.shape[1], op.num_vertices
+    g = torch.Generator().manual_seed(1)
+    for d in range(k, 2 * k + 1):
+        t = nt - 1 - (d - k)
+        band[d, t, :, V % 128:] = torch.randn(128, 128 - V % 128, generator=g) * 0.2
+    return band
+
+
+@pytest.mark.parametrize("k,stats", [(1, False), (1, True), (2, False)])
+def test_train_conv_fold_leaves_missing_rows_zero(cuda, k, stats):
+    """With the fold and c > 0, relu(x*s + c) of a missing row would be
+    relu(c) > 0: on a band with nonzero pad columns it would move z1, z2 and
+    y on the last real rows.  V = 900 is not a multiple of 128."""
+    op = band_level(k, seed=110 + k)
+    V = op.num_vertices
+    assert V % 128
+    band = pad_column_band(op).to(cuda, torch.bfloat16)
+    x, W, b, s, c, _ = train_inputs(op, 3, 64, 32, cuda, 15)
+    c = (c.float().abs() + 0.5).to(torch.bfloat16)
+    kw = {"emit_stats": True} if stats else {"keep_basis": True}
+    got = ft.fused_cheby_conv_train(band, x, W, b, in_fold=(s, c), **kw)
+    torch.cuda.synchronize()
+    want = ft.fused_cheby_conv_train_plain(band.float(), x.float(), W.float(), b.float(),
+                                           in_fold=(s.float(), c.float()), **kw)
+    last = slice((op.band_val.shape[1] - 1 - k) * 128, V)  # the rows the pad columns reach
+    names = ("y", "sum_y", "sum_y2") if stats else ("y", "z1", "z2")
+    for name, t, r in zip(names, got, want):
+        assert rel_l2(t, r) <= TOL, name
+        if name not in ("sum_y", "sum_y2"):
+            assert rel_l2(t[last], r[last]) <= TOL, name
 
 
 @pytest.mark.parametrize("k", [1, 2])

@@ -1,16 +1,18 @@
-"""PyTorch port: the launch plans of the banded hop engine (K4, and K2's two
-hops) and of the fused training backward K2, computed on the CPU for a card
-of 132 SMs (an H100 SXM).
+"""PyTorch port: the launch plans of the banded hop engine (K4, and the two
+hops of K1, K2 and the group deploy conv), of the three-operand projection
+GEMM (K1 and the group deploy conv) and of the fused training backward K2,
+computed on the CPU for a card of 132 SMs (an H100 SXM).
 
 At every shape of the unfused deploy path (the hop of each SMPL band conv,
-batch 64) and of the train path (K2 of each SMPL training conv, batch 64),
-plus band_k = 2 levels: each block's shared memory fits the 232,448 bytes a
-block may use on sm_90, the engine keeps two blocks on an SM where it
-claims to, and the work items of every launch cover every row and column
-exactly once.
+batch 64), of the group deploy path and of the train path (K1 and K2 of each
+SMPL training conv, batch 64), plus band_k = 2 levels and odd widths: each
+block's shared memory fits the 232,448 bytes a block may use on sm_90, the
+engine and the projection keep two blocks on an SM where they claim to, and
+the work items of every launch cover every row and column exactly once.
 """
 import pytest
 
+from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
 from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
 from pose2mesh_release_tpu_torch.ops import hop as hp
 
@@ -28,6 +30,10 @@ UNFUSED_HOPS = [(981, 256), (981, 256), (1849, 256), (1849, 128), (3475, 128),
 TRAIN_CONVS = [(981, 256, 256), (981, 256, 256), (1849, 256, 128), (1849, 128, 128),
                (3475, 128, 128), (3475, 128, 128), (6890, 128, 128), (6890, 128, 128),
                (6890, 128, 64), (6890, 64, 3)]
+# the group deploy forward's band convs at the padded rows: (V, Fin, Fout),
+# the 8 basis-order convs, then the 2 commuted convs' widths
+DEPLOY_CONVS = [(981, 256, 256), (1849, 128, 128), (3475, 128, 128), (6890, 128, 128),
+                (6890, 64, 3), (1849, 256, 128), (6890, 128, 64)]
 
 
 def cdiv(a, b):
@@ -106,3 +112,61 @@ def test_bwd_plan_copies_g_only_for_narrow_outputs():
     """fo_pad equals Fout at every train-path width but the last conv's 3."""
     pads = {fo: ft.bwd_plan(6890, BATCH, 56, 1, 64, fo, SMS).fo_pad for fo in (3, 64, 128, 256)}
     assert pads == {3: 16, 64: 64, 128: 128, 256: 256}
+
+
+def check_proj_plan(p: fc.ProjPlan, M: int, F: int, Fout: int, stats: bool):
+    assert p.bn in (16, 32, 64, 128)
+    # W padded to np columns: Fout rounded up to 16, then to the tile width
+    fo_pad = cdiv(Fout, 16) * 16
+    assert p.np % p.bn == 0 and fo_pad <= p.np < fo_pad + p.bn
+    assert p.items == cdiv(M, 128) * (p.np // p.bn)
+    assert 0 < p.grid <= min(p.items, 2 * SMS)
+    assert p.smem == fc.proj_smem(p.bn, p.np, stats) <= MAX_SMEM
+    assert 2 * (p.smem + 1024) <= SM_SMEM  # two blocks on an SM
+    # the grid-stride walk: every (128-row, bn-column) tile once, m-major
+    nn = p.np // p.bn
+    seen = [0] * p.items
+    for blk in range(p.grid):
+        for w in range(blk, p.items, p.grid):
+            seen[w] += 1
+    assert set(seen) == {1}
+    rows = {(w // nn) * 128 for w in range(p.items)}
+    assert rows == set(range(0, M, 128))
+    assert {(w % nn) * p.bn for w in range(p.items)} == set(range(0, p.np, p.bn))
+
+
+@pytest.mark.parametrize("V,k,Fin,Fout,stats",
+                         [(V, 1, fi, fo, fo != 3) for V, fi, fo in sorted(set(TRAIN_CONVS))]
+                         + [(3475, 2, 128, 128, True), (900, 2, 16, 3, False)])
+def test_train_conv_plans_at_the_train_path_shapes(V, k, Fin, Fout, stats):
+    """K1: the two hops over (V, B * Fin) and the projection over V * B rows
+    (with the statistics epilogue where the train step asks for it)."""
+    nt = LEVELS.get(V, cdiv(V, T))
+    check_hop_plan(hp.hop_plan(nt, k, BATCH * Fin, SMS), V, nt, k, BATCH * Fin)
+    M = V * BATCH
+    check_proj_plan(fc.proj_plan(M, Fin, Fout, SMS, stats=stats), M, Fin, Fout, stats)
+
+
+@pytest.mark.parametrize("V,Fin,Fout", DEPLOY_CONVS + [(3475, 128, 128)])
+def test_proj_plan_at_the_group_deploy_shapes(V, Fin, Fout):
+    """The group conv's projection over the padded nt*T*B rows."""
+    nt = LEVELS[V]
+    M = nt * T * BATCH
+    p = fc.proj_plan(M, Fin, Fout, SMS)
+    check_proj_plan(p, M, Fin, Fout, False)
+    assert p.grid == 2 * SMS  # every SMPL level has tiles for a full grid
+
+
+@pytest.mark.parametrize("Fout", [3, 8, 24, 40, 64, 96, 200, 256])
+@pytest.mark.parametrize("F", [16, 48])
+@pytest.mark.parametrize("stats", [False, True])
+def test_proj_plan_at_odd_widths(F, Fout, stats):
+    M = 900 * 3
+    check_proj_plan(fc.proj_plan(M, F, Fout, SMS, stats=stats), M, F, Fout, stats)
+
+
+def test_proj_plan_pads_the_three_wide_output_to_one_16_column_tile():
+    p = fc.proj_plan(6890 * BATCH, 64, 3, SMS)
+    assert (p.bn, p.np) == (16, 16)
+    with pytest.raises(ValueError):  # F % 16 != 0
+        fc.proj_plan(900, 24, 16, SMS)
