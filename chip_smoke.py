@@ -9,9 +9,11 @@ Phases (any failure exits non-zero):
   2. hold each deploy kernel against its plain PyTorch version on the card
      at the SMPL deploy forward's 10 band-conv shapes (batch 64, bf16) plus
      one synthetic band_k=2 level, and time kernel and plain version: the
-     group kernels (the basis-order conv also its launches apart: its two
-     hops, its projection), the strip conv (strip_h 128, one level at 64), the window
-     conv, and the single hop of the unfused path (forward and backward
+     group kernels (each also its launches apart: the basis-order conv's two
+     hops and its projection, the commuted conv's projection and its two
+     hops), the strip conv (strip_h 128, one level at 64), the window conv
+     (also its launches apart: its two hops, its projection), and the single
+     hop of the unfused path (forward and backward
      through its autograd Function, beside torch.sparse.mm on the level's
      CSR Laplacian), after the share of nonzero 16 x 16 band sub-tiles each
      level gives the hop engine (the sub-tiles it multiplies);
@@ -34,9 +36,11 @@ Phases (any failure exits non-zero):
   5. drive the train step (smpl_train_setup: the same network in its
      training form, bf16 compute, batch 64, RMSprop at lr 1e-3, edge loss on)
      for 1 warm-up and 4 counted steps: finite losses, a total that falls,
-     exactly 10 K1 + 10 K2 launches per step and no deploy-kernel launch; then
-     one step's loss and gradients from the same state through the plain
-     versions of K1 and K2 on the card;
+     exactly 10 K1 + 10 K2 launches per step and no deploy-kernel launch; one
+     step's loss and gradients through the kernels against the same step
+     through the plain versions of K1 and K2 on the card, twice: from the
+     fresh state (before the warm-up step: the kernels' own error) and from
+     the state after the five steps (the error grown along the trajectory);
   6. print the kernel table as one JSON line, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
@@ -311,9 +315,13 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag):
         lambda: kernel(band, x, W, b, **kw), lambda: plain(band, x, W, b, **kw),
         lambda: plain(band.float(), x.float(), W.float(), b.float(), **f32),
         ("y",), V, flops, bytes_)
-    if name == "fused_cheby_conv":  # its launches apart (not counted as launches)
+    # its launches apart (not counted as launches)
+    if name == "fused_cheby_conv":
         run, _ = fc.conv_launcher(band, x, W, b, kw["relu"], skip, skip_w)
         row["split_ms"] = split_ms(tag, "group", run, fc.CONV_STAGES, row["ms"])
+    else:
+        run, _ = fc.commuted_launcher(band, x, W, b, kw["relu"])
+        row["split_ms"] = split_ms(tag, "commuted", run, fc.COMMUTED_STAGES, row["ms"])
     return row
 
 
@@ -547,7 +555,7 @@ def check_window(op, fin, fout, epilogue, gen, tag):
              + (0 if skip_w is None else 2 * V * BATCH * skip.shape[-1] * fout))
     bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w, woff)
               + V * BATCH * fout * 2 + nnz * 2)
-    return measure(
+    row = measure(
         tag, "window_cheby_conv", {"V": V, "band_k": op.band_k, "fin": fin,
                                    "fout": fout, "epilogue": epilogue},
         lambda: wc.window_cheby_conv(win, woff, x, W, b, **kw),
@@ -555,6 +563,10 @@ def check_window(op, fin, fout, epilogue, gen, tag):
         lambda: wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(),
                                            b.float(), **f32),
         ("y",), V, flops, bytes_)
+    # its launches apart (not counted as launches)
+    run, _ = wc.window_launcher(win, woff, x, W, b, kw["relu"], skip, skip_w)
+    row["split_ms"] = split_ms(tag, "window", run, wc.WINDOW_STAGES, row["ms"])
+    return row
 
 
 def check_keep_basis(op, fin, fout, gen, tag):
@@ -667,16 +679,18 @@ def drive_path(path, deploy, batches, group_out, card):
 def train_step_vs_plain(setup, state):
     """One train step's loss and gradients from the model's current state,
     through the kernels and through the plain versions of K1 and K2 on the
-    card (lr 0, so the parameters stay; the same dropout draws).  Returns
-    (loss with kernels, loss plain, {param: rel L2 of its gradient}, the
-    biases left out, ms of the plain step)."""
+    card (lr 0; the same dropout draws; the parameters, BatchNorm statistics
+    and optimizer state are put back after each step).  Returns (loss with
+    kernels, loss plain, {param: rel L2 of its gradient}, the biases left
+    out, ms of the plain step)."""
     import copy
 
     import torch
     from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
 
-    model = state.model
+    model, opt = state.model, state.optimizer
     snapshot = copy.deepcopy(model.state_dict())
+    opt_snapshot = copy.deepcopy(opt.state_dict())
     n_convs = len(model.pose2mesh.cl)
     # a bias followed by a training BatchNorm has an exact gradient of zero
     zero_grad_biases = {f"pose2mesh.cl.{i}.bias" for i in range(n_convs - 1)} | {
@@ -685,6 +699,7 @@ def train_step_vs_plain(setup, state):
 
     def one_step():
         model.load_state_dict(snapshot)
+        opt.load_state_dict(opt_snapshot)
         gen = torch.Generator(device=setup.batch["pose2d"].device).manual_seed(123)
         t0 = time.perf_counter()
         _, losses = setup.train_step(state, setup.art_compute, setup.batch, 0.0, True, gen)
@@ -702,10 +717,28 @@ def train_step_vs_plain(setup, state):
     finally:
         ft.fused_cheby_conv_train, ft.fused_cheby_conv_bwd = kernels
     model.load_state_dict(snapshot)
+    opt.load_state_dict(opt_snapshot)
     errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_p if n not in zero_grad_biases}
     left_out = {n: (float(grads_k[n].norm()), float(grads_p[n].norm()))
                 for n in sorted(zero_grad_biases)}
     return loss_k, loss_p, errs, left_out, plain_ms
+
+
+def step_check(label, loss_k, loss_p, grad_errs, left_out, plain_step_ms) -> dict:
+    """Print and hold one train_step_vs_plain comparison; returns its
+    figures."""
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  step vs plain-version step ({label}): total {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rel {loss_err:.2e}, tolerance {STEP_LOSS_TOL}); gradient rel_l2 max "
+        f"{worst[0][1]:.3e} (tolerance {STEP_GRAD_TOL}), worst {worst}; "
+        f"plain step {plain_step_ms:.3f} ms")
+    log(f"  biases feeding a BatchNorm (|grad| kernels, plain): "
+        f"{ {n: (round(a, 8), round(b, 8)) for n, (a, b) in left_out.items()} }")
+    if not (loss_err <= STEP_LOSS_TOL and worst[0][1] <= STEP_GRAD_TOL):
+        raise SystemExit(f"the train step ({label}) disagrees with the plain-version step")
+    return {"loss_rel_err": loss_err, "worst": worst, "grad_rel_l2": grad_errs,
+            "zero_grad_biases": left_out, "plain_step_ms": plain_step_ms}
 
 
 def main() -> int:
@@ -872,6 +905,7 @@ def main() -> int:
     log(f"phase 5: train setup in {time.time() - t0:.1f} s; batch {BATCH}, bf16, "
         f"RMSprop lr {LR}, edge loss on")
     state = setup.state
+    fresh = step_check("fresh state", *train_step_vs_plain(setup, state))
     state, warm = setup.train_step(state, setup.art_compute, setup.batch, LR, True,
                                    setup.generator)
     torch.cuda.synchronize()
@@ -896,21 +930,17 @@ def main() -> int:
         raise SystemExit(f"non-finite loss: {step_losses}")
     if not step_losses[-1]["total"] < step_losses[0]["total"]:
         raise SystemExit("the total loss did not fall over the steps")
-    loss_k, loss_p, grad_errs, left_out, plain_step_ms = train_step_vs_plain(setup, state)
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]
-    log(f"  step vs plain-version step: total {loss_k:.6f} vs {loss_p:.6f} "
-        f"(rel {loss_err:.2e}, tolerance {STEP_LOSS_TOL}); gradient rel_l2 max "
-        f"{worst[0][1]:.3e} (tolerance {STEP_GRAD_TOL}), worst {worst}; "
-        f"plain step {plain_step_ms:.3f} ms")
-    log(f"  biases feeding a BatchNorm (|grad| kernels, plain): "
-        f"{ {n: (round(a, 8), round(b, 8)) for n, (a, b) in left_out.items()} }")
-    if not (loss_err <= STEP_LOSS_TOL and worst[0][1] <= STEP_GRAD_TOL):
-        raise SystemExit("the train step disagrees with the plain-version step")
+    after = step_check(f"after {TRAIN_STEPS + 1} steps", *train_step_vs_plain(setup, state))
+    log(f"  step vs plain-version step, worst gradient rel_l2: fresh state "
+        f"{fresh['worst'][0][1]:.3e} ({fresh['worst'][0][0]}), after {TRAIN_STEPS + 1} "
+        f"steps {after['worst'][0][1]:.3e} ({after['worst'][0][0]})")
     report["train"] = {"card": card, "batch": BATCH, "lr": LR, "ms_per_step": step_ms,
                        "losses": step_losses, "launches": train_launches,
-                       "plain_step_ms": plain_step_ms, "loss_rel_err": loss_err,
-                       "grad_rel_l2": grad_errs, "zero_grad_biases": left_out}
+                       "plain_step_ms": after["plain_step_ms"],
+                       "loss_rel_err": after["loss_rel_err"],
+                       "grad_rel_l2": after["grad_rel_l2"],
+                       "zero_grad_biases": after["zero_grad_biases"],
+                       "fresh_state": fresh}
 
     # -- phase 6: the kernel table -----------------------------------------
     # per kernel: its launches on its path; ms, plain ms, library ms and

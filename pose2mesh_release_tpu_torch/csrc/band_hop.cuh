@@ -1,15 +1,31 @@
-// The banded hop engine: y[:, cols] = bf16(alpha * (L x)[:, cols] + beta * add[:, cols])
+// The banded hop engine: y[:, cols] = bf16(act(alpha * (L x)[:, cols] + beta * add[:, cols]))
 // for the block-banded Laplacian L, float32 accumulation, one rounding.
 //
-// Used by K4 (csrc/banded_hop.cu: alpha = 1, beta = 0) and by the fused
-// training backward K2 (csrc/fused_cheby_bwd.cu: g1 = L g, then h2 = 2 L g1 - g
-// with alpha = 2, beta = -1, add = g), in place of the TPU kernels' hop bodies
+// Used by K4 (csrc/banded_hop.cu: alpha = 1, beta = 0), by the fused training
+// backward K2 (csrc/fused_cheby_bwd.cu: g1 = L g, then h2 = 2 L g1 - g with
+// alpha = 2, beta = -1, add = g), by the training conv K1 and the group deploy
+// conv (z1 = L u, z2 = 2 L z1 - u), by the commuted deploy conv (a float32
+// add operand and the ReLU) and by the window conv (L read in its window
+// form), in place of the TPU kernels' hop bodies
 // (pose2mesh_release_tpu/ops/pallas_cheby.py `_hop_kernel_factory`, and the
-// hops of `_bwd_kernel_factory`).
+// hops of `_bwd_kernel_factory`, `_commuted_kernel_factory`, ...).
 //
-// Layout: band (2k+1, nt, T, T) bf16 with T = 128; x, add, y (V, C) bf16
-// row-major, C a multiple of 16, V <= nt*T.  Rows >= V read as zero and are
-// never written.
+// Layouts of L (the template parameter WIN), both read through two strides,
+// ld between the operator's rows and dstride between the 2k+1 blocks of one
+// row, and a source row v0(t), the x row of a row tile's first band column:
+//   block band  band (2k+1, nt, T, T): ld = T, dstride = nt*T*T,
+//               v0(t) = (t - k) T; out-of-range neighbour blocks are skipped;
+//   window form win (nt*T, (2k+1)*T) with offsets woff (nt,) int32 (ops/
+//               window_cheby.py window_cat): ld = (2k+1) T, dstride = T,
+//               v0(t) = woff[t]; every window is in range (the edge tiles'
+//               entries are shifted), so no block is skipped.
+// Warp w of row tile t reads its 16 band rows at band + (t T + 16 w) ld, and
+// sub-tile j = 8 d + cg (16 x 16) at + d dstride + 16 cg; it multiplies x rows
+// v0(t) + 16 j .. + 16.  ops/hop.py hop_layout mirrors this addressing.
+// x, add, y (V, C) bf16 row-major, C a multiple of 16, V <= nt*T.  Rows >= V
+// read as zero and are never written.  The add operand is bf16 or, with the
+// template parameter F32ADD, float32 (read as float2; 8-byte aligned), then
+// the ReLU where `relu` is set.
 //
 // Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores, cp.async staging):
 //   * Work items are (row tile t, CC-column chunk), t-major.  A persistent
@@ -116,12 +132,15 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NQ][4], const unsigned (&a
 }
 
 struct HopArgs {
-  const bf16* band;
+  const bf16* band;  // the block band, or the window form (WIN)
   const bf16* x;
-  const bf16* add;  // null: beta is not used
+  const bf16* add;  // bf16 add operand; null: beta is not used (without F32ADD)
   bf16* y;
   float alpha, beta;
   int V, nt, k, C;
+  const float* addf = nullptr;  // F32ADD: the float32 add operand (V, C)
+  const int* woff = nullptr;    // WIN: the window offsets (nt,)
+  int relu = 0;                 // F32ADD: ReLU after the add
 };
 
 // Shared memory of the engine's x ring for CC-column chunks (must match
@@ -130,7 +149,7 @@ __host__ __device__ constexpr size_t band_hop_smem(int CC, int k) {
   return (size_t)kHopStages * (2 * k + 1) * kT * (CC + 8) * sizeof(bf16);
 }
 
-template <int CC>
+template <int CC, bool WIN, bool F32ADD>
 __global__ void __launch_bounds__(kThreads, kHopBlocksPerSm)
 band_hop_kernel(HopArgs a, int per_block) {
   constexpr int LD = CC + 8;  // staged row stride: 16 bytes of pad against bank conflicts
@@ -143,7 +162,11 @@ band_hop_kernel(HopArgs a, int per_block) {
   const int stage_elems = ngrp * 16 * LD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, cq = lane & 3;
+  // the operator's strides: ld between its rows, and block d of a row at
+  // d * dstride (recomputed where it is used: held in registers it spills)
+  const int ld = WIN ? nbd * kT : kT;
   const long tile = (long)kT * kT;
+  auto block = [&](int d) -> long { return WIN ? (long)d * kT : (long)d * a.nt * tile; };
   const int nch = a.C / CC, items = a.nt * nch;
   int it = blockIdx.x * per_block;
   const int it_end = min(items, it + per_block);
@@ -152,12 +175,11 @@ band_hop_kernel(HopArgs a, int per_block) {
     const int t = it / nch;
     const int n = min(it_end, (t + 1) * nch) - it;  // chunks of tile t in this run
     // 1. this warp's nonzero sub-tiles of band rows t*T + 16*warp .. +16
-    const bf16* brow = a.band + (long)t * tile + warp * 16 * kT;
+    const bf16* brow = a.band + (long)t * kT * ld + warp * 16 * ld;
     unsigned long long mine = 0;
     for (int d = 0; d < nbd; ++d) {
-      const int src = t + d - a.k;
-      if (src < 0 || src >= a.nt) continue;
-      const bf16* bb = brow + (long)d * a.nt * tile + (lane / 2) * kT + (lane % 2) * 8;
+      if (!WIN && (t + d - a.k < 0 || t + d - a.k >= a.nt)) continue;
+      const bf16* bb = brow + block(d) + (lane / 2) * ld + (lane % 2) * 8;
       uint4 v[8];
 #pragma unroll
       for (int cg = 0; cg < 8; ++cg) v[cg] = *reinterpret_cast<const uint4*>(bb + cg * 16);
@@ -174,7 +196,7 @@ band_hop_kernel(HopArgs a, int per_block) {
         if (rem) {
           const int j = __ffsll((long long)rem) - 1;
           rem &= rem - 1;
-          load_a_global(af[s], brow + (long)(j / 8) * a.nt * tile + (j % 8) * 16, kT);
+          load_a_global(af[s], brow + block(j / 8) + (j % 8) * 16, ld);
         }
       }
     }
@@ -184,10 +206,10 @@ band_hop_kernel(HopArgs a, int per_block) {
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) need |= wmask[w];
 
-    // 2. stage the needed x rows of a chunk: source rows (t-k)*T + r
+    // 2. stage the needed x rows of a chunk: source rows v0(t) + r
     auto stage = [&](int buf, int c0) {
       bf16* dst = xs + buf * stage_elems;
-      const long v0 = (long)(t - a.k) * kT;
+      const long v0 = WIN ? (long)a.woff[t] : (long)(t - a.k) * kT;
       for (int e = threadIdx.x; e < ngrp * 16 * VPR; e += kThreads) {
         const int r = e / VPR, col = (e % VPR) * 8;
         if (!((need >> (r / 16)) & 1ull)) continue;
@@ -219,10 +241,10 @@ band_hop_kernel(HopArgs a, int per_block) {
         const int j = __ffsll((long long)rem) - 1;
         rem &= rem - 1;
         unsigned fa[4];
-        load_a_global(fa, brow + (long)(j / 8) * a.nt * tile + (j % 8) * 16, kT);
+        load_a_global(fa, brow + block(j / 8) + (j % 8) * 16, ld);
         mma_rows<NQ>(acc, fa, xb + j * 16 * LD, LD);
       }
-      // 3. epilogue: y = alpha * acc + beta * add, packed bf16 pairs
+      // 3. epilogue: y = act(alpha * acc + beta * add), packed bf16 pairs
       const int c0 = ((it + i) % nch) * CC + 2 * cq;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -233,7 +255,15 @@ band_hop_kernel(HopArgs a, int per_block) {
           const long off = v * a.C + c0 + q * 8;
           float y0 = __fmul_rn(a.alpha, acc[q][2 * h]);
           float y1 = __fmul_rn(a.alpha, acc[q][2 * h + 1]);
-          if (a.add) {
+          if constexpr (F32ADD) {
+            const float2 ad = *reinterpret_cast<const float2*>(a.addf + off);
+            y0 = __fadd_rn(y0, __fmul_rn(a.beta, ad.x));
+            y1 = __fadd_rn(y1, __fmul_rn(a.beta, ad.y));
+            if (a.relu) {
+              y0 = fmaxf(y0, 0.0f);
+              y1 = fmaxf(y1, 0.0f);
+            }
+          } else if (a.add) {
             const float2 ad =
                 __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.add + off));
             y0 = __fadd_rn(y0, __fmul_rn(a.beta, ad.x));
@@ -248,44 +278,40 @@ band_hop_kernel(HopArgs a, int per_block) {
   }
 }
 
+template <int CC, bool WIN, bool F32ADD>
+inline cudaError_t launch_band_hop_cc(const HopArgs& a, int grid, int per_block, size_t smem,
+                                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(band_hop_kernel<CC, WIN, F32ADD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  band_hop_kernel<CC, WIN, F32ADD><<<grid, kThreads, smem, stream>>>(a, per_block);
+  return cudaGetLastError();
+}
+
 // One engine launch over the plan's grid (ops/hop.py hop_plan): cc columns
 // per chunk (16, 32 or 64, dividing C), grid blocks of per_block items each.
+// WIN: L in its window form (a.woff set, nt >= 2k+1); F32ADD: the float32
+// add operand a.addf (and a.relu).
+template <bool WIN = false, bool F32ADD = false>
 inline cudaError_t launch_band_hop(const HopArgs& a, int cc, int grid, int per_block,
                                    cudaStream_t stream) {
   const long items = (long)a.nt * (a.C / (cc > 0 ? cc : 1));
   if (cc <= 0 || a.C % cc || a.k < 1 || a.k > 2 || grid <= 0 || per_block <= 0 ||
-      (long)grid * per_block < items || a.V > a.nt * kT)
+      (long)grid * per_block < items || a.V > a.nt * kT || WIN != (a.woff != nullptr) ||
+      (WIN && a.nt < 2 * a.k + 1) || F32ADD != (a.addf != nullptr) || (F32ADD && a.add))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.y) |
-       reinterpret_cast<uintptr_t>(a.add)) % 16)
+       reinterpret_cast<uintptr_t>(a.add)) % 16 ||
+      reinterpret_cast<uintptr_t>(a.addf) % 8)
     return cudaErrorMisalignedAddress;
   const size_t smem = band_hop_smem(cc, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err;
   switch (cc) {
-    case 16:
-      err = cudaFuncSetAttribute(band_hop_kernel<16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err == cudaSuccess)
-        band_hop_kernel<16><<<grid, kThreads, smem, stream>>>(a, per_block);
-      break;
-    case 32:
-      err = cudaFuncSetAttribute(band_hop_kernel<32>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err == cudaSuccess)
-        band_hop_kernel<32><<<grid, kThreads, smem, stream>>>(a, per_block);
-      break;
-    case 64:
-      err = cudaFuncSetAttribute(band_hop_kernel<64>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err == cudaSuccess)
-        band_hop_kernel<64><<<grid, kThreads, smem, stream>>>(a, per_block);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch_band_hop_cc<16, WIN, F32ADD>(a, grid, per_block, smem, stream);
+    case 32: return launch_band_hop_cc<32, WIN, F32ADD>(a, grid, per_block, smem, stream);
+    case 64: return launch_band_hop_cc<64, WIN, F32ADD>(a, grid, per_block, smem, stream);
+    default: return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace p2m

@@ -5,9 +5,11 @@
 // A0, A1, A2 are (M, F) bf16 row-major (u or x, z1 = L u, z2 = 2 L z1 - u),
 // read as the three K-blocks of the basis-major W (3F, Np) = [W0; W1; W2];
 // nothing is concatenated.  float32 accumulation, one rounding to bf16.
-// Used by the training conv K1 (csrc/fused_cheby_train.cu) and the group
-// deploy conv (csrc/fused_cheby.cu) after two launches of the hop engine
-// (band_hop.cuh) have written z1 and z2.
+// Used by the training conv K1 (csrc/fused_cheby_train.cu), the group
+// deploy conv (csrc/fused_cheby.cu) and the window conv (csrc/
+// window_cheby.cu) after two launches of the hop engine (band_hop.cuh) have
+// written z1 and z2, and by the commuted deploy conv (csrc/
+// fused_cheby_commuted.cu) before its two hops.
 //
 // Epilogues (a template parameter, so each instance carries only its own):
 //   kEpiBias   y = acc + b
@@ -19,6 +21,14 @@
 //   kEpiDeploy y = act(acc + b), then + skip (Fs == Fout) or + skip @ skip_w:
 //              the skip projection is a fourth K-loop into the same
 //              registers, run after the bias and the ReLU are applied.
+//   kEpiCommuted one operand x (M, F) against Wc (3F, fo) = [W0 - W2; W1; W2]
+//              (fo = Np / 3, Fout rounded up to 16): the output columns are
+//              three blocks of fo, and a tile (BN divides fo) lies in one
+//              block s, whose K-loop reads Wc's rows sF .. (s+1)F.  Block 0
+//              writes a = x (W0 - W2) + b and block 1 p1 = x W1 to yf (2, M,
+//              fo) in float32, unrounded as the TPU kernel adds them; block 2
+//              writes p2 = x W2 to y (M, fo) in bf16.  Packed pairs straight
+//              from registers (float2 / bf16x2), no staging.
 //
 // Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores):
 //   * Output tiles of 128 rows x BN columns (BN 16, 32, 64 or 128; W padded
@@ -39,7 +49,7 @@
 
 namespace p2m {
 
-constexpr int kEpiBias = 0, kEpiStats = 1, kEpiDeploy = 2;
+constexpr int kEpiBias = 0, kEpiStats = 1, kEpiDeploy = 2, kEpiCommuted = 3;
 constexpr int kProjBM = 128;           // output tile rows
 constexpr int kProjBK = 32;            // k-tile rows
 constexpr int kProjStages = 3;         // cp.async ring depth
@@ -55,6 +65,7 @@ struct ProjArgs {
   bf16* y;              // (M, Fout)
   float* part;          // kEpiStats: (gridDim.x, 2 Fout) [sum y; sum y^2] per block
   int M, F, Fout, Np, Fs, relu;
+  float* yf = nullptr;  // kEpiCommuted: (2, M, Np / 3) float32 [a; p1]
 };
 
 // warps across the tile's columns: 2 for BN >= 64, else 1
@@ -74,14 +85,15 @@ __device__ __forceinline__ const bf16* proj_operand(const ProjArgs& p, int b) {
   return b == 0 ? p.a[0] : (b == 1 ? p.a[1] : p.a[2]);
 }
 
-// acc += [ops over K columns] @ Wk[:, n0 .. n0+BN) for the tile at row m0.
-// The k-th column of the operand block is column k % lda of operand k / lda
-// (the skip: one operand, lda = K).  Warp (wr, wc) owns rows wr*WM .. +WM and
-// columns wc*WN .. +WN of the tile.  Ends with the ring drained and synced.
+// acc += [ops over K columns] @ Wk[:, n0 .. n0+BN) for the tile at row m0,
+// Wk of row stride ldw.  The k-th column of the operand block is column
+// k % lda of operand k / lda (the skip and the commuted conv: one operand,
+// lda = K).  Warp (wr, wc) owns rows wr*WM .. +WM and columns wc*WN .. +WN
+// of the tile.  Ends with the ring drained and synced.
 template <int BN, int MI, int NI>
 __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjArgs& p,
                                            bool skip_ops, int lda, int K, const bf16* Wk,
-                                           int m0, int n0, bf16* As, bf16* Bs) {
+                                           int ldw, int m0, int n0, bf16* As, bf16* Bs) {
   constexpr int WC = proj_wc(BN), WM = kProjBM / (kWarps / WC), WN = BN / WC;
   constexpr int LDB = BN + 8, SA = kProjBM * kProjALd, SB = kProjBK * LDB;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -102,7 +114,7 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
     for (int e = threadIdx.x; e < kProjBK * BN / 8; e += kThreads) {
       const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
       const int kk = kt * kProjBK + r;
-      cp_async16(b_s + r * LDB + c, kk < K ? Wk + (long)kk * p.Np + n0 + c : Wk, kk < K);
+      cp_async16(b_s + r * LDB + c, kk < K ? Wk + (long)kk * ldw + n0 + c : Wk, kk < K);
     }
   };
 #pragma unroll
@@ -141,6 +153,35 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
   __syncthreads();  // every warp is done with the ring
 }
 
+// kEpiCommuted: the tile (m0, n0) of [a | p1 | p2], stored from registers.
+template <int BN, int MI, int NI>
+__device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const ProjArgs& p,
+                                              int m0, int n0, bf16* As, bf16* Bs) {
+  constexpr int WC = proj_wc(BN), WM = kProjBM / (kWarps / WC), WN = BN / WC;
+  const int fo = p.Np / 3, s = n0 / fo, nl = n0 - s * fo;
+  proj_kloop<BN>(acc, p, false, p.F, p.F, p.W + (long)s * p.F * fo, fo, m0, nl, As, Bs);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3, wr = warp / WC, wc = warp % WC;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int f = nl + wc * WN + ni * 8 + 2 * cq;
+    const float b0 = s == 0 && f < p.Fout ? to_f(p.bias[f]) : 0.0f;
+    const float b1 = s == 0 && f + 1 < p.Fout ? to_f(p.bias[f + 1]) : 0.0f;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + wr * WM + mi * 16 + gq + 8 * h;
+        if (m >= p.M) continue;
+        const float v0 = acc[mi][ni][2 * h] + b0, v1 = acc[mi][ni][2 * h + 1] + b1;
+        if (s == 2)
+          *reinterpret_cast<__nv_bfloat162*>(p.y + m * fo + f) = __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(p.yf + ((long)s * p.M + m) * fo + f) = make_float2(v0, v1);
+      }
+  }
+}
+
 template <int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
 cheby_proj_kernel(ProjArgs p) {
@@ -171,7 +212,11 @@ cheby_proj_kernel(ProjArgs p) {
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
-    proj_kloop<BN>(acc, p, false, p.F, 3 * p.F, p.W, m0, n0, As, Bs);
+    if constexpr (EPI == kEpiCommuted) {
+      commuted_tile<BN>(acc, p, m0, n0, As, Bs);
+      continue;  // the k-loop ended with the ring drained and synced: the next tile refills it
+    }
+    proj_kloop<BN>(acc, p, false, p.F, 3 * p.F, p.W, p.Np, m0, n0, As, Bs);
 
     // bias (and the activation) in registers
 #pragma unroll
@@ -194,7 +239,7 @@ cheby_proj_kernel(ProjArgs p) {
     }
     if constexpr (EPI == kEpiDeploy) {
       if (p.skip_w)  // + skip @ skip_w, after the activation
-        proj_kloop<BN>(acc, p, true, p.Fs, p.Fs, p.skip_w, m0, n0, As, Bs);
+        proj_kloop<BN>(acc, p, true, p.Fs, p.Fs, p.skip_w, p.Np, m0, n0, As, Bs);
     }
 
     if constexpr (EPI == kEpiStats) {
@@ -296,14 +341,19 @@ inline cudaError_t launch_proj_bn(const ProjArgs& p, int grid, cudaStream_t stre
   return cudaGetLastError();
 }
 
-// One projection launch over the plan's grid (ops/fused_cheby.py proj_plan):
-// bn columns per tile (16, 32, 64 or 128, dividing Np); with kEpiStats also
-// the ordered reduction of the blocks' partials into stats (2, Fout).
+// One projection launch over the plan's grid (ops/fused_cheby.py proj_plan,
+// commuted_plan): bn columns per tile (16, 32, 64 or 128, dividing Np, and
+// with kEpiCommuted dividing Np / 3); with kEpiStats also the ordered
+// reduction of the blocks' partials into stats (2, Fout).
 template <int EPI>
 inline cudaError_t launch_proj(const ProjArgs& p, int bn, int grid, float* stats,
                                cudaStream_t stream) {
   if (p.M <= 0 || p.F % 16 || p.Fout <= 0 || p.Fout > p.Np || bn <= 0 || p.Np % bn ||
       grid <= 0 || (p.skip_w && p.Fs % 16) || (p.skip && !p.skip_w && p.Fs != p.Fout))
+    return cudaErrorInvalidValue;
+  if (EPI == kEpiCommuted &&
+      (p.Np % 3 || (p.Np / 3) % bn || (p.Np / 3) % 16 || p.Fout > p.Np / 3 || !p.yf ||
+       p.skip || reinterpret_cast<uintptr_t>(p.yf) % 8))
     return cudaErrorInvalidValue;
   uintptr_t al = reinterpret_cast<uintptr_t>(p.a[0]) | reinterpret_cast<uintptr_t>(p.a[1]) |
                  reinterpret_cast<uintptr_t>(p.a[2]) | reinterpret_cast<uintptr_t>(p.W) |

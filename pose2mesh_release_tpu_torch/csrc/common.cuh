@@ -27,22 +27,6 @@ constexpr int kMaxSmem = 232448;
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 to_bf(float v) { return __float2bfloat16(v); }
 
-// acc[j] += band_rows (16 x T, row-major, ld kT) @ src[:, j*16 .. j*16+16)
-// for j < NJ, where src is T rows of leading dimension ld.
-template <int NJ>
-__device__ __forceinline__ void band_rows_mma(FragC (&acc)[NJ], const bf16* band_rows,
-                                              const bf16* src, long ld) {
-  for (int kk = 0; kk < kT; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, band_rows + kk, kT);
-    for (int j = 0; j < NJ; ++j) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, src + (long)kk * ld + j * 16, ld);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
 // acc[j] += a_rows (16 x K, row-major, ld lda) @ w[:, j*16 .. j*16+16)
 // with w of leading dimension ldw.
 template <int NJ>

@@ -17,6 +17,10 @@ results to the working dtype at the same points as the TPU kernels.
 engine (z1 = L x, z2 = 2 L z1 - x, csrc/band_hop.cuh) and one of the
 three-operand projection GEMM (csrc/cheby_proj.cuh); `proj_plan` lays out
 that GEMM's launch in pure Python, `conv_launcher` runs the launches apart.
+`fused_cheby_conv_commuted` runs as one projection GEMM (a = x (W0 - W2) + b
+and p1 = x W1 in float32, p2 = x W2 in bf16; `commuted_plan`) and two engine
+launches (t = bf16(2 L p2 + p1), y = bf16(act(L t + a))); `commuted_launcher`
+runs them apart.
 
 Each wrapper runs the plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on the card, counting the call in
@@ -37,15 +41,15 @@ import torch.nn.functional as F
 from ._build import load_library
 from .spmm import band_hop
 
-__all__ = ["CONV_STAGES", "ProjPlan", "conv_launcher", "fused_cheby_conv",
-           "fused_cheby_conv_commuted", "fused_cheby_conv_plain",
-           "fused_cheby_conv_commuted_plain", "launches", "proj_plan", "proj_smem"]
+__all__ = ["COMMUTED_STAGES", "CONV_STAGES", "ProjPlan", "commuted_launcher", "commuted_plan",
+           "conv_launcher", "fused_cheby_conv", "fused_cheby_conv_commuted",
+           "fused_cheby_conv_plain", "fused_cheby_conv_commuted_plain", "launches", "proj_plan",
+           "proj_smem"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0}
 
 _T = 128             # the kernels' band tile height
-_MAX_SMEM = 232448   # dynamic shared memory a block may use on sm_90
 _C_INT, _C_PTR = ctypes.c_int, ctypes.c_void_p
 
 
@@ -166,23 +170,11 @@ def _fused_lib():
 @functools.cache
 def _commuted_lib():
     lib = load_library("fused_cheby_commuted")
-    lib.p2m_fused_cheby_conv_commuted.argtypes = [_C_PTR] * 5 + [_C_INT] * 7 + [_C_PTR]
+    lib.p2m_fused_cheby_conv_commuted.argtypes = [_C_PTR] * 8 + [_C_INT] * 13 + [_C_PTR]
     lib.p2m_fused_cheby_conv_commuted.restype = _C_INT
     lib.p2m_fused_cheby_commuted_error_string.argtypes = [_C_INT]
     lib.p2m_fused_cheby_commuted_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _input_chunk(k: int, Fin: int) -> int:
-    """The window conv's (csrc/window_cheby.cu) largest input-channel chunk
-    whose shared-memory footprint fits: z1 halo chunk + z1/z2 of the tile
-    (bf16) + per-warp float32 staging."""
-    for fc in (64, 32, 16):
-        smem = ((2 * k + 1) * _T * fc + 2 * _T * Fin) * 2 + 8 * 16 * max(fc, 32) * 4
-        if Fin % fc == 0 and smem <= _MAX_SMEM:
-            return fc
-    raise ValueError(f"F={Fin} with band_k={k} does not fit the kernel's "
-                     f"shared memory")
 
 
 # the projection GEMM's tiles (csrc/cheby_proj.cuh)
@@ -228,6 +220,21 @@ def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False) -> ProjP
     items = -(-M // _PROJ_BM) * (np_ // bn)
     return ProjPlan(bn, np_, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
                     proj_smem(bn, np_, stats))
+
+
+def commuted_plan(M: int, F: int, Fo: int, sms: int) -> ProjPlan:
+    """The commuted conv's projection (epilogue kEpiCommuted) for M rows of
+    x, F -> [a | p1 | p2]: three column blocks of fo_pad (Fo rounded up to
+    16), `bn` the widest tile dividing fo_pad, so a tile lies in one block;
+    np = 3 fo_pad."""
+    if M <= 0 or F <= 0 or F % 16 or Fo <= 0:
+        raise ValueError(f"the projection takes M > 0, F % 16 == 0 and Fo > 0, "
+                         f"got M={M}, F={F}, Fo={Fo}")
+    fo_pad = -(-Fo // 16) * 16
+    bn = next(b for b in (128, 64, 32, 16) if fo_pad % b == 0)
+    items = -(-M // _PROJ_BM) * (3 * fo_pad // bn)
+    return ProjPlan(bn, 3 * fo_pad, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
+                    proj_smem(bn, 3 * fo_pad, False))
 
 
 # the group conv's launches (csrc/fused_cheby.cu `stages`): the two hops,
@@ -290,21 +297,51 @@ def fused_cheby_conv(band_val, x, W, b, *, relu: bool,
     return out
 
 
+# the commuted conv's launches (csrc/fused_cheby_commuted.cu `stages`): the
+# projection, the hop t = bf16(2 L p2 + p1), the hop y = bf16(act(L t + a))
+COMMUTED_STAGES = {"proj": 1, "hop1": 2, "hop2": 4}
+_COMMUTED_ALL_STAGES = 7
+
+
+def commuted_launcher(band_val, x, Wc, b, relu: bool):
+    """`fused_cheby_conv_commuted` on CUDA inputs (checked here): (run, out),
+    where run(stages) launches the stages named by the bit mask
+    (COMMUTED_STAGES) into out, (nt*T, B, fo_pad) with fo_pad = Fo rounded
+    up to 16.  The wrapper runs all of them once and narrows out to Fo; running
+    them apart only times the split."""
+    from .hop import hop_plan, sm_count
+    k, nt, T, B, Fin, Fo = _check_shapes(band_val, x, Wc, b)
+    _check_cuda(x, T, Fin, band_val=band_val, Wc=Wc, b=b)
+    sms = sm_count(x.device)
+    rows = x.shape[0]
+    pp = commuted_plan(rows * B, Fin, Fo, sms)
+    fo_pad = pp.np // 3
+    hp = hop_plan(nt, k, B * fo_pad, sms)
+    Wp = _pad_cols(Wc, fo_pad)
+    ap1 = torch.empty((2, rows, B, fo_pad), dtype=torch.float32, device=x.device)
+    p2, t = (torch.empty((rows, B, fo_pad), dtype=x.dtype, device=x.device) for _ in range(2))
+    out = torch.empty((rows, B, fo_pad), dtype=x.dtype, device=x.device)
+    lib = _commuted_lib()
+
+    def run(stages: int):
+        with torch.cuda.device(x.device):
+            err = lib.p2m_fused_cheby_conv_commuted(
+                _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(ap1), _ptr(p2), _ptr(t),
+                _ptr(out), nt, k, B, Fin, Fo, fo_pad, int(relu), hp.cc, hp.grid,
+                hp.per_block, pp.bn, pp.grid, stages, _stream(x))
+        _raise_on(err, lib, "p2m_fused_cheby_commuted_error_string")
+
+    return run, out
+
+
 def fused_cheby_conv_commuted(band_val, x, Wc, b, *, relu: bool) -> torch.Tensor:
     """y = act(x (W0 - W2) + L (x W1 + 2 L (x W2)) + b) with
     Wc = [W0 - W2; W1; W2] (3F, Fo).  Returns (nt*T, B, Fo)."""
-    k, nt, T, B, Fin, Fo = _check_shapes(band_val, x, Wc, b)
+    _check_shapes(band_val, x, Wc, b)
     if x.device.type == "cpu":
         return fused_cheby_conv_commuted_plain(band_val, x, Wc, b, relu=relu)
-    _check_cuda(x, T, Fin, band_val=band_val, Wc=Wc, b=b)
-    fo_pad = -(-Fo // 32) * 32
-    Wp = _pad_cols(Wc, fo_pad)
-    out = torch.empty((x.shape[0], B, Fo), dtype=x.dtype, device=x.device)
-    lib = _commuted_lib()
-    with torch.cuda.device(x.device):
-        err = lib.p2m_fused_cheby_conv_commuted(
-            _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(out),
-            nt, k, B, Fin, Fo, fo_pad, int(relu), _stream(x))
-    _raise_on(err, lib, "p2m_fused_cheby_commuted_error_string")
+    run, out = commuted_launcher(band_val, x, Wc, b, relu)
+    run(_COMMUTED_ALL_STAGES)
     launches["fused_cheby_conv_commuted"] += 1
-    return out
+    Fo = Wc.shape[1]
+    return out if out.shape[-1] == Fo else out[..., :Fo].contiguous()

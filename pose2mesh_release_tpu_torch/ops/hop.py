@@ -27,7 +27,8 @@ from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _T, _check_cuda, _ptr, _raise_on, _stream
 from .spmm import band_hop
 
-__all__ = ["HopPlan", "banded_hop", "hop", "hop_plain", "hop_plan", "launches"]
+__all__ = ["HopLayout", "HopPlan", "banded_hop", "hop", "hop_layout", "hop_plain", "hop_plan",
+           "launches"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"banded_hop": 0}
@@ -83,6 +84,40 @@ def hop_plan(nt: int, k: int, C: int, sms: int) -> HopPlan:
     items = nt * (C // cc)
     per_block = -(-items // min(items, sms * _HOP_BLOCKS_PER_SM))
     return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, k), items)
+
+
+@dataclasses.dataclass(frozen=True)
+class HopLayout:
+    """How the engine addresses L (csrc/band_hop.cuh): `ld` elements between
+    the operator's rows, `dstride` between the 2k+1 blocks of one row, `src0`
+    the x row of each row tile's first band column; `window` for the window
+    form, whose blocks are all in range (the block band's out-of-range
+    neighbour blocks are skipped)."""
+    ld: int
+    dstride: int
+    src0: tuple
+    k: int
+    window: bool
+
+    def blocks(self, t: int) -> list:
+        """The blocks d of row tile t that the engine reads."""
+        nt = len(self.src0)
+        return [d for d in range(2 * self.k + 1)
+                if self.window or 0 <= t + d - self.k < nt]
+
+    def subtile(self, t: int, w: int, j: int) -> tuple:
+        """Sub-tile j = 8 d + cg of warp w in row tile t: (element offset of
+        its first row in the operator, the x row its first column takes)."""
+        return ((t * _T + 16 * w) * self.ld + (j // 8) * self.dstride + (j % 8) * 16,
+                self.src0[t] + 16 * j)
+
+
+def hop_layout(nt: int, k: int, woff=None) -> HopLayout:
+    """The engine's addressing of the block band (2k+1, nt, T, T), or of the
+    window form (nt*T, (2k+1)*T) with offsets `woff` (window_cheby.window_cat)."""
+    if woff is None:
+        return HopLayout(_T, nt * _T * _T, tuple((t - k) * _T for t in range(nt)), k, False)
+    return HopLayout((2 * k + 1) * _T, _T, tuple(int(v) for v in woff), k, True)
 
 
 @functools.cache

@@ -26,8 +26,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..deploy import smpl_deploy_forward
 
-GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel", "commuted_kernel",
-                            "strip_hop_kernel", "proj_kernel", "window_cheby_kernel")),
+GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel", "strip_hop_kernel",
+                            "proj_kernel")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 

@@ -11,7 +11,12 @@ sub-tiles: their cases include bands shaped to break that skip (a dense band
 block, single nonzeros in sub-tile corners, an all-zero row tile) and a band
 whose pad columns are nonzero (K1's fold must leave the missing rows zero).
 K1 and the group conv project through one GEMM whose 3-wide outputs are
-computed 16 wide and stored 3 wide.
+computed 16 wide and stored 3 wide.  The commuted conv (one projection into
+float32 a, p1 and bf16 p2, then two engine hops with a float32 add) and the
+window conv (two engine hops reading the window form, then the projection)
+also run their launches apart through their launchers, which must give the
+whole call's bits; the window conv at nt = 2k+1 makes every row tile an
+edge tile of the window form.
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -113,7 +118,9 @@ def test_fused_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
 
 
 @pytest.mark.parametrize("k,F,Fo", [(1, 64, 32), (1, 48, 3), (2, 256, 128),
-                                    (2, 32, 40)])
+                                    (2, 32, 40),
+                                    (1, 256, 40),   # Fo_pad 48: 16-column tiles
+                                    (2, 64, 3)])    # Fo_pad 16, narrowed to 3
 def test_fused_cheby_conv_commuted_kernel(cuda, k, F, Fo):
     op = band_level(k, seed=10 + k)
     band = op.band_val.to(cuda, torch.bfloat16)
@@ -127,8 +134,32 @@ def test_fused_cheby_conv_commuted_kernel(cuda, k, F, Fo):
     assert fc.launches["fused_cheby_conv_commuted"] == before + 1
     ref = fc.fused_cheby_conv_commuted_plain(band.float(), x.float(),
                                              Wc.float(), b.float(), relu=True)
-    assert y.shape == (Vp, B, Fo)
+    assert y.shape == (Vp, B, Fo) and y.dtype == torch.bfloat16
+    assert y.untyped_storage().nbytes() == y.numel() * 2  # exactly (Vp, B, Fo)
     assert rel_l2(y[:V], ref[:V]) <= TOL
+
+
+@pytest.mark.parametrize("k,F,Fo,relu", [(1, 64, 32, True), (2, 256, 128, False),
+                                         (1, 48, 40, True), (2, 32, 3, False)])
+def test_commuted_launches_apart_equal_the_whole_call(cuda, k, F, Fo, relu):
+    """The projection, hop 1 and hop 2 run one by one through
+    commuted_launcher give the wrapper's bits (narrowed to Fo), and the pad
+    columns of the intermediate output are zero."""
+    op = band_level(k, seed=12 + k)
+    band = op.band_val.to(cuda, torch.bfloat16)
+    Vp, B = op.padded_vertices, 3
+    x, Wc, b = inputs(op, B, [((Vp, B, F), 0.5), ((3 * F, Fo), 1 / math.sqrt(3 * F)),
+                              ((Fo,), 0.1)], cuda, 16)
+    whole = fc.fused_cheby_conv_commuted(band, x, Wc, b, relu=relu)
+    before = dict(fc.launches)
+    run, out = fc.commuted_launcher(band, x, Wc, b, relu)
+    for name in ("proj", "hop1", "hop2"):
+        run(fc.COMMUTED_STAGES[name])
+    torch.cuda.synchronize()
+    assert fc.launches == before  # the launcher alone counts nothing
+    assert out.shape == (Vp, B, -(-Fo // 16) * 16)
+    assert torch.equal(out[..., :Fo], whole)
+    assert not out[..., Fo:].any()
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -452,6 +483,68 @@ def test_window_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
                                      **f32)
     assert y.shape == (Vp, B, Fout)
     assert rel_l2(y[:V], ref[:V]) <= TOL
+
+
+@pytest.mark.parametrize("k,V,F,Fout,epilogue", [
+    (2, 600, 128, 128, "skip_proj"),  # nt = 5 = 2k+1: every row tile an edge tile
+    (2, 640, 256, 128, "relu"),
+    (2, 600, 48, 40, "skip_add"),
+    (1, 300, 64, 3, "final"),         # nt = 3 = 2k+1
+])
+def test_window_cheby_conv_kernel_at_nt_2k_plus_1(cuda, k, V, F, Fout, epilogue):
+    """The smallest window form: nt = 2k+1, so s_t is clamped for every tile
+    and one sub-tile column maps to other x rows than on the block band."""
+    op = band_level(k, V=V, seed=120 + V)
+    assert op.band_val.shape[1] == 2 * k + 1
+    win, woff = wc.window_cat(op.band_val.to(cuda, torch.bfloat16))
+    Vp, B = op.padded_vertices, 3
+    Fs = 2 * Fout if epilogue == "skip_proj" else Fout
+    x, W, b, skip = inputs(op, B, [((Vp, B, F), 0.5),
+                                   ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 17)
+    kw = {"relu": epilogue != "final"}
+    if epilogue in ("skip_add", "skip_proj"):
+        kw["skip"] = skip
+    if epilogue == "skip_proj":
+        kw["skip_w"] = torch.from_numpy(
+            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, torch.bfloat16)
+    y = wc.window_cheby_conv(win, woff, x, W, b, **kw)
+    torch.cuda.synchronize()
+    f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
+    ref = wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(), b.float(),
+                                     **f32)
+    assert y.shape == (Vp, B, Fout)
+    assert rel_l2(y[:V], ref[:V]) <= TOL
+    # and the group conv on the block band computes the same conv
+    group = fc.fused_cheby_conv(op.band_val.to(cuda, torch.bfloat16), x, W, b, **kw)
+    assert rel_l2(y[:V], group[:V]) <= TOL
+
+
+@pytest.mark.parametrize("k,V,F,Fout,epilogue", [(1, 900, 64, 24, "skip_proj"),
+                                                 (2, 600, 128, 128, "skip_add"),
+                                                 (2, 900, 32, 3, "final")])
+def test_window_launches_apart_equal_the_whole_call(cuda, k, V, F, Fout, epilogue):
+    """The two hops and the projection run apart through window_launcher give
+    the wrapper's bits."""
+    op = band_level(k, V=V, seed=130 + k)
+    win, woff = wc.window_cat(op.band_val.to(cuda, torch.bfloat16))
+    Vp, B = op.padded_vertices, 2
+    Fs = 2 * Fout if epilogue == "skip_proj" else Fout
+    x, W, b, skip = inputs(op, B, [((Vp, B, F), 0.5),
+                                   ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 18)
+    skip_w = None if epilogue != "skip_proj" else torch.from_numpy(
+        channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, torch.bfloat16)
+    skip = skip if epilogue in ("skip_add", "skip_proj") else None
+    relu = epilogue != "final"
+    whole = wc.window_cheby_conv(win, woff, x, W, b, relu=relu, skip=skip, skip_w=skip_w)
+    before = dict(wc.launches)
+    run, out = wc.window_launcher(win, woff, x, W, b, relu, skip, skip_w)
+    for name in ("hops", "proj"):
+        run(wc.WINDOW_STAGES[name])
+    torch.cuda.synchronize()
+    assert wc.launches == before
+    assert torch.equal(out, whole)
 
 
 @pytest.mark.parametrize("k,F,Fout,fold", [

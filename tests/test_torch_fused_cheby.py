@@ -1,6 +1,7 @@
 """PyTorch port: the plain versions of the two fused Chebyshev-conv kernels
-against the JAX package's Pallas kernels (interpret mode), plus the
-wrapper's device rules."""
+against the JAX package's Pallas kernels (interpret mode), the commuted
+conv's three launches emulated in plain PyTorch (float32 a and p1) against
+the Pallas kernel, plus the wrapper's device rules."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -127,6 +128,91 @@ def test_fused_cheby_conv_commuted_plain_matches_pallas(k, relu):
         torch.from_numpy(Wc), torch.from_numpy(b), relu=relu)
     assert got.shape == (Vp, B, Fo)
     np.testing.assert_allclose(got[:V].numpy(), ref, **TOL)
+
+
+def commuted_stages(band_val, x, Wc, b, *, relu: bool, dt) -> torch.Tensor:
+    """The commuted conv as its three launches on the card compute it
+    (csrc/fused_cheby_commuted.cu), in plain PyTorch with operands rounded to
+    dt: the projection over (Vp*B, F) rows into three blocks of fo_pad
+    columns (`commuted_plan`), a = x (W0 - W2) + b and p1 = x W1 in float32,
+    p2 = x W2 rounded; the hops over (Vp, B*fo_pad): t = dt(2 L p2 + p1), then
+    y = dt(act(L t + a)); narrowed to Fo."""
+    from pose2mesh_release_tpu_torch.ops.spmm import band_hop
+    Vp, B, Fin = x.shape
+    Fo = Wc.shape[1]
+    fo_pad = fc.commuted_plan(Vp * B, Fin, Fo, 132).np // 3
+    pad = torch.nn.functional.pad
+    W = pad(Wc.to(dt).float(), (0, fo_pad - Fo))
+    bias = pad(b.to(dt).float(), (0, fo_pad - Fo))
+    band = band_val.to(dt)
+    rows = x.to(dt).float().reshape(Vp * B, Fin)
+    a = (rows @ W[:Fin] + bias).reshape(Vp, B * fo_pad)
+    p1 = (rows @ W[Fin:2 * Fin]).reshape(Vp, B * fo_pad)
+    p2 = (rows @ W[2 * Fin:]).to(dt).reshape(Vp, B * fo_pad)
+    t = (2.0 * band_hop(band, p2) + p1).to(dt)
+    y = band_hop(band, t) + a
+    if relu:
+        y = torch.relu(y)
+    return y.to(dt).reshape(Vp, B, fo_pad)[..., :Fo]
+
+
+def commuted_case(k, Fo, seed):
+    """(op, x, Wc, b) numpy f32 for the commuted conv at F = 64 and a batch
+    the Pallas kernel's lane packing takes (a multiple of 128 / Fo)."""
+    op = band_op(k)
+    Vp, B, F = op.band_val.shape[1] * 128, max(4, 128 // Fo), 64
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((Vp, B, F)) * 0.3).astype(np.float32)
+    W3 = (rng.standard_normal((3, F, Fo)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(Fo) * 0.1).astype(np.float32)
+    return op, x, np.concatenate([W3[0] - W3[2], W3[1], W3[2]]), b
+
+
+def pallas_commuted(op, x, Wc, b, relu):
+    Vp, B, F = x.shape
+    Fo = Wc.shape[1]
+    Wcj = pad_lanes(Wc.reshape(3, F, Fo), 1).reshape(3 * LANES, Fo)
+    ref = fused_conv_flat_commuted(op, jnp.asarray(pad_lanes(x).reshape(Vp, -1)),
+                                   B, jnp.asarray(Wcj), jnp.asarray(b), relu=relu)
+    return np.asarray(ref).reshape(Vp, B, Fo)[:op.num_vertices]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("Fo", [8, 32])  # 8: padded to a 16-column block, narrowed
+def test_commuted_stages_match_pallas(k, relu, Fo):
+    """The three-launch design, in float32, equals the Pallas kernel at the
+    parity tolerance."""
+    op, x, Wc, b = commuted_case(k, Fo, 20 + k + Fo)
+    got = commuted_stages(torch.tensor(np.asarray(op.band_val)), torch.from_numpy(x),
+                          torch.from_numpy(Wc), torch.from_numpy(b), relu=relu,
+                          dt=torch.float32)
+    assert got.shape == (x.shape[0], x.shape[1], Fo)
+    np.testing.assert_allclose(got[:op.num_vertices].numpy(),
+                               pallas_commuted(op, x, Wc, b, relu), **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_commuted_stages_in_bf16(k):
+    """In bf16 (the card's working type) the three launches round where the
+    plain version does: within 2e-3 relative L2 of it, and within 1e-2 (the
+    card's kernel tolerance) of the Pallas kernel in float32 on the same
+    bf16-rounded inputs."""
+    op, x, Wc, b = commuted_case(k, 32, 30 + k)
+    band = torch.tensor(np.asarray(op.band_val)).to(torch.bfloat16)
+    xt, Wt, bt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, Wc, b))
+    got = commuted_stages(band, xt, Wt, bt, relu=True, dt=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    V = op.num_vertices
+    plain = fc.fused_cheby_conv_commuted_plain(band, xt, Wt, bt, relu=True)
+
+    def rel(a, r):
+        return float((a.float() - r.float()).norm() / r.float().norm())
+
+    assert rel(got[:V], plain[:V]) <= 2e-3
+    ref = pallas_commuted(op, xt.float().numpy(), Wt.float().numpy(), bt.float().numpy(),
+                          True)
+    assert rel(got[:V], torch.from_numpy(ref)) <= 1e-2
 
 
 def test_commuted_form_equals_basis_form():

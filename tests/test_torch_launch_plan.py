@@ -1,7 +1,8 @@
 """PyTorch port: the launch plans of the banded hop engine (K4, and the two
-hops of K1, K2 and the group deploy conv), of the three-operand projection
-GEMM (K1 and the group deploy conv) and of the fused training backward K2,
-computed on the CPU for a card of 132 SMs (an H100 SXM).
+hops of K1, K2, the group, commuted and window deploy convs), of the
+three-operand projection GEMM (K1, the group and window deploy convs), of the
+commuted conv's one-operand projection and of the fused training backward
+K2, computed on the CPU for a card of 132 SMs (an H100 SXM).
 
 At every shape of the unfused deploy path (the hop of each SMPL band conv,
 batch 64), of the group deploy path and of the train path (K1 and K2 of each
@@ -170,3 +171,65 @@ def test_proj_plan_pads_the_three_wide_output_to_one_16_column_tile():
     assert (p.bn, p.np) == (16, 16)
     with pytest.raises(ValueError):  # F % 16 != 0
         fc.proj_plan(900, 24, 16, SMS)
+
+
+# the group deploy forward's two commuted convs (V, Fin, Fout), and the
+# band_k = 2 level's
+COMMUTED_CONVS = [(1849, 256, 128), (6890, 128, 64)]
+
+
+def check_commuted_plan(p: fc.ProjPlan, M: int, F: int, Fo: int):
+    """[a | p1 | p2]: three blocks of fo_pad columns, each tile in one block."""
+    fo_pad = cdiv(Fo, 16) * 16
+    assert p.np == 3 * fo_pad
+    assert p.bn in (16, 32, 64, 128) and fo_pad % p.bn == 0
+    assert p.bn == max(b for b in (16, 32, 64, 128) if fo_pad % b == 0)  # the widest
+    assert p.items == cdiv(M, 128) * (p.np // p.bn)
+    assert 0 < p.grid <= min(p.items, 2 * SMS)
+    assert p.smem == fc.proj_smem(p.bn, p.np, False) <= MAX_SMEM
+    assert 2 * (p.smem + 1024) <= SM_SMEM  # two blocks on an SM
+    nn = p.np // p.bn
+    seen = [0] * p.items
+    for blk in range(p.grid):
+        for w in range(blk, p.items, p.grid):
+            seen[w] += 1
+    assert set(seen) == {1}
+    # every tile's columns in one block s, which reads W's rows sF .. (s+1)F
+    blocks = {}
+    for n in range(nn):
+        n0 = n * p.bn
+        s = n0 // fo_pad
+        assert (n0 + p.bn - 1) // fo_pad == s
+        blocks.setdefault(s, []).append(n0 - s * fo_pad)
+    assert sorted(blocks) == [0, 1, 2]
+    assert all(sorted(v) == list(range(0, fo_pad, p.bn)) for v in blocks.values())
+
+
+@pytest.mark.parametrize("V,k,Fin,Fout", [(V, 1, fi, fo) for V, fi, fo in COMMUTED_CONVS]
+                         + [(3475, 2, 256, 128)])
+def test_commuted_plans_at_the_group_deploy_shapes(V, k, Fin, Fout):
+    """The commuted conv: its projection over the padded nt*T*B rows, and its
+    two hops over B * fo_pad columns (fo_pad = Fout on the SMPL convs)."""
+    nt = LEVELS[V]
+    M = nt * T * BATCH
+    p = fc.commuted_plan(M, Fin, Fout, SMS)
+    check_commuted_plan(p, M, Fin, Fout)
+    assert (p.bn, p.np, p.grid) == (Fout, 3 * Fout, 2 * SMS)
+    check_hop_plan(hp.hop_plan(nt, k, BATCH * Fout, SMS), V, nt, k, BATCH * Fout)
+
+
+@pytest.mark.parametrize("Fo", [3, 8, 24, 40, 48, 96, 200, 256])
+@pytest.mark.parametrize("F", [16, 48])
+def test_commuted_plan_at_odd_widths(F, Fo):
+    M = 7 * T * 3
+    p = fc.commuted_plan(M, F, Fo, SMS)
+    check_commuted_plan(p, M, F, Fo)
+    fo_pad = p.np // 3
+    check_hop_plan(hp.hop_plan(7, 1, 3 * fo_pad, SMS), 7 * T, 7, 1, 3 * fo_pad)
+
+
+def test_commuted_plan_pads_narrow_outputs_to_16_columns():
+    assert [fc.commuted_plan(900, 48, fo, SMS).np // 3 for fo in (3, 40, 64, 128)] == \
+        [16, 48, 64, 128]
+    with pytest.raises(ValueError):  # F % 16 != 0
+        fc.commuted_plan(900, 24, 16, SMS)

@@ -1,7 +1,10 @@
 """PyTorch port: the strip (K5) and window (K6) deploy convs' plain versions
 against the JAX package's Pallas kernels `fused_conv_flat_strip` and
 `fused_conv_flat_window` (interpret mode), CPU f32, plus `window_cat`, the
-flat_impl routing and the wrappers' CPU rules.
+flat_impl routing and the wrappers' CPU rules; and the hop engine's
+addressing of the window form (`hop.hop_layout`, the map csrc/band_hop.cuh
+reads the operator through), walked tile by tile as the engine walks it,
+against the JAX `_window_cat` and block band hop.
 
 Operators: the synthetic band of tests/test_pallas.py:129 (768 rows at
 band_k 1 and 2) in the strip form of 64- and 128-row tiles.  Every epilogue
@@ -17,7 +20,9 @@ import jax.numpy as jnp
 from pose2mesh_release_tpu.graphs.artifact import _make_level_op as jax_level_op
 from pose2mesh_release_tpu.ops.pallas_strip import fused_conv_flat_strip
 from pose2mesh_release_tpu.ops.pallas_window import _window_cat, fused_conv_flat_window
+from pose2mesh_release_tpu.ops.spmm import spmm_band as jax_spmm_band
 from pose2mesh_release_tpu_torch.graphs.artifact import _make_level_op
+from pose2mesh_release_tpu_torch.ops import hop as hp
 from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
 from pose2mesh_release_tpu_torch.ops import window_cheby as wc
 from pose2mesh_release_tpu_torch.models.meshnet import flat_route
@@ -110,6 +115,86 @@ def test_window_cat_matches_jax(k):
     nt, T = op_t.band_val.shape[1], 128
     want = np.clip(np.arange(nt) * T - k * T, 0, nt * T - (2 * k + 1) * T)
     np.testing.assert_array_equal(woff.numpy(), want)
+
+
+def square_level(k: int, nt: int):
+    """(JAX operator, port operator) of band_laplacian(k, nt): V = nt*T."""
+    L = band_laplacian(k, nt=nt)
+    op_j, op_t = jax_level_op(L, "band", 128), _make_level_op(L, "band", 128)
+    assert op_t.band_k == k and op_t.band_val.shape[1] == nt
+    return op_j, op_t
+
+
+@pytest.mark.parametrize("k,nt", [(1, 3), (1, 4), (2, 5), (2, 7)])
+def test_engine_window_addressing_matches_window_offsets(k, nt):
+    """hop_layout's map of the window form: warp w's sub-tile j of row tile
+    t starts at win[t*T + 16w, 16j] and multiplies x rows woff[t] + 16j ..,
+    with woff = window_offsets; the block band's map names the same operator
+    entries and the same x rows wherever its block is in range."""
+    T = 128
+    woff = wc.window_offsets(nt, k, T)
+    win_l, band_l = hp.hop_layout(nt, k, woff), hp.hop_layout(nt, k)
+    assert (win_l.ld, win_l.dstride) == ((2 * k + 1) * T, T)
+    assert (band_l.ld, band_l.dstride) == (T, nt * T * T)
+    _, op = square_level(k, nt)
+    win, _ = wc.window_cat(op.band_val)
+    flat_win, flat_band = win.reshape(-1), op.band_val.reshape(-1)
+    for t in range(nt):
+        assert win_l.blocks(t) == list(range(2 * k + 1))
+        for w in range(8):
+            for j in range(8 * (2 * k + 1)):
+                off, src = win_l.subtile(t, w, j)
+                assert (off, src) == ((t * T + 16 * w) * (2 * k + 1) * T + 16 * j,
+                                      int(woff[t]) + 16 * j)
+                if j // 8 not in band_l.blocks(t):
+                    continue
+                boff, bsrc = band_l.subtile(t, w, j)
+                if bsrc != src:  # an edge tile: the window's entries are shifted
+                    continue
+                rows = torch.arange(16)[:, None] * win_l.ld + torch.arange(16)[None, :]
+                brows = torch.arange(16)[:, None] * band_l.ld + torch.arange(16)[None, :]
+                assert torch.equal(flat_win[off + rows], flat_band[boff + brows])
+
+
+def engine_walk(flat, lay: hp.HopLayout, x: np.ndarray) -> np.ndarray:
+    """L x as the hop engine walks it: for each row tile t, warp w and block
+    d it reads, every 16 x 16 sub-tile j = 8d + cg at lay.subtile's offset
+    (row stride lay.ld) that is not all zero, times the 16 x rows it names
+    (rows outside x read as zero); float64."""
+    T, nt = 128, len(lay.src0)
+    flat = flat.double().numpy()
+    y = np.zeros((nt * T, x.shape[1]))
+    sub = np.arange(16)[:, None] * lay.ld + np.arange(16)[None, :]
+    for t in range(nt):
+        for w in range(8):
+            for d in lay.blocks(t):
+                for cg in range(8):
+                    off, src = lay.subtile(t, w, 8 * d + cg)
+                    a = flat[off + sub]
+                    if not a.any():
+                        continue
+                    r = src + np.arange(16)
+                    ok = (r >= 0) & (r < x.shape[0])
+                    y[t * T + 16 * w:t * T + 16 * w + 16] += a @ (x[np.clip(r, 0, len(x) - 1)]
+                                                                  * ok[:, None])
+    return y
+
+
+@pytest.mark.parametrize("k,nt", [(1, 3), (1, 4), (2, 5), (2, 7)])
+def test_engine_walk_of_the_window_form_matches_the_jax_hop(k, nt):
+    """z = L x walked over the window form (nt = 2k+1 included: every tile an
+    edge tile) and over the block band equals the JAX block band hop on the
+    JAX `_window_cat`'s operator."""
+    op_j, op_t = square_level(k, nt)
+    Vp = nt * 128
+    x = np.random.default_rng(k + nt).standard_normal((Vp, 6)).astype(np.float32)
+    ref = np.asarray(jax_spmm_band(op_j, jnp.asarray(x)))
+    win_j = torch.from_numpy(np.asarray(_window_cat(op_j.band_val, 128)).copy())
+    woff = wc.window_offsets(nt, k, 128)
+    got_win = engine_walk(win_j.reshape(-1), hp.hop_layout(nt, k, woff), x)
+    got_band = engine_walk(op_t.band_val.reshape(-1), hp.hop_layout(nt, k), x)
+    np.testing.assert_allclose(got_win, ref, **TOL)
+    np.testing.assert_allclose(got_band, ref, **TOL)
 
 
 def test_flat_route_follows_the_jax_dispatch():
