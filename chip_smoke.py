@@ -11,9 +11,11 @@ Phases (any failure exits non-zero):
      one synthetic band_k=2 level, and time kernel and plain version: the
      group kernels (each also its launches apart: the basis-order conv's two
      hops and its projection, the commuted conv's projection and its two
-     hops), the strip conv (strip_h 128, one level at 64), the window conv
-     (also its launches apart: its two hops, its projection), and the single
-     hop of the unfused path (forward and backward
+     hops), the strip conv (strip_h 128, one level at 64, band_k=2 in both
+     orders and commuted with a skip projection; each also its launches
+     apart, as the group kernels'), the window conv (also its launches apart:
+     its two hops, its projection), and the single hop of the unfused path
+     (forward and backward
      through its autograd Function, beside torch.sparse.mm on the level's
      CSR Laplacian), after the share of nonzero 16 x 16 band sub-tiles each
      level gives the hop engine (the sub-tiles it multiplies);
@@ -24,7 +26,9 @@ Phases (any failure exits non-zero):
      batch with the same forward through the plain versions; then the same
      on the strip path (flat_impl="strip": 10 strip convs per forward), the
      window path (10 window convs) and the unfused path (fused=False: 20
-     hops, no fused conv), each also against the group forward;
+     hops, no fused conv), each also against the group forward, and the CUDA
+     launches of the hop engine and the projection GEMM in one forward of
+     each, counted by torch.profiler (strip 30, window 30, unfused 20);
   4. hold the training conv (K1) and its fused backward (K2) against their
      plain versions at the SMPL train step's 10 band-conv shapes, each in the
      variant the step uses (batch 64, bf16), plus the band_k=2 level, and
@@ -103,7 +107,7 @@ SOURCES = {
     "fused_cheby_conv_bwd": "pose2mesh_release_tpu_torch/csrc/fused_cheby_bwd.cu",
     "banded_hop": "pose2mesh_release_tpu_torch/csrc/banded_hop.cu",
     "strip_cheby_conv": "pose2mesh_release_tpu_torch/csrc/strip_cheby.cu",
-    "window_cheby_conv": "pose2mesh_release_tpu_torch/csrc/window_cheby.cu",
+    "window_cheby_conv": "pose2mesh_release_tpu_torch/csrc/strip_cheby.cu",
     "fused_cheby_conv_train(keep_basis)":
         "pose2mesh_release_tpu_torch/csrc/fused_cheby_train.cu",
 }
@@ -115,6 +119,11 @@ PATHS = {
     "window": ({"flat_impl": "window"}, "window_cheby_conv", 10),
     "unfused": ({"fused": False}, "banded_hop", 20),
 }
+# the CUDA launches of the hop engine and the projection GEMM in one forward
+# of each further path: strip 7 basis-order convs x 3 + 3 commuted x 3,
+# window 10 x 3, unfused 10 x 2 hops
+ENGINE_KERNELS = ("band_hop_kernel", "cheby_proj_kernel")
+PATH_CUDA_LAUNCHES = {"strip": 30, "window": 30, "unfused": 20}
 TRAIN_KERNELS = ("fused_cheby_conv_train", "fused_cheby_conv_bwd")
 # The SMPL deploy forward's band convs, in forward order:
 # (level vertex count, kernel, fin, fout, epilogue)
@@ -530,7 +539,7 @@ def check_strip(op, fin, fout, epilogue, gen, tag):
     y_bytes = V * BATCH * fout * 2
     bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w, off)
               + y_bytes + nnz * 2)
-    return measure(
+    row = measure(
         tag, "strip_cheby_conv", {"V": V, "band_k": op.band_k, "strip_h": h,
                                   "W": S.shape[1], "mode": mode, "fin": fin,
                                   "fout": fout, "epilogue": epilogue},
@@ -539,6 +548,10 @@ def check_strip(op, fin, fout, epilogue, gen, tag):
         lambda: sc.strip_cheby_conv_plain(S.float(), off, h, x.float(), W.float(),
                                           b.float(), **f32),
         ("y",), V, flops, bytes_)
+    # its launches apart (not counted as launches)
+    run, _ = sc.strip_launcher(S, off, h, x, W, b, mode, kw["relu"], skip, skip_w)
+    row["split_ms"] = split_ms(tag, f"strip {mode}", run, sc.STRIP_STAGES[mode], row["ms"])
+    return row
 
 
 def check_window(op, fin, fout, epilogue, gen, tag):
@@ -663,6 +676,15 @@ def drive_path(path, deploy, batches, group_out, card):
         assert [tuple(t.shape) for t in out] == [(BATCH, 6890, 3), (BATCH, 17, 3),
                                                  (BATCH, 17, 3)], path
         assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
+    cuda_launches = kernel_launches(lambda: step(art_bf, batches[0]))
+    engine = sum(n for name, n in cuda_launches.items()
+                 if any(k in name for k in ENGINE_KERNELS))
+    log(f"  {path}: CUDA launches in one forward (torch.profiler): hop engine and "
+        f"projection {engine} (expected {PATH_CUDA_LAUNCHES[path]}), all kernels "
+        f"{sum(cuda_launches.values())}")
+    if engine != PATH_CUDA_LAUNCHES[path]:
+        raise SystemExit(f"{path}: {engine} hop engine and projection launches per forward, "
+                         f"expected {PATH_CUDA_LAUNCHES[path]}: {cuda_launches}")
     ref, plain_ms = plain_forward(path, step, art_bf, batches[0])
     errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
             "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1]),
@@ -673,7 +695,23 @@ def drive_path(path, deploy, batches, group_out, card):
     if max(errs.values()) > FORWARD_TOL:
         raise SystemExit(f"{path}: forward disagrees: {errs}")
     return {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
+            "cuda_launches_per_forward": cuda_launches, "engine_launches_per_forward": engine,
             "plain_forward_ms": plain_ms, **errs}
+
+
+def kernel_launches(fn) -> dict:
+    """The CUDA kernel launches of one call of fn, by kernel name, counted by
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    return counts
 
 
 def train_step_vs_plain(setup, state):
@@ -814,7 +852,8 @@ def main() -> int:
                   for i, (V, _, fin, fout, ep) in enumerate(MAIN_PATH_CONVS)]
     path_rows += [check_strip(op2_64, 128, 128, "skip_add", gen, "h64_strip"),
                   check_strip(op2, 128, 128, "skip_proj", gen, "k2_strip0"),
-                  check_strip(op2, 256, 128, "relu", gen, "k2_strip1")]
+                  check_strip(op2, 256, 128, "relu", gen, "k2_strip1"),
+                  check_strip(op2, 256, 128, "skip_proj", gen, "k2_strip2")]
     path_rows += [check_window(by_v[V], fin, fout, ep, gen, f"window{i}")
                   for i, (V, _, fin, fout, ep) in enumerate(MAIN_PATH_CONVS)]
     path_rows += [check_window(op2, fin, fout, ep, gen, f"k2_window{i}")

@@ -1,31 +1,50 @@
-// The banded hop engine: y[:, cols] = bf16(act(alpha * (L x)[:, cols] + beta * add[:, cols]))
-// for the block-banded Laplacian L, float32 accumulation, one rounding.
+// The banded hop engine: y[:, cols] = bf16(act(alpha * (L x)[:, cols] + beta * add[:, cols])
+// (+ post[:, cols])) for the banded Laplacian L, float32 accumulation, one rounding.
 //
 // Used by K4 (csrc/banded_hop.cu: alpha = 1, beta = 0), by the fused training
 // backward K2 (csrc/fused_cheby_bwd.cu: g1 = L g, then h2 = 2 L g1 - g with
 // alpha = 2, beta = -1, add = g), by the training conv K1 and the group deploy
 // conv (z1 = L u, z2 = 2 L z1 - u), by the commuted deploy conv (a float32
-// add operand and the ReLU) and by the window conv (L read in its window
-// form), in place of the TPU kernels' hop bodies
-// (pose2mesh_release_tpu/ops/pallas_cheby.py `_hop_kernel_factory`, and the
-// hops of `_bwd_kernel_factory`, `_commuted_kernel_factory`, ...).
+// add operand and the ReLU) and by the strip and window convs (L read in its
+// strip form; in commuted order also the ReLU and the skip after it), in
+// place of the TPU kernels' hop bodies (pose2mesh_release_tpu/ops/
+// pallas_cheby.py `_hop_kernel_factory`, the hops of `_bwd_kernel_factory`,
+// `_commuted_kernel_factory`, ..., ops/pallas_strip.py `hop`).
 //
-// Layouts of L (the template parameter WIN), both read through two strides,
-// ld between the operator's rows and dstride between the 2k+1 blocks of one
-// row, and a source row v0(t), the x row of a row tile's first band column:
-//   block band  band (2k+1, nt, T, T): ld = T, dstride = nt*T*T,
-//               v0(t) = (t - k) T; out-of-range neighbour blocks are skipped;
-//   window form win (nt*T, (2k+1)*T) with offsets woff (nt,) int32 (ops/
-//               window_cheby.py window_cat): ld = (2k+1) T, dstride = T,
-//               v0(t) = woff[t]; every window is in range (the edge tiles'
-//               entries are shifted), so no block is skipped.
-// Warp w of row tile t reads its 16 band rows at band + (t T + 16 w) ld, and
-// sub-tile j = 8 d + cg (16 x 16) at + d dstride + 16 cg; it multiplies x rows
-// v0(t) + 16 j .. + 16.  ops/hop.py hop_layout mirrors this addressing.
-// x, add, y (V, C) bf16 row-major, C a multiple of 16, V <= nt*T.  Rows >= V
-// read as zero and are never written.  The add operand is bf16 or, with the
-// template parameter F32ADD, float32 (read as float2; 8-byte aligned), then
-// the ReLU where `relu` is set.
+// Layouts of L (the template parameter STRIP), both read as 16 x 16 sub-tiles
+// of a warp's 16 operator rows, against 16-row groups of x:
+//   block band  band (2k+1, nt, T, T): ld = T between the operator's rows,
+//               block d of a row at d nt T^2; sub-tile j = 8 d + cg of warp w
+//               in row tile t at band + (t T + 16 w) ld + d nt T^2 + 16 cg,
+//               against x rows (t - k) T + 16 j; out-of-range neighbour
+//               blocks are skipped.  Every warp of a tile stages the same
+//               (2k+1) T rows.
+//   strip form  strip (nt*T, Wd) row-major, Wd a multiple of 16, with
+//               offsets off (nt*T / h,) int32 for strip tiles of h rows (a
+//               multiple of 16 dividing nt*T): row r holds
+//               L[r, off[r / h] .. + Wd).  Warp w of row tile t reads its
+//               nsub = Wd / 16 sub-tiles at strip + (t T + 16 w) Wd + 16 j
+//               against x rows v0(t, w) + 16 j, v0(t, w) = off[(t T + 16 w) / h]
+//               (its 16 rows lie in one strip tile), from the table
+//               wrow (nt, 8) int32 of v0 (ops/strip_cheby.py gathers it once
+//               per offsets tensor: no division in the kernel).  The offsets
+//               are non-decreasing and differ by multiples of 16 within a row
+//               tile (graphs/artifact.py strip_offset), so the block stages
+//               the union of its warps' source groups from vmin(t) = v0(t, 0),
+//               `span` groups at most (ops/hop.py hop_layout; at most 64, the
+//               bits of the staged-group mask), and warp w reads staged group
+//               (v0(t, w) - vmin(t)) / 16 + j.  The window form of the
+//               window conv (ops/window_cheby.py window_cat) is this layout
+//               with h = T, Wd = (2k+1) T and off = its window offsets.
+// ops/hop.py hop_layout mirrors this addressing.
+// x, add, post, y (V, C) bf16 row-major, C a multiple of 16, V <= nt*T.  Rows
+// >= V read as zero and are never written.  The epilogue (the template
+// parameter EPI): kHopAdd a bf16 add operand (or none), then the ReLU where
+// `relu` is set; kHopF32Add a float32 add operand (read as float2; 8-byte
+// aligned), then the ReLU; kHopSkipAdd and kHopSkipProj as kHopAdd, then a
+// bf16 (skip add) or float32 (skip projection) `post` operand added after the
+// activation, before the one rounding (the strip conv's commuted order with
+// a skip).
 //
 // Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores, cp.async staging):
 //   * Work items are (row tile t, CC-column chunk), t-major.  A persistent
@@ -33,10 +52,10 @@
 //     items, so a block walks many column chunks of one row tile.
 //   * Band resident: when a block enters a row tile, each warp reads its 16
 //     band rows once, marks every 16 x 16 sub-tile that is all zero (warp
-//     ballot over the bytes it reads; 63-67% of them on the SMPL levels) and
-//     keeps the A fragments of its first kHopCap nonzero sub-tiles in
-//     registers for all the chunks it walks.  Nonzero sub-tiles beyond that
-//     (dense test bands) take their fragments from L2 per chunk.
+//     ballot over the bytes it reads, 8 sub-tiles a batch; 63-67% of them on
+//     the SMPL levels) and keeps the A fragments of its first kHopCap nonzero
+//     sub-tiles in registers for all the chunks it walks.  Nonzero sub-tiles
+//     beyond that (dense test bands) take their fragments from L2 per chunk.
 //   * Only the 16-row groups of x that some warp's nonzero sub-tiles touch are
 //     staged: 16-byte cp.async into a two-stage ring, chunk j+1 loading while
 //     chunk j multiplies; rows >= V are zero-filled by the copy.
@@ -131,25 +150,34 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NQ][4], const unsigned (&a
   }
 }
 
+// the engine's epilogues (the template parameter EPI)
+constexpr int kHopAdd = 0, kHopF32Add = 1, kHopSkipAdd = 2, kHopSkipProj = 3;
+
 struct HopArgs {
-  const bf16* band;  // the block band, or the window form (WIN)
+  const bf16* band;  // the block band, or the strip form (STRIP)
   const bf16* x;
-  const bf16* add;  // bf16 add operand; null: beta is not used (without F32ADD)
+  const bf16* add;  // bf16 add operand; null: beta is not used (not with kHopF32Add)
   bf16* y;
   float alpha, beta;
-  int V, nt, k, C;
-  const float* addf = nullptr;  // F32ADD: the float32 add operand (V, C)
-  const int* woff = nullptr;    // WIN: the window offsets (nt,)
-  int relu = 0;                 // F32ADD: ReLU after the add
+  int V, nt, k, C;               // k: the block band's band_k
+  const float* addf = nullptr;   // kHopF32Add: the float32 add operand (V, C)
+  const int* wrow = nullptr;     // STRIP: v0(t, w), the warps' source rows (nt, 8)
+  int relu = 0;                  // ReLU after the add
+  int ld = 0, span = 0;          // STRIP: Wd, the staged 16-row groups of a row tile
+  const bf16* post = nullptr;    // kHopSkipAdd: bf16 (V, C) added after the activation
+  const float* postf = nullptr;  // kHopSkipProj: float32 (V, C) added after the activation
 };
 
-// Shared memory of the engine's x ring for CC-column chunks (must match
-// ops/hop.py hop_plan).
-__host__ __device__ constexpr size_t band_hop_smem(int CC, int k) {
-  return (size_t)kHopStages * (2 * k + 1) * kT * (CC + 8) * sizeof(bf16);
+// 16-row source groups the engine stages for the block band
+__host__ __device__ constexpr int band_span(int k) { return 8 * (2 * k + 1); }
+
+// Shared memory of the engine's x ring for CC-column chunks and `span`
+// staged 16-row groups (must match ops/hop.py hop_smem).
+__host__ __device__ constexpr size_t band_hop_smem(int CC, int span) {
+  return (size_t)kHopStages * span * 16 * (CC + 8) * sizeof(bf16);
 }
 
-template <int CC, bool WIN, bool F32ADD>
+template <int CC, bool STRIP, int EPI>
 __global__ void __launch_bounds__(kThreads, kHopBlocksPerSm)
 band_hop_kernel(HopArgs a, int per_block) {
   constexpr int LD = CC + 8;  // staged row stride: 16 bytes of pad against bank conflicts
@@ -157,16 +185,20 @@ band_hop_kernel(HopArgs a, int per_block) {
   constexpr int VPR = CC / 8; // 16-byte vectors of a staged row
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ unsigned long long wmask[kWarps];
+  __shared__ int wshift[kWarps];  // STRIP: each warp's staged-row offset into the ring
   bf16* xs = reinterpret_cast<bf16*>(smem);
-  const int nbd = 2 * a.k + 1, ngrp = nbd * 8;  // 16-row source groups of a row tile
+  const int nbd = 2 * a.k + 1;
+  const int ngrp = STRIP ? a.span : band_span(a.k);  // staged 16-row groups of a row tile
   const int stage_elems = ngrp * 16 * LD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, cq = lane & 3;
-  // the operator's strides: ld between its rows, and block d of a row at
-  // d * dstride (recomputed where it is used: held in registers it spills)
-  const int ld = WIN ? nbd * kT : kT;
+  // the operator's row stride, and sub-tile j of a warp's rows at sub(j)
+  // (recomputed where it is used: held in registers it spills)
+  const int ld = STRIP ? a.ld : kT;
   const long tile = (long)kT * kT;
-  auto block = [&](int d) -> long { return WIN ? (long)d * kT : (long)d * a.nt * tile; };
+  auto sub = [&](int j) -> long {
+    return STRIP ? 16L * j : (long)(j / 8) * a.nt * tile + (j % 8) * 16;
+  };
   const int nch = a.C / CC, items = a.nt * nch;
   int it = blockIdx.x * per_block;
   const int it_end = min(items, it + per_block);
@@ -174,15 +206,19 @@ band_hop_kernel(HopArgs a, int per_block) {
   while (it < it_end) {
     const int t = it / nch;
     const int n = min(it_end, (t + 1) * nch) - it;  // chunks of tile t in this run
-    // 1. this warp's nonzero sub-tiles of band rows t*T + 16*warp .. +16
+    // 1. this warp's nonzero sub-tiles of operator rows t*T + 16*warp .. +16,
+    // in batches of 8 (the strip form's last batch may be partial)
     const bf16* brow = a.band + (long)t * kT * ld + warp * 16 * ld;
+    const int nsub = STRIP ? a.ld / 16 : 8 * nbd;
     unsigned long long mine = 0;
-    for (int d = 0; d < nbd; ++d) {
-      if (!WIN && (t + d - a.k < 0 || t + d - a.k >= a.nt)) continue;
-      const bf16* bb = brow + block(d) + (lane / 2) * ld + (lane % 2) * 8;
+    for (int d = 0; 8 * d < nsub; ++d) {
+      if (!STRIP && (t + d - a.k < 0 || t + d - a.k >= a.nt)) continue;
+      const bf16* bb = brow + sub(8 * d) + (lane / 2) * ld + (lane % 2) * 8;
       uint4 v[8];
 #pragma unroll
-      for (int cg = 0; cg < 8; ++cg) v[cg] = *reinterpret_cast<const uint4*>(bb + cg * 16);
+      for (int cg = 0; cg < 8; ++cg)
+        v[cg] = !STRIP || 8 * d + cg < nsub ? *reinterpret_cast<const uint4*>(bb + cg * 16)
+                                            : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int cg = 0; cg < 8; ++cg)
         if (__ballot_sync(0xffffffffu, (v[cg].x | v[cg].y | v[cg].z | v[cg].w) != 0u))
@@ -196,20 +232,33 @@ band_hop_kernel(HopArgs a, int per_block) {
         if (rem) {
           const int j = __ffsll((long long)rem) - 1;
           rem &= rem - 1;
-          load_a_global(af[s], brow + block(j / 8) + (j % 8) * 16, ld);
+          load_a_global(af[s], brow + sub(j), ld);
         }
       }
     }
-    if (lane == 0) wmask[warp] = mine;
+    if (lane == 0) {
+      if constexpr (STRIP) {
+        // the warp's sub-tile j multiplies staged group shift + j, shift =
+        // (v0(t, w) - vmin(t)) / 16: its mask and its pointer into the ring
+        // move by shift (the offset re-read from shared memory each chunk:
+        // held in a register, or applied to `mine` and brow, it spills the
+        // 64-column instances)
+        const int shift = (a.wrow[t * kWarps + warp] - a.wrow[t * kWarps]) / 16;
+        wshift[warp] = shift * 16 * LD;
+        wmask[warp] = mine << shift;
+      } else {
+        wmask[warp] = mine;
+      }
+    }
     __syncthreads();
-    unsigned long long need = 0;
+    unsigned long long need = 0;  // the staged groups some warp needs
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) need |= wmask[w];
 
-    // 2. stage the needed x rows of a chunk: source rows v0(t) + r
+    // 2. stage the needed x rows of a chunk: source rows vmin(t) + r
     auto stage = [&](int buf, int c0) {
       bf16* dst = xs + buf * stage_elems;
-      const long v0 = WIN ? (long)a.woff[t] : (long)(t - a.k) * kT;
+      const long v0 = STRIP ? (long)a.wrow[t * kWarps] : (long)(t - a.k) * kT;
       for (int e = threadIdx.x; e < ngrp * 16 * VPR; e += kThreads) {
         const int r = e / VPR, col = (e % VPR) * 8;
         if (!((need >> (r / 16)) & 1ull)) continue;
@@ -225,7 +274,7 @@ band_hop_kernel(HopArgs a, int per_block) {
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
-      const bf16* xb = xs + (i % kHopStages) * stage_elems;
+      const bf16* xb = xs + (i % kHopStages) * stage_elems + (STRIP ? wshift[warp] : 0);
       float acc[NQ][4];
 #pragma unroll
       for (int q = 0; q < NQ; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
@@ -241,10 +290,10 @@ band_hop_kernel(HopArgs a, int per_block) {
         const int j = __ffsll((long long)rem) - 1;
         rem &= rem - 1;
         unsigned fa[4];
-        load_a_global(fa, brow + block(j / 8) + (j % 8) * 16, ld);
+        load_a_global(fa, brow + sub(j), ld);
         mma_rows<NQ>(acc, fa, xb + j * 16 * LD, LD);
       }
-      // 3. epilogue: y = act(alpha * acc + beta * add), packed bf16 pairs
+      // 3. epilogue: y = act(alpha * acc + beta * add) (+ post), packed bf16 pairs
       const int c0 = ((it + i) % nch) * CC + 2 * cq;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -255,19 +304,29 @@ band_hop_kernel(HopArgs a, int per_block) {
           const long off = v * a.C + c0 + q * 8;
           float y0 = __fmul_rn(a.alpha, acc[q][2 * h]);
           float y1 = __fmul_rn(a.alpha, acc[q][2 * h + 1]);
-          if constexpr (F32ADD) {
+          if constexpr (EPI == kHopF32Add) {
             const float2 ad = *reinterpret_cast<const float2*>(a.addf + off);
             y0 = __fadd_rn(y0, __fmul_rn(a.beta, ad.x));
             y1 = __fadd_rn(y1, __fmul_rn(a.beta, ad.y));
-            if (a.relu) {
-              y0 = fmaxf(y0, 0.0f);
-              y1 = fmaxf(y1, 0.0f);
-            }
           } else if (a.add) {
             const float2 ad =
                 __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.add + off));
             y0 = __fadd_rn(y0, __fmul_rn(a.beta, ad.x));
             y1 = __fadd_rn(y1, __fmul_rn(a.beta, ad.y));
+          }
+          if (a.relu) {
+            y0 = fmaxf(y0, 0.0f);
+            y1 = fmaxf(y1, 0.0f);
+          }
+          if constexpr (EPI == kHopSkipAdd) {
+            const float2 ps =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.post + off));
+            y0 = __fadd_rn(y0, ps.x);
+            y1 = __fadd_rn(y1, ps.y);
+          } else if constexpr (EPI == kHopSkipProj) {
+            const float2 ps = *reinterpret_cast<const float2*>(a.postf + off);
+            y0 = __fadd_rn(y0, ps.x);
+            y1 = __fadd_rn(y1, ps.y);
           }
           *reinterpret_cast<__nv_bfloat162*>(a.y + off) = __floats2bfloat162_rn(y0, y1);
         }
@@ -278,38 +337,48 @@ band_hop_kernel(HopArgs a, int per_block) {
   }
 }
 
-template <int CC, bool WIN, bool F32ADD>
+template <int CC, bool STRIP, int EPI>
 inline cudaError_t launch_band_hop_cc(const HopArgs& a, int grid, int per_block, size_t smem,
                                       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(band_hop_kernel<CC, WIN, F32ADD>,
+  cudaError_t err = cudaFuncSetAttribute(band_hop_kernel<CC, STRIP, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  band_hop_kernel<CC, WIN, F32ADD><<<grid, kThreads, smem, stream>>>(a, per_block);
+  band_hop_kernel<CC, STRIP, EPI><<<grid, kThreads, smem, stream>>>(a, per_block);
   return cudaGetLastError();
 }
 
 // One engine launch over the plan's grid (ops/hop.py hop_plan): cc columns
 // per chunk (16, 32 or 64, dividing C), grid blocks of per_block items each.
-// WIN: L in its window form (a.woff set, nt >= 2k+1); F32ADD: the float32
-// add operand a.addf (and a.relu).
-template <bool WIN = false, bool F32ADD = false>
-inline cudaError_t launch_band_hop(const HopArgs& a, int cc, int grid, int per_block,
+// STRIP: L in its strip form (a.wrow, a.ld and a.span set; a.k is not
+// read); otherwise the block band at band_k a.k in {1, 2}, which stages
+// band_span(a.k) groups.  EPI: the epilogue and the operands it reads.
+template <bool STRIP = false, int EPI = kHopAdd>
+inline cudaError_t launch_band_hop(const HopArgs& a0, int cc, int grid, int per_block,
                                    cudaStream_t stream) {
+  HopArgs a = a0;
+  if (!STRIP) a.span = band_span(a.k);
   const long items = (long)a.nt * (a.C / (cc > 0 ? cc : 1));
-  if (cc <= 0 || a.C % cc || a.k < 1 || a.k > 2 || grid <= 0 || per_block <= 0 ||
-      (long)grid * per_block < items || a.V > a.nt * kT || WIN != (a.woff != nullptr) ||
-      (WIN && a.nt < 2 * a.k + 1) || F32ADD != (a.addf != nullptr) || (F32ADD && a.add))
-    return cudaErrorInvalidValue;
+  bool bad = cc <= 0 || a.C % cc || grid <= 0 || per_block <= 0 ||
+             (long)grid * per_block < items || a.V > a.nt * kT ||
+             STRIP != (a.wrow != nullptr) || (EPI == kHopF32Add) != (a.addf != nullptr) ||
+             (EPI == kHopF32Add && a.add) || (EPI == kHopSkipAdd) != (a.post != nullptr) ||
+             (EPI == kHopSkipProj) != (a.postf != nullptr);
+  if (STRIP)
+    bad = bad || a.ld <= 0 || a.ld % 16 || a.ld > a.nt * kT || a.span < a.ld / 16 ||
+          a.span > 64;
+  else
+    bad = bad || a.k < 1 || a.k > 2;
+  if (bad) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.y) |
-       reinterpret_cast<uintptr_t>(a.add)) % 16 ||
-      reinterpret_cast<uintptr_t>(a.addf) % 8)
+       reinterpret_cast<uintptr_t>(a.add) | reinterpret_cast<uintptr_t>(a.post)) % 16 ||
+      (reinterpret_cast<uintptr_t>(a.addf) | reinterpret_cast<uintptr_t>(a.postf)) % 8)
     return cudaErrorMisalignedAddress;
-  const size_t smem = band_hop_smem(cc, a.k);
+  const size_t smem = band_hop_smem(cc, a.span);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   switch (cc) {
-    case 16: return launch_band_hop_cc<16, WIN, F32ADD>(a, grid, per_block, smem, stream);
-    case 32: return launch_band_hop_cc<32, WIN, F32ADD>(a, grid, per_block, smem, stream);
-    case 64: return launch_band_hop_cc<64, WIN, F32ADD>(a, grid, per_block, smem, stream);
+    case 16: return launch_band_hop_cc<16, STRIP, EPI>(a, grid, per_block, smem, stream);
+    case 32: return launch_band_hop_cc<32, STRIP, EPI>(a, grid, per_block, smem, stream);
+    case 64: return launch_band_hop_cc<64, STRIP, EPI>(a, grid, per_block, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }

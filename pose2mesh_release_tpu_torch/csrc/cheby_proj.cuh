@@ -6,10 +6,11 @@
 // read as the three K-blocks of the basis-major W (3F, Np) = [W0; W1; W2];
 // nothing is concatenated.  float32 accumulation, one rounding to bf16.
 // Used by the training conv K1 (csrc/fused_cheby_train.cu), the group
-// deploy conv (csrc/fused_cheby.cu) and the window conv (csrc/
-// window_cheby.cu) after two launches of the hop engine (band_hop.cuh) have
-// written z1 and z2, and by the commuted deploy conv (csrc/
-// fused_cheby_commuted.cu) before its two hops.
+// deploy conv (csrc/fused_cheby.cu) and the strip and window convs in basis
+// order (csrc/strip_cheby.cu) after two launches of the hop engine
+// (band_hop.cuh) have written z1 and z2, and by the commuted deploy conv
+// (csrc/fused_cheby_commuted.cu) and the strip conv in commuted order before
+// their two hops.
 //
 // Epilogues (a template parameter, so each instance carries only its own):
 //   kEpiBias   y = acc + b
@@ -29,6 +30,12 @@
 //              fo) in float32, unrounded as the TPU kernel adds them; block 2
 //              writes p2 = x W2 to y (M, fo) in bf16.  Packed pairs straight
 //              from registers (float2 / bf16x2), no staging.
+//   kEpiCommutedBf16 the same three blocks, all stored to y (3, M, fo) in
+//              bf16: [p | t0 | u] = bf16([x (W0 - W2) + b | x W1 | x W2]),
+//              the strip kernel's rounding points.
+//   kEpiF32    one operand, one block: yf (M, Np) = A0 W in float32, no
+//              bias (the strip conv's skip projection skip @ skip_w, added
+//              after the activation by its last hop).
 //
 // Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores):
 //   * Output tiles of 128 rows x BN columns (BN 16, 32, 64 or 128; W padded
@@ -49,7 +56,8 @@
 
 namespace p2m {
 
-constexpr int kEpiBias = 0, kEpiStats = 1, kEpiDeploy = 2, kEpiCommuted = 3;
+constexpr int kEpiBias = 0, kEpiStats = 1, kEpiDeploy = 2, kEpiCommuted = 3,
+              kEpiCommutedBf16 = 4, kEpiF32 = 5;
 constexpr int kProjBM = 128;           // output tile rows
 constexpr int kProjBK = 32;            // k-tile rows
 constexpr int kProjStages = 3;         // cp.async ring depth
@@ -65,8 +73,13 @@ struct ProjArgs {
   bf16* y;              // (M, Fout)
   float* part;          // kEpiStats: (gridDim.x, 2 Fout) [sum y; sum y^2] per block
   int M, F, Fout, Np, Fs, relu;
-  float* yf = nullptr;  // kEpiCommuted: (2, M, Np / 3) float32 [a; p1]
+  float* yf = nullptr;  // kEpiCommuted: (2, M, Np / 3) float32 [a; p1]; kEpiF32: (M, Np)
 };
+
+// the epilogues of one operand x against column blocks of W (commuted_tile)
+__host__ __device__ constexpr bool proj_blocks(int epi) {
+  return epi == kEpiCommuted || epi == kEpiCommutedBf16 || epi == kEpiF32;
+}
 
 // warps across the tile's columns: 2 for BN >= 64, else 1
 __host__ __device__ constexpr int proj_wc(int BN) { return BN >= 64 ? 2 : 1; }
@@ -153,20 +166,22 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
   __syncthreads();  // every warp is done with the ring
 }
 
-// kEpiCommuted: the tile (m0, n0) of [a | p1 | p2], stored from registers.
-template <int BN, int MI, int NI>
+// The epilogues of proj_blocks: the tile (m0, n0) of [a | p1 | p2]
+// (kEpiCommuted), of [p | t0 | u] (kEpiCommutedBf16) or of the one block
+// (kEpiF32), stored from registers.
+template <int BN, int EPI, int MI, int NI>
 __device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const ProjArgs& p,
                                               int m0, int n0, bf16* As, bf16* Bs) {
   constexpr int WC = proj_wc(BN), WM = kProjBM / (kWarps / WC), WN = BN / WC;
-  const int fo = p.Np / 3, s = n0 / fo, nl = n0 - s * fo;
+  const int fo = EPI == kEpiF32 ? p.Np : p.Np / 3, s = n0 / fo, nl = n0 - s * fo;
   proj_kloop<BN>(acc, p, false, p.F, p.F, p.W + (long)s * p.F * fo, fo, m0, nl, As, Bs);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, cq = lane & 3, wr = warp / WC, wc = warp % WC;
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni) {
     const int f = nl + wc * WN + ni * 8 + 2 * cq;
-    const float b0 = s == 0 && f < p.Fout ? to_f(p.bias[f]) : 0.0f;
-    const float b1 = s == 0 && f + 1 < p.Fout ? to_f(p.bias[f + 1]) : 0.0f;
+    const float b0 = s == 0 && p.bias && f < p.Fout ? to_f(p.bias[f]) : 0.0f;
+    const float b1 = s == 0 && p.bias && f + 1 < p.Fout ? to_f(p.bias[f + 1]) : 0.0f;
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -174,7 +189,10 @@ __device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const Pro
         const long m = m0 + wr * WM + mi * 16 + gq + 8 * h;
         if (m >= p.M) continue;
         const float v0 = acc[mi][ni][2 * h] + b0, v1 = acc[mi][ni][2 * h + 1] + b1;
-        if (s == 2)
+        if (EPI == kEpiCommutedBf16)
+          *reinterpret_cast<__nv_bfloat162*>(p.y + ((long)s * p.M + m) * fo + f) =
+              __floats2bfloat162_rn(v0, v1);
+        else if (EPI == kEpiCommuted && s == 2)
           *reinterpret_cast<__nv_bfloat162*>(p.y + m * fo + f) = __floats2bfloat162_rn(v0, v1);
         else
           *reinterpret_cast<float2*>(p.yf + ((long)s * p.M + m) * fo + f) = make_float2(v0, v1);
@@ -212,8 +230,8 @@ cheby_proj_kernel(ProjArgs p) {
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
-    if constexpr (EPI == kEpiCommuted) {
-      commuted_tile<BN>(acc, p, m0, n0, As, Bs);
+    if constexpr (proj_blocks(EPI)) {
+      commuted_tile<BN, EPI>(acc, p, m0, n0, As, Bs);
       continue;  // the k-loop ended with the ring drained and synced: the next tile refills it
     }
     proj_kloop<BN>(acc, p, false, p.F, 3 * p.F, p.W, p.Np, m0, n0, As, Bs);
@@ -343,17 +361,19 @@ inline cudaError_t launch_proj_bn(const ProjArgs& p, int grid, cudaStream_t stre
 
 // One projection launch over the plan's grid (ops/fused_cheby.py proj_plan,
 // commuted_plan): bn columns per tile (16, 32, 64 or 128, dividing Np, and
-// with kEpiCommuted dividing Np / 3); with kEpiStats also the ordered
-// reduction of the blocks' partials into stats (2, Fout).
+// with kEpiCommuted or kEpiCommutedBf16 dividing Np / 3); with kEpiStats
+// also the ordered reduction of the blocks' partials into stats (2, Fout).
 template <int EPI>
 inline cudaError_t launch_proj(const ProjArgs& p, int bn, int grid, float* stats,
                                cudaStream_t stream) {
   if (p.M <= 0 || p.F % 16 || p.Fout <= 0 || p.Fout > p.Np || bn <= 0 || p.Np % bn ||
       grid <= 0 || (p.skip_w && p.Fs % 16) || (p.skip && !p.skip_w && p.Fs != p.Fout))
     return cudaErrorInvalidValue;
-  if (EPI == kEpiCommuted &&
-      (p.Np % 3 || (p.Np / 3) % bn || (p.Np / 3) % 16 || p.Fout > p.Np / 3 || !p.yf ||
-       p.skip || reinterpret_cast<uintptr_t>(p.yf) % 8))
+  const int fo = EPI == kEpiF32 ? p.Np : p.Np / 3;  // a column block of proj_blocks
+  if (proj_blocks(EPI) &&
+      ((EPI != kEpiF32 && p.Np % 3) || fo % bn || fo % 16 || p.Fout > fo || p.skip ||
+       (EPI != kEpiCommutedBf16) != (p.yf != nullptr) || (EPI == kEpiF32) == (p.y != nullptr) ||
+       reinterpret_cast<uintptr_t>(p.yf) % 8))
     return cudaErrorInvalidValue;
   uintptr_t al = reinterpret_cast<uintptr_t>(p.a[0]) | reinterpret_cast<uintptr_t>(p.a[1]) |
                  reinterpret_cast<uintptr_t>(p.a[2]) | reinterpret_cast<uintptr_t>(p.W) |

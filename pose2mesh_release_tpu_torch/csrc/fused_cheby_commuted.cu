@@ -62,14 +62,14 @@ extern "C" int p2m_fused_cheby_conv_commuted(const void* band, const void* x, co
   if (stages & 2) {
     HopArgs h{bb, p2b, nullptr, tb, 2.0f, 1.0f, V, nt, k, C};
     h.addf = a + M * Fo_pad;  // p1
-    err = launch_band_hop<false, true>(h, hop_cc, hop_grid, hop_per_block, st);
+    err = launch_band_hop<false, kHopF32Add>(h, hop_cc, hop_grid, hop_per_block, st);
     if (err != cudaSuccess) return err;
   }
   if (stages & 4) {
     HopArgs h{bb, tb, nullptr, static_cast<bf16*>(out), 1.0f, 1.0f, V, nt, k, C};
     h.addf = a;
     h.relu = relu;
-    err = launch_band_hop<false, true>(h, hop_cc, hop_grid, hop_per_block, st);
+    err = launch_band_hop<false, kHopF32Add>(h, hop_cc, hop_grid, hop_per_block, st);
   }
   return err;
 }

@@ -222,19 +222,20 @@ def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False) -> ProjP
                     proj_smem(bn, np_, stats))
 
 
-def commuted_plan(M: int, F: int, Fo: int, sms: int) -> ProjPlan:
-    """The commuted conv's projection (epilogue kEpiCommuted) for M rows of
-    x, F -> [a | p1 | p2]: three column blocks of fo_pad (Fo rounded up to
-    16), `bn` the widest tile dividing fo_pad, so a tile lies in one block;
-    np = 3 fo_pad."""
-    if M <= 0 or F <= 0 or F % 16 or Fo <= 0:
-        raise ValueError(f"the projection takes M > 0, F % 16 == 0 and Fo > 0, "
-                         f"got M={M}, F={F}, Fo={Fo}")
+def commuted_plan(M: int, F: int, Fo: int, sms: int, blocks: int = 3) -> ProjPlan:
+    """The commuted conv's projection (epilogues kEpiCommuted,
+    kEpiCommutedBf16) for M rows of x, F -> [a | p1 | p2] or [p | t0 | u]:
+    three column blocks of fo_pad (Fo rounded up to 16), `bn` the widest tile
+    dividing fo_pad, so a tile lies in one block; np = 3 fo_pad.  With
+    blocks=1 the one-block projection of kEpiF32 (np = fo_pad)."""
+    if M <= 0 or F <= 0 or F % 16 or Fo <= 0 or blocks not in (1, 3):
+        raise ValueError(f"the projection takes M > 0, F % 16 == 0, Fo > 0 and 1 or 3 "
+                         f"blocks, got M={M}, F={F}, Fo={Fo}, blocks={blocks}")
     fo_pad = -(-Fo // 16) * 16
     bn = next(b for b in (128, 64, 32, 16) if fo_pad % b == 0)
-    items = -(-M // _PROJ_BM) * (3 * fo_pad // bn)
-    return ProjPlan(bn, 3 * fo_pad, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
-                    proj_smem(bn, 3 * fo_pad, False))
+    items = -(-M // _PROJ_BM) * (blocks * fo_pad // bn)
+    return ProjPlan(bn, blocks * fo_pad, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
+                    proj_smem(bn, blocks * fo_pad, False))
 
 
 # the group conv's launches (csrc/fused_cheby.cu `stages`): the two hops,
@@ -249,7 +250,7 @@ def conv_launcher(band_val, x, W, b, relu: bool, skip=None, skip_w=None):
     out.  The wrapper runs all of them once; running them apart only times
     the split."""
     # hop.py imports this module's helpers, so its plan is imported here
-    from .hop import hop_plan, sm_count
+    from .hop import band_span, hop_plan, sm_count
     k, nt, T, B, Fin, Fout = _check_shapes(band_val, x, W, b)
     Fs = _check_skip(x, Fout, skip, skip_w)
     extra = {} if skip is None else {"skip": skip}
@@ -259,7 +260,7 @@ def conv_launcher(band_val, x, W, b, relu: bool, skip=None, skip_w=None):
     if skip_w is not None and Fs % 16:
         raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
     sms = sm_count(x.device)
-    hp = hop_plan(nt, k, B * Fin, sms)
+    hp = hop_plan(nt, band_span(k), B * Fin, sms)
     pp = proj_plan(x.shape[0] * B, Fin, Fout, sms)
     Wp = _pad_cols(W, pp.np)
     swp = None if skip_w is None else _pad_cols(skip_w, pp.np)
@@ -309,14 +310,14 @@ def commuted_launcher(band_val, x, Wc, b, relu: bool):
     (COMMUTED_STAGES) into out, (nt*T, B, fo_pad) with fo_pad = Fo rounded
     up to 16.  The wrapper runs all of them once and narrows out to Fo; running
     them apart only times the split."""
-    from .hop import hop_plan, sm_count
+    from .hop import band_span, hop_plan, sm_count
     k, nt, T, B, Fin, Fo = _check_shapes(band_val, x, Wc, b)
     _check_cuda(x, T, Fin, band_val=band_val, Wc=Wc, b=b)
     sms = sm_count(x.device)
     rows = x.shape[0]
     pp = commuted_plan(rows * B, Fin, Fo, sms)
     fo_pad = pp.np // 3
-    hp = hop_plan(nt, k, B * fo_pad, sms)
+    hp = hop_plan(nt, band_span(k), B * fo_pad, sms)
     Wp = _pad_cols(Wc, fo_pad)
     ap1 = torch.empty((2, rows, B, fo_pad), dtype=torch.float32, device=x.device)
     p2, t = (torch.empty((rows, B, fo_pad), dtype=x.dtype, device=x.device) for _ in range(2))

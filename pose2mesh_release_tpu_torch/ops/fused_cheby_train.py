@@ -49,7 +49,7 @@ import torch.nn.functional as F
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, \
     _stream, proj_plan
-from .hop import HopPlan, banded_hop, hop_plan, sm_count
+from .hop import HopPlan, band_span, banded_hop, hop_plan, sm_count
 from .spmm import band_hop
 
 __all__ = ["BWD_STAGES", "BwdPlan", "TRAIN_STAGES", "bwd_launcher", "bwd_plan",
@@ -201,7 +201,7 @@ def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int) -> 
     slices = min(k_tiles, max(1, _cdiv(_DW_BLOCKS_PER_SM * sms, tiles)))
     slice_rows = _cdiv(k_tiles, slices) * _BK
     slices = _cdiv(M, slice_rows)
-    return BwdPlan(fo_pad, gw, fp, hop_plan(nt, k, B * fo_pad, sms), dx_items,
+    return BwdPlan(fo_pad, gw, fp, hop_plan(nt, band_span(k), B * fo_pad, sms), dx_items,
                    min(dx_items, _DX_BLOCKS_PER_SM * sms), dx_smem(fp), slices, slice_rows,
                    tiles * slices, _DW_SMEM)
 
@@ -265,7 +265,7 @@ def train_launcher(band_val, x, W, b, in_fold: Fold, emit_stats: bool, keep_basi
     V, B = x.shape[:2]
     dev = x.device
     sms = sm_count(dev)
-    hp = hop_plan(nt, k, B * Fin, sms)
+    hp = hop_plan(nt, band_span(k), B * Fin, sms)
     pp = proj_plan(V * B, Fin, Fout, sms, stats=emit_stats)
     Wp = _pad_cols(W, pp.np)
     u = torch.empty_like(x) if fold else None

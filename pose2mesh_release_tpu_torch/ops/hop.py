@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +28,8 @@ from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _T, _check_cuda, _ptr, _raise_on, _stream
 from .spmm import band_hop
 
-__all__ = ["HopLayout", "HopPlan", "banded_hop", "hop", "hop_layout", "hop_plain", "hop_plan",
-           "launches"]
+__all__ = ["HopLayout", "HopPlan", "banded_hop", "band_span", "hop", "hop_layout", "hop_plain",
+           "hop_plan", "hop_smem", "launches"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"banded_hop": 0}
@@ -47,8 +48,9 @@ def hop_plain(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 _HOP_STAGES = 2
 _HOP_BLOCKS_PER_SM = 2  # kHopBlocksPerSm
 HOP_CAP = 12  # nonzero band sub-tiles a warp keeps in registers (kHopCap)
+MAX_SPAN = 64  # staged 16-row groups of a row tile: the bits of the engine's mask
 _SM_SMEM = 233472
-_BLOCK_SMEM_RESERVED = 1024 + 64  # the runtime's per-block reserve + static masks
+_BLOCK_SMEM_RESERVED = 1024 + 128  # the runtime's per-block reserve + static masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,61 +65,105 @@ class HopPlan:
     items: int
 
 
-def hop_smem(cc: int, k: int) -> int:
-    """Dynamic shared memory of the engine's x ring (band_hop_smem)."""
-    return _HOP_STAGES * (2 * k + 1) * _T * (cc + 8) * 2
+def band_span(k: int) -> int:
+    """The 16-row x groups the engine stages per row tile of the block band
+    at band_k k: the (2k+1) T source rows."""
+    if k not in (1, 2):
+        raise ValueError(f"the hop engine takes band_k in {{1, 2}}, got {k}")
+    return (2 * k + 1) * _T // 16
 
 
-def hop_plan(nt: int, k: int, C: int, sms: int) -> HopPlan:
-    """The engine's launch for C columns over nt row tiles at band_k k on a
-    card of `sms` SMs: the widest chunk dividing C that keeps
-    `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that fits one; a
-    persistent grid of that many blocks per SM walking contiguous runs of
-    items."""
-    if C % 16 or k not in (1, 2):
-        raise ValueError(f"the hop engine takes C % 16 == 0 and band_k in {{1, 2}}, "
-                         f"got C={C}, k={k}")
+def hop_smem(cc: int, span: int) -> int:
+    """Dynamic shared memory of the engine's x ring for `span` staged 16-row
+    groups (band_hop_smem)."""
+    return _HOP_STAGES * span * 16 * (cc + 8) * 2
+
+
+def hop_plan(nt: int, span: int, C: int, sms: int) -> HopPlan:
+    """The engine's launch for C columns over nt row tiles that stage `span`
+    16-row groups each (`band_span(k)` for the block band, `HopLayout.span`
+    for the strip form) on a card of `sms` SMs: the widest chunk dividing C
+    that keeps `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that
+    fits one; a persistent grid of that many blocks per SM walking
+    contiguous runs of items.  A span over MAX_SPAN groups is refused."""
+    if C % 16 or not 0 < span <= MAX_SPAN:
+        raise ValueError(f"the hop engine takes C % 16 == 0 and at most {MAX_SPAN} staged "
+                         f"16-row groups, got C={C}, span={span}")
     fits = [cc for cc in (64, 32, 16) if C % cc == 0]
     full = [cc for cc in fits
-            if _HOP_BLOCKS_PER_SM * (hop_smem(cc, k) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
+            if _HOP_BLOCKS_PER_SM * (hop_smem(cc, span) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
     cc = (full or fits)[0]
     items = nt * (C // cc)
     per_block = -(-items // min(items, sms * _HOP_BLOCKS_PER_SM))
-    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, k), items)
+    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, span), items)
 
 
 @dataclasses.dataclass(frozen=True)
 class HopLayout:
     """How the engine addresses L (csrc/band_hop.cuh): `ld` elements between
-    the operator's rows, `dstride` between the 2k+1 blocks of one row, `src0`
-    the x row of each row tile's first band column; `window` for the window
-    form, whose blocks are all in range (the block band's out-of-range
+    the operator's rows; `src[t][w]` the x row of the first band column of
+    warp w in row tile t; `nsub` 16 x 16 sub-tiles per warp row; `strip` for
+    the strip form (every sub-tile in range; the block band's out-of-range
     neighbour blocks are skipped)."""
     ld: int
-    dstride: int
-    src0: tuple
+    src: tuple
+    nsub: int
     k: int
-    window: bool
+    strip: bool
 
-    def blocks(self, t: int) -> list:
-        """The blocks d of row tile t that the engine reads."""
-        nt = len(self.src0)
-        return [d for d in range(2 * self.k + 1)
-                if self.window or 0 <= t + d - self.k < nt]
+    @property
+    def nt(self) -> int:
+        return len(self.src)
+
+    def subtiles(self, t: int) -> list:
+        """The sub-tiles j of row tile t that the engine reads."""
+        return [j for j in range(self.nsub)
+                if self.strip or 0 <= t + j // 8 - self.k < self.nt]
 
     def subtile(self, t: int, w: int, j: int) -> tuple:
-        """Sub-tile j = 8 d + cg of warp w in row tile t: (element offset of
-        its first row in the operator, the x row its first column takes)."""
-        return ((t * _T + 16 * w) * self.ld + (j // 8) * self.dstride + (j % 8) * 16,
-                self.src0[t] + 16 * j)
+        """Sub-tile j of warp w in row tile t: (element offset of its first
+        row in the operator, the x row its first column takes)."""
+        row = (t * _T + 16 * w) * self.ld
+        if self.strip:
+            return row + 16 * j, self.src[t][w] + 16 * j
+        return row + (j // 8) * self.nt * _T * _T + (j % 8) * 16, self.src[t][w] + 16 * j
+
+    def staged(self, t: int) -> tuple:
+        """(vmin, groups): the block stages x rows vmin .. + 16 groups for row
+        tile t, the union of its warps' source groups (vmin = src[t][0], the
+        offsets being non-decreasing); warp w's sub-tile j is staged group
+        (src[t][w] - vmin) / 16 + j."""
+        lo, hi = self.src[t][0], self.src[t][-1]
+        return lo, (hi - lo) // 16 + self.nsub
+
+    @property
+    def span(self) -> int:
+        """The staged 16-row groups of the widest row tile: hop_plan's span."""
+        return max(self.staged(t)[1] for t in range(self.nt))
 
 
-def hop_layout(nt: int, k: int, woff=None) -> HopLayout:
-    """The engine's addressing of the block band (2k+1, nt, T, T), or of the
-    window form (nt*T, (2k+1)*T) with offsets `woff` (window_cheby.window_cat)."""
-    if woff is None:
-        return HopLayout(_T, nt * _T * _T, tuple((t - k) * _T for t in range(nt)), k, False)
-    return HopLayout((2 * k + 1) * _T, _T, tuple(int(v) for v in woff), k, True)
+def hop_layout(nt: int, k: int = 1, off=None, h: int = _T, wd: Optional[int] = None
+               ) -> HopLayout:
+    """The engine's addressing of the block band (2k+1, nt, T, T), or, given
+    the offsets `off` (nt*T / h,), of the strip form (nt*T, wd) of h-row
+    strip tiles; the defaults h = T and wd = (2k+1) T give the window form
+    (window_cheby.window_cat).  The strip form's offsets must be
+    non-decreasing and differ by multiples of 16 within a row tile, as
+    graphs.artifact.strip_offset places them."""
+    if off is None:
+        return HopLayout(_T, tuple((t * _T - k * _T,) * 8 for t in range(nt)),
+                         band_span(k), k, False)
+    wd = (2 * k + 1) * _T if wd is None else wd
+    off = [int(v) for v in off]
+    if h <= 0 or h % 16 or nt * _T % h or len(off) != nt * _T // h or wd % 16:
+        raise ValueError(f"the strip form takes h and wd multiples of 16 and nt*T / h "
+                         f"offsets, got h={h}, wd={wd}, {len(off)} offsets for nt={nt}")
+    src = tuple(tuple(off[(t * _T + 16 * w) // h] for w in range(8)) for t in range(nt))
+    if any(list(s) != sorted(s) or (s[-1] - s[0]) % 16 or any((v - s[0]) % 16 for v in s)
+           for s in src):
+        raise ValueError("the offsets of one row tile must be non-decreasing and differ "
+                         "by multiples of 16")
+    return HopLayout(wd, src, wd // 16, k, True)
 
 
 @functools.cache
@@ -149,7 +195,7 @@ def hop(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return hop_plain(band_val, x)
     V, C = x.shape[0], x[0].numel()
     _check_cuda(x, T, C, band_val=band_val)
-    plan = hop_plan(nt, nbd // 2, C, sm_count(x.device))
+    plan = hop_plan(nt, band_span(nbd // 2), C, sm_count(x.device))
     out = torch.empty_like(x)
     lib = _hop_lib()
     with torch.cuda.device(x.device):

@@ -2,7 +2,7 @@
 (deploy).
 
 Counterpart of the JAX package's `ops/pallas_window.py::fused_conv_flat_window`
-(Pallas; CUDA csrc/window_cheby.cu).  `window_cat` turns the block band
+(Pallas; CUDA csrc/strip_cheby.cu).  `window_cat` turns the block band
 (2k+1, nt, T, T) into the sliding-window form (nt*T, (2k+1)*T): row tile j
 holds L[jT:(j+1)T, s_j : s_j + (2k+1)T] with s_j = clip((j - k) T, 0,
 nt*T - (2k+1)T), so interior tiles keep the aligned block concatenation and
@@ -13,28 +13,24 @@ conv always runs in basis order, as the TPU kernel does:
 
 z1 and z2 rounded to the working dtype.  The form needs nt >= 2k+1 tiles.
 
-`window_cheby_conv` runs the plain PyTorch version for a tensor on the CPU and
-launches the CUDA kernel for a tensor on the card, counting the call in
+The window form is the strip form (`strip_cheby`) with T-row strip tiles,
+width (2k+1) T and the offsets s_j, so the conv is the strip conv's basis
+order there, on the card as off it: `window_cheby_conv` runs the plain
+PyTorch version for a tensor on the CPU and the strip conv's CUDA launches
+(two hops of the banded hop engine reading the form, then the projection
+GEMM; csrc/strip_cheby.cu) for a tensor on the card, counting the call in
 `launches` (once, whatever the number of CUDA launches); there is no
-fallback.  On the card the conv is the group conv's design run on the window
-form: two launches of the banded hop engine reading `win` and `woff`
-(csrc/band_hop.cuh, its WIN layout; `hop.hop_layout` mirrors the addressing)
-and the projection GEMM; `window_launcher` runs the launches apart.
+fallback.  `window_launcher` runs the launches apart.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ._build import load_library
-from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _check_skip, _pad_cols, _ptr, \
-    _raise_on, _stream, proj_plan
-from .hop import hop_plan, sm_count
-from .strip_cheby import strip_cheby_conv_plain
+from .fused_cheby import _check_skip
+from .strip_cheby import STRIP_STAGES, strip_cheby_conv_plain, strip_launcher
 
 __all__ = ["WINDOW_STAGES", "window_cat", "window_offsets", "window_cheby_conv",
            "window_cheby_conv_plain", "window_launcher", "launches"]
@@ -77,18 +73,8 @@ def window_cheby_conv_plain(win, woff, x, W, b, *, relu: bool,
                                   skip=skip, skip_w=skip_w)
 
 
-@functools.cache
-def _window_lib():
-    lib = load_library("window_cheby")
-    lib.p2m_window_cheby_conv.argtypes = [_C_PTR] * 10 + [_C_INT] * 15 + [_C_PTR]
-    lib.p2m_window_cheby_conv.restype = _C_INT
-    lib.p2m_window_cheby_error_string.argtypes = [_C_INT]
-    lib.p2m_window_cheby_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_window(win, woff, x, W, b):
-    """(nt, T, k, B, Fin, Fout) after checking the shapes."""
+def _check_window(win, woff, x, W, b) -> int:
+    """The row-tile height T after checking the shapes."""
     nt = woff.shape[0]
     Vp, Wd = win.shape
     if woff.dim() != 1 or Vp % nt or Wd % (Vp // nt) or Wd // (Vp // nt) not in (3, 5) \
@@ -98,51 +84,27 @@ def _check_window(win, woff, x, W, b):
     T = Vp // nt
     if x.dim() != 3 or x.shape[0] != Vp:
         raise ValueError(f"x must be ({Vp}, B, F), got {tuple(x.shape)}")
-    B, Fin = x.shape[1:]
+    Fin = x.shape[2]
     if W.dim() != 2 or W.shape[0] != 3 * Fin or b.shape != (W.shape[1],):
         raise ValueError(f"W must be ({3 * Fin}, Fout) and b (Fout,), got "
                          f"{tuple(W.shape)}, {tuple(b.shape)}")
-    return nt, T, Wd // T // 2, B, Fin, W.shape[1]
+    return T
 
 
-# the window conv's launches (csrc/window_cheby.cu `stages`): the two hops,
-# then the projection
-WINDOW_STAGES = {"hops": 1, "proj": 2}
+# the window conv's launches: the strip conv's in basis order (the two hops,
+# then the projection)
+WINDOW_STAGES = STRIP_STAGES["basis"]
 _WINDOW_ALL_STAGES = 3
 
 
 def window_launcher(win, woff, x, W, b, relu: bool, skip=None, skip_w=None):
     """`window_cheby_conv` on CUDA inputs (checked here): (run, out), where
     run(stages) launches the stages named by the bit mask (WINDOW_STAGES)
-    into out.  The wrapper runs all of them once; running them apart only
-    times the split."""
-    nt, T, k, B, Fin, Fout = _check_window(win, woff, x, W, b)
-    Fs = _check_skip(x, Fout, skip, skip_w)
-    extra = {k_: v for k_, v in (("skip", skip), ("skip_w", skip_w)) if v is not None}
-    _check_cuda(x, T, Fin, win=win, W=W, b=b, **extra)
-    if woff.device != x.device or woff.dtype != torch.int32:
-        raise ValueError("woff must be int32 on x's device")
-    if skip_w is not None and Fs % 16:
-        raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
-    sms = sm_count(x.device)
-    hp = hop_plan(nt, k, B * Fin, sms)
-    pp = proj_plan(x.shape[0] * B, Fin, Fout, sms)
-    Wp = _pad_cols(W, pp.np)
-    swp = None if skip_w is None else _pad_cols(skip_w, pp.np)
-    skip_mode = 0 if skip is None else (1 if skip_w is None else 2)
-    z1, z2 = torch.empty_like(x), torch.empty_like(x)
-    out = torch.empty((x.shape[0], B, Fout), dtype=x.dtype, device=x.device)
-    lib = _window_lib()
-
-    def run(stages: int):
-        with torch.cuda.device(x.device):
-            err = lib.p2m_window_cheby_conv(
-                _ptr(win), _ptr(woff), _ptr(x), _ptr(Wp), _ptr(b), _ptr(skip), _ptr(swp),
-                _ptr(z1), _ptr(z2), _ptr(out), nt, k, B, Fin, Fout, pp.np, Fs, int(relu),
-                skip_mode, hp.cc, hp.grid, hp.per_block, pp.bn, pp.grid, stages, _stream(x))
-        _raise_on(err, lib, "p2m_window_cheby_error_string")
-
-    return run, out
+    into out: `strip_cheby.strip_launcher` in basis order with T-row strip
+    tiles.  The wrapper runs all of them once; running them apart only times
+    the split."""
+    T = _check_window(win, woff, x, W, b)
+    return strip_launcher(win, woff, T, x, W, b, "basis", relu, skip, skip_w)
 
 
 def window_cheby_conv(win, woff, x, W, b, *, relu: bool,

@@ -9,7 +9,8 @@ hops and three projections per conv), warms it up, then traces `--steps`
 forwards with torch.profiler and prints: the wall time per forward (host
 clock around synchronized forwards, outside the trace), the device time per
 forward by kernel, grouped into the port's band kernels, matrix products and
-the rest, and the device's idle share of the traced window.  Needs a CUDA
+the rest, the CUDA launches per forward of each group, and the device's idle
+share of the traced window.  Needs a CUDA
 device; writes chiprun_out/profile_forward.json (the group path) or
 chiprun_out/profile_forward_<path>.json.
 """
@@ -26,8 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..deploy import smpl_deploy_forward
 
-GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel", "strip_hop_kernel",
-                            "proj_kernel")),
+GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
@@ -76,18 +76,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = {}
+    kernels, counts = {}, {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+            counts[evt.key] = counts.get(evt.key, 0) + evt.count
     device_ms = sum(kernels.values()) / 1e3 / args.steps
     groups = {name: 0.0 for name, _ in GROUPS}
     groups["other"] = 0.0
+    group_launches = dict.fromkeys(groups, 0.0)
     for key, us in kernels.items():
         low = key.lower()
         name = next((n for n, pats in GROUPS if any(p in low for p in pats)), "other")
         groups[name] += us / 1e3 / args.steps
+        group_launches[name] += counts[key] / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     result = {
         "card": card, "path": path, "batch": args.batch, "steps": args.steps,
@@ -97,6 +100,7 @@ def main(argv=None) -> int:
         "device_idle_share": (max(0.0, 1.0 - device_ms * args.steps / traced_ms)
                               if traced_ms > 0 else None),
         "groups_ms_per_forward": groups,
+        "groups_launches_per_forward": group_launches,
         "top_kernels_ms_per_forward": [(k, us / 1e3 / args.steps) for k, us in top],
     }
     print(card)
@@ -105,7 +109,7 @@ def main(argv=None) -> int:
     print(f"device ms per forward: {device_ms:.3f}; idle share of the traced "
           f"window: {result['device_idle_share']}")
     for name, ms in groups.items():
-        print(f"  {name:16s} {ms:8.3f} ms")
+        print(f"  {name:16s} {ms:8.3f} ms in {group_launches[name]:g} launches")
     for key, ms in result["top_kernels_ms_per_forward"]:
         print(f"  {ms:8.3f} ms  {key[:100]}")
     if device_ms == 0:

@@ -12,11 +12,14 @@ block, single nonzeros in sub-tile corners, an all-zero row tile) and a band
 whose pad columns are nonzero (K1's fold must leave the missing rows zero).
 K1 and the group conv project through one GEMM whose 3-wide outputs are
 computed 16 wide and stored 3 wide.  The commuted conv (one projection into
-float32 a, p1 and bf16 p2, then two engine hops with a float32 add) and the
-window conv (two engine hops reading the window form, then the projection)
-also run their launches apart through their launchers, which must give the
-whole call's bits; the window conv at nt = 2k+1 makes every row tile an
-edge tile of the window form.
+float32 a, p1 and bf16 p2, then two engine hops with a float32 add), the
+strip conv (basis order: two engine hops reading the strip form, then the
+projection; commuted order: one projection into bf16 [p | t0 | u], then two
+hops, the last with the ReLU and the skip) and the window conv (the strip
+conv's basis order at T-row tiles) also run their launches apart through
+their launchers, which must give the whole call's bits; the window conv at
+nt = 2k+1 makes every row tile an edge tile of the window form; the strip
+conv runs at strip tiles of 64, 128 and 256 rows.
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -426,6 +429,9 @@ def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind):
     (2, 128, "basis", 96, 64, "skip_proj"),
     (2, 64, "commuted", 128, 40, "skip_proj"),  # skip projection in the last hop
     (2, 128, "commuted", 32, 8, "skip_add"),
+    (1, 256, "basis", 64, 64, "skip_add"),      # two row tiles share a strip tile
+    (2, 256, "commuted", 128, 64, "relu"),
+    (2, 64, "commuted", 64, 3, "final"),        # fo_pad 16 computed, 3 stored
 ])
 def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue):
     op = band_level(k, seed=70 + k, strip_h=h)
@@ -449,7 +455,44 @@ def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue):
     ref = sc.strip_cheby_conv_plain(S.float(), off, h, x.float(), W.float(), b.float(),
                                     **f32)
     assert y.shape == (Vp, B, Fout) and y.dtype == torch.bfloat16
+    assert y.untyped_storage().nbytes() == y.numel() * 2  # exactly (Vp, B, Fout)
     assert rel_l2(y[:V], ref[:V]) <= TOL
+
+
+@pytest.mark.parametrize("k,h,mode,F,Fout,epilogue", [
+    (1, 64, "basis", 64, 24, "skip_proj"),
+    (2, 128, "basis", 32, 3, "final"),
+    (1, 128, "commuted", 64, 32, "relu"),
+    (2, 64, "commuted", 128, 40, "skip_proj"),  # four launches: the skip projection first
+    (1, 256, "commuted", 48, 8, "skip_add"),
+])
+def test_strip_launches_apart_equal_the_whole_call(cuda, k, h, mode, F, Fout, epilogue):
+    """The launches run one by one through strip_launcher (basis: the two
+    hops, the projection; commuted: the projection(s), hop 1, hop 2) give the
+    wrapper's bits (narrowed to Fout in commuted order), and the pad columns
+    of the commuted order's output are zero."""
+    op = band_level(k, seed=140 + k, strip_h=h)
+    S, off = op.strip_val.to(cuda, torch.bfloat16), op.strip_off.to(cuda)
+    Vp, B = op.padded_vertices, 2
+    Fs = 80 if epilogue == "skip_proj" else Fout
+    x, W, b, skip, skip_w = inputs(op, B, [((Vp, B, F), 0.5),
+                                           ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                           ((Fout,), 0.1), ((Vp, B, Fs), 0.5),
+                                           ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 19)
+    skip = skip if epilogue in ("skip_add", "skip_proj") else None
+    skip_w = skip_w if epilogue == "skip_proj" else None
+    relu = epilogue != "final"
+    whole = sc.strip_cheby_conv(S, off, h, x, W, b, mode=mode, relu=relu, skip=skip,
+                                skip_w=skip_w)
+    before = dict(sc.launches)
+    run, out = sc.strip_launcher(S, off, h, x, W, b, mode, relu, skip, skip_w)
+    for mask in sc.STRIP_STAGES[mode].values():
+        run(mask)
+    torch.cuda.synchronize()
+    assert sc.launches == before  # the launcher alone counts nothing
+    assert torch.equal(out[..., :Fout], whole)
+    assert out.shape == (Vp, B, Fout if mode == "basis" else -(-Fout // 16) * 16)
+    assert not out[..., Fout:].any()
 
 
 @pytest.mark.parametrize("k,F,Fout,epilogue", [
@@ -676,3 +719,10 @@ def test_strip_window_hop_wrappers_reject_what_the_kernels_do_not_take(cuda):
         hp.hop(band, x.float())
     with pytest.raises(ValueError):  # more rows than the operator's tiles
         hp.hop(band, torch.zeros(Vp + 1, 32, dtype=torch.bfloat16, device=cuda))
+    # 16-row strip tiles whose offsets spread a row tile's warps over 128
+    # staged 16-row groups, more than the engine's 64: refused, no fallback
+    S2 = torch.zeros(2048, 64, dtype=torch.bfloat16, device=cuda)
+    off2 = torch.tensor([0] * 4 + [2048 - 64] * 4, dtype=torch.int32).repeat(2048 // 128)
+    x2 = torch.zeros(2048, 2, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        sc.strip_cheby_conv(S2, off2.to(cuda), 16, x2, W, b, mode="basis", relu=True)

@@ -202,7 +202,7 @@ def _c_entry_points():
 LOADERS = [
     ("fused_cheby", "_fused_lib"), ("fused_cheby", "_commuted_lib"),
     ("fused_cheby_train", "_train_lib"), ("fused_cheby_train", "_bwd_lib"),
-    ("hop", "_hop_lib"), ("strip_cheby", "_strip_lib"), ("window_cheby", "_window_lib")]
+    ("hop", "_hop_lib"), ("strip_cheby", "_strip_lib")]
 
 
 @pytest.mark.parametrize("module,loader", LOADERS)
