@@ -45,7 +45,27 @@ Phases (any failure exits non-zero):
      through the plain versions of K1 and K2 on the card, twice: from the
      fresh state (before the warm-up step: the kernels' own error) and from
      the state after the five steps (the error grown along the trajectory);
-  6. print the kernel table as one JSON line, then the result line.
+  6. the MANO hand (stand-in, 778 vertices, 6 levels, MANO_BLOCKS, 21
+     joints): every kernel of its band level (778 rows, Vp 1024, strip width
+     480) against its plain version at batch 64, bf16: the 4 deploy convs
+     (2 group basis, 2 commuted) on the group, strip and window paths, the
+     unfused path's hops, and the 4 train convs (K1, K2);
+  7. the MANO deploy forward (mano_deploy_forward): 4 requests on the group
+     path against its plain forward, exactly 2 + 2 group convs each; one
+     request on each further path against the group forward (4 strip, 4
+     window or 8 hop calls; 12, 12, 8 engine and projection CUDA launches);
+  8. the MANO train step (mano_train_setup, its GT synthesised by LBS on the
+     card): the step against the plain-K1/K2 step from the fresh state, 1
+     warm-up and 4 counted steps with exactly 4 K1 + 4 K2 calls each;
+  9. the face corners' two backwards (the banded selector product the train
+     step runs, and the index gathers' index-add) at SMPL and MANO widths,
+     float32, batch 64: the gradient of the normal + edge losses through
+     each (relative L2 <= 1e-5) and each backward's ms;
+  10. GT synthesis: posed_mesh_rotated at batch 64 on the card against the
+     same call on the CPU (max abs error <= 1e-2 mm, float32), MANO and
+     SMPL, and its ms;
+  11. print the MANO kernels' numbers per pass as one JSON line, the kernel
+     table (SMPL passes) as one JSON line, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
@@ -161,6 +181,37 @@ TRAIN_CONVS = [
 ]
 # the band_k = 2 level: K1 in_fold + emit_stats, K2 in_fold
 K2_TRAIN_CONV = (128, 128, True, True)
+# The MANO stand-in (778 vertices, 6 levels, MANO_BLOCKS): its one band level
+# (778 rows, Vp 1024, strip width 480) takes blocks 5 and 6.  Deploy convs in
+# forward order (kernel, fin, fout, epilogue) by the rule of MAIN_PATH_CONVS,
+# train convs (fin, fout, fold, stats) by that of TRAIN_CONVS.
+MANO_DEPLOY_CONVS = [
+    ("fused_cheby_conv_commuted", 256, 128, "relu"),
+    ("fused_cheby_conv", 128, 128, "skip_proj"),
+    ("fused_cheby_conv_commuted", 128, 64, "relu"),
+    ("fused_cheby_conv", 64, 3, "final"),
+]
+MANO_TRAIN_CONVS = [
+    (256, 128, False, True),
+    (128, 128, True, True),
+    (128, 64, False, True),
+    (64, 3, True, False),
+]
+MANO_PATHS = {
+    "strip": ({"flat_impl": "strip"}, "strip_cheby_conv", 4),
+    "window": ({"flat_impl": "window"}, "window_cheby_conv", 4),
+    "unfused": ({"fused": False}, "banded_hop", 8),
+}
+# strip: 1 basis-order conv (skip projection) x 3 + 3 commuted x 3; window
+# 4 x 3; unfused 4 x 2 hops
+MANO_PATH_CUDA_LAUNCHES = {"strip": 12, "window": 12, "unfused": 8}
+MANO_SHAPES = [(BATCH, 778, 3), (BATCH, 21, 3), (BATCH, 21, 3)]
+# the MANO kernels' calls per pass of their path (one forward, one step)
+MANO_LAUNCHES = {"fused_cheby_conv": 2, "fused_cheby_conv_commuted": 2,
+                 "fused_cheby_conv_train": 4, "fused_cheby_conv_bwd": 4,
+                 "banded_hop": 8, "strip_cheby_conv": 4, "window_cheby_conv": 4}
+FACE_GRAD_TOL = 1e-5
+GT_TOL_MM = 1e-2
 # K1 with keep_basis: (level vertex count, fin, fout)
 KEEP_BASIS_CONV = (1849, 256, 128)
 
@@ -649,13 +700,18 @@ def plain_forward(path, step, art, pose2d):
     return ref, ms
 
 
-def drive_path(path, deploy, batches, group_out, card):
+def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=None,
+               shapes=None):
     """Phase 3 for a further path: a model built for the path with the group
-    model's weights, warm-up, 4 counted requests, the plain forward of the
-    same path and the group forward's outputs."""
+    model's weights, warm-up, the counted requests (one per batch), the plain
+    forward of the same path and the group forward's outputs.  paths,
+    cuda_counts, shapes: the model's PATHS, PATH_CUDA_LAUNCHES and output
+    shapes (default: SMPL's)."""
     import torch
     from pose2mesh_release_tpu_torch.deploy import on_path
-    kw, wrapper, per_forward = PATHS[path]
+    paths, cuda_counts = paths or PATHS, cuda_counts or PATH_CUDA_LAUNCHES
+    shapes = shapes or [(BATCH, 6890, 3), (BATCH, 17, 3), (BATCH, 17, 3)]
+    kw, wrapper, per_forward = paths[path]
     step, art_bf = on_path(deploy, **kw).eval_step, deploy.art_compute
     step(art_bf, batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -667,24 +723,23 @@ def drive_path(path, deploy, batches, group_out, card):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
-    log(f"  {path}: {REQUESTS} requests of batch {BATCH}: ms per batch "
+    log(f"  {path}: {len(batches)} requests of batch {BATCH}: ms per batch "
         f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
-    want = expect(**{wrapper: per_forward * REQUESTS})
+    want = expect(**{wrapper: per_forward * len(batches)})
     if launches != want:
         raise SystemExit(f"{path}: launch counts {launches} != {want}")
     for out in outs:
-        assert [tuple(t.shape) for t in out] == [(BATCH, 6890, 3), (BATCH, 17, 3),
-                                                 (BATCH, 17, 3)], path
+        assert [tuple(t.shape) for t in out] == list(shapes), path
         assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
     cuda_launches = kernel_launches(lambda: step(art_bf, batches[0]))
     engine = sum(n for name, n in cuda_launches.items()
                  if any(k in name for k in ENGINE_KERNELS))
     log(f"  {path}: CUDA launches in one forward (torch.profiler): hop engine and "
-        f"projection {engine} (expected {PATH_CUDA_LAUNCHES[path]}), all kernels "
+        f"projection {engine} (expected {cuda_counts[path]}), all kernels "
         f"{sum(cuda_launches.values())}")
-    if engine != PATH_CUDA_LAUNCHES[path]:
+    if engine != cuda_counts[path]:
         raise SystemExit(f"{path}: {engine} hop engine and projection launches per forward, "
-                         f"expected {PATH_CUDA_LAUNCHES[path]}: {cuda_launches}")
+                         f"expected {cuda_counts[path]}: {cuda_launches}")
     ref, plain_ms = plain_forward(path, step, art_bf, batches[0])
     errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
             "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1]),
@@ -777,6 +832,231 @@ def step_check(label, loss_k, loss_p, grad_errs, left_out, plain_step_ms) -> dic
         raise SystemExit(f"the train step ({label}) disagrees with the plain-version step")
     return {"loss_rel_err": loss_err, "worst": worst, "grad_rel_l2": grad_errs,
             "zero_grad_biases": left_out, "plain_step_ms": plain_step_ms}
+
+
+def mano_kernels(gen, card):
+    """Phase 6: every kernel of the MANO path at its band level, against its
+    plain version: the 4 deploy convs on each fused path and the unfused
+    path's hops, the 4 train convs (K1, K2).  Returns (deploy, rows)."""
+    import torch
+    from pose2mesh_release_tpu_torch.deploy import mano_deploy_forward
+    t0 = time.time()
+    deploy = mano_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0)
+    op = deploy.art.mesh_ops[0]
+    log(f"phase 6: MANO kernels vs plain, batch {BATCH}, tolerance rel_l2 <= {KERNEL_TOL} "
+        f"(set-up {time.time() - t0:.1f} s); levels "
+        f"{[(o.kind, o.num_vertices, o.padded_vertices, o.band_k) for o in deploy.art.mesh_ops]}"
+        f", strip {tuple(op.strip_val.shape)} at h {op.strip_h}")
+    o = subtile_occupancy(op)
+    log(f"  hop engine sub-tiles at V={o['V']}: {o['occupancy']:.4f} nonzero, per 16-row "
+        f"group mean {o['per_group_mean']:.2f} max {o['per_group_max']}, share over the "
+        f"register slots {o['over_cap']:.4f}")
+    rows = [check_conv(op, name, fin, fout, ep, gen, f"mano{i}")
+            for i, (name, fin, fout, ep) in enumerate(MANO_DEPLOY_CONVS)]
+    rows += [check_strip(op, fin, fout, ep, gen, f"mano_strip{i}")
+             for i, (_, fin, fout, ep) in enumerate(MANO_DEPLOY_CONVS)]
+    rows += [check_window(op, fin, fout, ep, gen, f"mano_window{i}")
+             for i, (_, fin, fout, ep) in enumerate(MANO_DEPLOY_CONVS)]
+    rows += [check_hop(op, fin, gen, f"mano_hop{i}")
+             for i, (_, fin, _, _) in enumerate(MANO_DEPLOY_CONVS)]
+    for i, conv in enumerate(MANO_TRAIN_CONVS):
+        rows += check_train_conv(op, *conv, gen, f"mano_train{i}")
+    bad = [(r["tag"], r["name"]) for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"MANO kernel check failed: {bad}")
+    return deploy, rows
+
+
+def mano_forward(deploy, card) -> dict:
+    """Phase 7: the MANO deploy forward, 4 requests on the group path against
+    its plain forward, one request on each further path against the group
+    forward, exact call counts."""
+    import torch
+    eval_step, art_bf = deploy.eval_step, deploy.art_compute
+    g = torch.Generator().manual_seed(2)
+    batches = [torch.randn(BATCH, 21, 2, generator=g).cuda() for _ in range(REQUESTS)]
+    eval_step(art_bf, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    outs, times = [], []
+    for p in batches:
+        t0 = time.perf_counter()
+        outs.append(eval_step(art_bf, p))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    log(f"phase 7: MANO deploy forward, {REQUESTS} requests of batch {BATCH}: ms per batch "
+        f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
+    want = expect(fused_cheby_conv=2 * REQUESTS, fused_cheby_conv_commuted=2 * REQUESTS)
+    if launches != want:
+        raise SystemExit(f"MANO: launch counts {launches} != {want}")
+    for out in outs:
+        assert [tuple(t.shape) for t in out] == MANO_SHAPES
+        assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
+    ref, plain_ms = plain_forward("group", eval_step, art_bf, batches[0])
+    errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
+            "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1])}
+    log(f"  MANO group: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tolerance {FORWARD_TOL}); plain forward {plain_ms:.3f} ms; mesh mm range "
+        f"[{float(outs[0][0].min()):.2f}, {float(outs[0][0].max()):.2f}]")
+    if max(errs.values()) > FORWARD_TOL:
+        raise SystemExit(f"MANO: forward disagrees with the plain forward: {errs}")
+    report = {"group": {"card": card, "batch": BATCH, "ms_per_batch": times,
+                        "launches": launches, "plain_forward_ms": plain_ms, **errs}}
+    for path in MANO_PATHS:
+        report[path] = drive_path(path, deploy, batches[:1], outs[0], card, MANO_PATHS,
+                                  MANO_PATH_CUDA_LAUNCHES, MANO_SHAPES)
+    return report
+
+
+def mano_train(card):
+    """Phase 8: the MANO train step (mano_train_setup, LBS GT on the card):
+    the step against the plain-K1/K2 step from the fresh state, then 1
+    warm-up and 4 counted steps.  Returns (setup, report)."""
+    import torch
+    from pose2mesh_release_tpu_torch.train_setup import mano_train_setup
+    t0 = time.time()
+    setup = mano_train_setup(dtype=torch.bfloat16, device="cuda", seed=0, batch=BATCH)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    log(f"phase 8: MANO train setup (LBS GT on the card) in {setup_s:.2f} s; batch {BATCH}, "
+        f"bf16, RMSprop lr {LR}, edge loss on")
+    state = setup.state
+    fresh = step_check("MANO, fresh state", *train_step_vs_plain(setup, state))
+    state, warm = setup.train_step(state, setup.art_compute, setup.batch, LR, True,
+                                   setup.generator)
+    torch.cuda.synchronize()
+    reset_launches()
+    step_losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, losses = setup.train_step(state, setup.art_compute, setup.batch, LR, True,
+                                         setup.generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_losses.append({k: float(v) for k, v in losses.items()})
+    launches = read_launches()
+    log(f"  MANO warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps: ms per step "
+        f"{[round(t, 3) for t in step_ms]} ({card}); totals "
+        f"{[round(l['total'], 5) for l in step_losses]}; launches {launches}")
+    want = expect(fused_cheby_conv_train=4 * TRAIN_STEPS, fused_cheby_conv_bwd=4 * TRAIN_STEPS)
+    if launches != want:
+        raise SystemExit(f"MANO: launch counts {launches} != {want}")
+    if not all(math.isfinite(v) for l in step_losses for v in l.values()):
+        raise SystemExit(f"MANO: non-finite loss: {step_losses}")
+    return setup, {"card": card, "batch": BATCH, "lr": LR, "setup_s": setup_s,
+                   "ms_per_step": step_ms, "losses": step_losses, "launches": launches,
+                   "fresh_state": fresh}
+
+
+def face_backward(label, art, gen) -> dict:
+    """Phase 9 at one mesh: the face corners' two backwards (the banded
+    selector product over face_perm / face_sel, and the index gathers'
+    index-add) on float32 batch-BATCH meshes: the gradient of the normal +
+    edge losses through each, and each backward alone timed with CUDA
+    events."""
+    import torch
+    from pose2mesh_release_tpu_torch.core import losses as L
+    faces, V = art.faces, art.num_vertices
+    pred = torch.randn(BATCH, V, 3, generator=gen, device="cuda") * 0.1
+    gt = torch.randn(BATCH, V, 3, generator=gen, device="cuda") * 0.1
+    routes = {"band": {"face_band": (art.face_perm, art.face_sel, art.vertex_gather)},
+              "index_add": {}}
+    cot = torch.randn(BATCH, faces.shape[0], 3, 3, generator=gen, device="cuda")
+    grads, backward = {}, {}
+    for name, kw in routes.items():
+        p = pred.clone().requires_grad_()
+        c = L._face_corners(p, faces, **kw)
+        loss = (L.normal_vector_loss(p, gt, faces, corners=c)
+                + L.edge_length_loss(p, gt, faces, corners=c))
+        (grads[name],) = torch.autograd.grad(loss, p)
+        # the corners' backward alone, for a fixed cotangent
+        p = pred.clone().requires_grad_()
+        c = L._face_corners(p, faces, **kw)
+        dot = sum((c[i] * cot[:, :, i]).sum() for i in range(3))
+        backward[name] = (lambda d=dot, q=p: torch.autograd.grad(d, q, retain_graph=True))
+    err = rel_l2(grads["band"], grads["index_add"])
+    # wall ms per call: the least of 5 windows of 50 calls, the routes
+    # alternating; device ms: the CUDA kernels' time per call
+    ms = {name: [] for name in routes}
+    for rep in range(5):
+        for name in (routes if rep % 2 == 0 else list(routes)[::-1]):
+            ms[name].append(cuda_ms(backward[name], 50))
+    wall = {name: min(t) for name, t in ms.items()}
+    device = {name: device_ms(fn) for name, fn in backward.items()}
+    W = tuple(art.face_sel.shape)
+    log(f"  {label}: V={V} F={faces.shape[0]} face_sel {W}: gradient band vs index-add "
+        f"rel_l2={err:.3e} (tolerance {FACE_GRAD_TOL}); backward ms (CUDA events, least of "
+        f"5 x 50 calls) band={wall['band']:.4f} index_add={wall['index_add']:.4f}; device ms "
+        f"(torch.profiler) band={device['band']:.4f} index_add={device['index_add']:.4f}; "
+        f"every window {ms}")
+    if not err <= FACE_GRAD_TOL:
+        raise SystemExit(f"{label}: the face backwards disagree ({err})")
+    return {"V": V, "faces": int(faces.shape[0]), "face_sel": W, "grad_rel_l2": err,
+            "ms": wall, "ms_windows": ms, "device_ms": device}
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """The CUDA kernels' time per call of fn over n calls, summed by
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0))
+    return total / 1e3 / n
+
+
+def gt_synthesis(label, params, gen) -> dict:
+    """Phase 10 at one body model: posed_mesh_rotated at batch BATCH on the
+    card against the same call on the CPU (float32), and its ms."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.data.gt_synth import posed_mesh_rotated
+    from pose2mesh_release_tpu_torch.train_setup import mano_gt_inputs
+    J = params.num_joints
+    pose, shape = mano_gt_inputs(BATCH, np.random.default_rng(0))
+    pose = np.resize(pose, (BATCH, 3 * J)).astype(np.float32)
+    R = torch.eye(3).expand(BATCH, 3, 3)
+    t = torch.tensor([0.0, 0.0, 500.0]).expand(BATCH, 3)
+    args = [torch.from_numpy(pose), torch.from_numpy(shape), R, t]
+    gpu = [a.cuda() for a in args]
+    p_gpu, p_cpu = params.to("cuda"), params.to("cpu")
+    with torch.no_grad():
+        out = posed_mesh_rotated(p_gpu, *gpu)
+        ref = posed_mesh_rotated(p_cpu, *args)
+        err = max(float((o.cpu() - r).abs().max()) for o, r in zip(out, ref))
+        ms = cuda_ms(lambda: posed_mesh_rotated(p_gpu, *gpu), 20)
+    log(f"  {label}: V={params.num_vertices} J={J}: card vs CPU max abs {err:.3e} mm "
+        f"(tolerance {GT_TOL_MM}); {ms:.4f} ms per batch of {BATCH}")
+    if not err <= GT_TOL_MM:
+        raise SystemExit(f"{label}: GT synthesis on the card disagrees with the CPU ({err} mm)")
+    return {"V": params.num_vertices, "J": J, "max_abs_mm": err, "ms": ms}
+
+
+def mano_table(rows) -> list:
+    """Per kernel of the MANO path: its calls per pass and the sums over that
+    pass's shapes (the kernel table's rule)."""
+    out = []
+    for name, launches in MANO_LAUNCHES.items():
+        mine = [r for r in rows if r["name"] == name]
+        out.append({"name": name, "launches": launches,
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    "ms": sum(r["ms"] for r in mine),
+                    "plain_ms": sum(r["plain_ms"] for r in mine),
+                    "bound_ms": sum(r["bound_ms"] for r in mine),
+                    "library_ms": (None if any(r["library_ms"] is None for r in mine)
+                                   else sum(r["library_ms"] for r in mine)),
+                    "shapes_per_pass": len(mine)})
+    return out
 
 
 def main() -> int:
@@ -981,7 +1261,28 @@ def main() -> int:
                        "zero_grad_biases": after["zero_grad_biases"],
                        "fresh_state": fresh}
 
-    # -- phase 6: the kernel table -----------------------------------------
+    # -- phases 6-10: the MANO hand ------------------------------------------
+    smpl_art = setup.art_compute
+    del setup, state
+    torch.cuda.empty_cache()
+    mano_deploy, mano_rows = mano_kernels(gen, card)
+    report["mano_convs"] = mano_rows
+    report["mano_forward"] = mano_forward(mano_deploy, card)
+    del mano_deploy
+    mano_setup, report["mano_train"] = mano_train(card)
+    log(f"phase 9: the face corners' backward, batch {BATCH}, float32 ({card})")
+    report["face_backward"] = {
+        "smpl": face_backward("SMPL", smpl_art, gen),
+        "mano": face_backward("MANO", mano_setup.art_compute, gen)}
+    del mano_setup, smpl_art
+    from pose2mesh_release_tpu_torch.body.mano import MANO
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    log(f"phase 10: GT synthesis (posed_mesh_rotated), batch {BATCH}, float32 ({card})")
+    report["gt_synthesis"] = {"mano": gt_synthesis("MANO", MANO().params, gen),
+                              "smpl": gt_synthesis("SMPL", SMPL().layer(), gen)}
+    report["mano_kernels"] = mano_table(mano_rows)
+
+    # -- phase 11: the kernel table ----------------------------------------
     # per kernel: its launches on its path; ms, plain ms, library ms and
     # bound summed over the shapes of one pass of that path (one forward,
     # one train step; K1b: its one training shape)
@@ -1013,6 +1314,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print(json.dumps({"mano_kernels": report["mano_kernels"], "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

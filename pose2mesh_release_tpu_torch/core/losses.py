@@ -7,21 +7,111 @@ the mean over every element, masked ones included.  `_normalize` and the
 edge length keep the JAX package's grad-safe forms: a zero-length edge or a
 collapsed triangle yields zero, not NaN, in the forward and the gradient.
 
-Face corners are index gathers (`pred[:, faces[:, c]]`) whose backward is
-autograd's index-add.  The JAX train step routes them through
-`face_take3_band` (a banded selector-matmul VJP over tables the port's
-artifact does not build yet); the forward values are identical, and the
-gradients agree up to the order of summation.
+The normal and edge losses share one gather of the face corners
+(`_face_corners`), whose backward takes one of three forms, as in the JAX
+package: `face_take3_band` (the train step's: the cotangent reordered by the
+artifact's `face_perm` and one float32 batched product against its 0/1
+selector `face_sel`), `face_take` (the ELL-inverse gather of `face_inv`),
+or, with neither table, index gathers whose backward is autograd's
+index-add.  The forward values are identical; the gradients agree up to
+the order of summation.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["coord_l1", "normal_vector_loss", "edge_length_loss",
-           "pose2mesh_loss", "make_laplacian_loss"]
+           "pose2mesh_loss", "make_laplacian_loss", "face_take", "face_take3_band"]
+
+
+class _FaceTake(torch.autograd.Function):
+    """pred[:, fidx] with a gather VJP: vertex v sums the cotangent rows
+    inv[v] (padded with F, a zero pad row)."""
+
+    @staticmethod
+    def forward(ctx, pred, fidx, inv):
+        ctx.save_for_backward(inv)
+        ctx.vertices = pred.shape[1]
+        return pred.index_select(1, fidx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        if inv.shape[0] != ctx.vertices:
+            raise ValueError(f"face_inv tables for V={inv.shape[0]} applied to a "
+                             f"pred of {ctx.vertices} vertices")
+        gp = torch.nn.functional.pad(g, (0, 0, 0, 1))  # zero pad row at F
+        B, C = g.shape[0], g.shape[2]
+        dpred = gp.index_select(1, inv.reshape(-1)).reshape(B, *inv.shape, C).sum(2)
+        return dpred, None, None
+
+
+def face_take(pred: torch.Tensor, fidx: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """pred[:, fidx] (pred (B, V, C)) whose backward gathers through the
+    ELL inverse `inv` (V, K) of fidx (`graphs.artifact.face_inverse_tables`)."""
+    return _FaceTake.apply(pred, fidx, inv)
+
+
+class _FaceTake3Band(torch.autograd.Function):
+    """All three face corners, (B, F, 3 corners, 3 coords), with the banded
+    selector VJP."""
+
+    @staticmethod
+    def forward(ctx, pred, faces, perm, sel, vgather):
+        ctx.save_for_backward(perm, sel, vgather)
+        ctx.pshape = pred.shape
+        B, F = pred.shape[0], faces.shape[0]
+        return pred.index_select(1, faces.reshape(-1)).reshape(B, F, 3, pred.shape[2])
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, sel, vgather = ctx.saved_tensors
+        B, V, C = ctx.pshape
+        F = g.shape[1]
+        nt, T, W = sel.shape
+        # corner-major cotangent rows (3F, B*C), row c*F + f, and the zero
+        # row 3F that the pad slots of perm select
+        rows = g.permute(2, 1, 0, 3).reshape(3 * F, B * C).float()
+        rows = torch.cat([rows, rows.new_zeros(1, B * C)])
+        gs = rows.index_select(0, perm).reshape(nt, W, B * C)
+        ddev = torch.bmm(sel, gs).reshape(nt * T, B, C)  # rows: device positions
+        # back to pred's original vertex order: vertex i sits at vgather[i]
+        dpred = ddev.index_select(0, vgather).transpose(0, 1)
+        if dpred.shape != (B, V, C):
+            raise ValueError(f"face_sel of nt*T={nt * T} rows applied to a pred "
+                             f"of shape {tuple(ctx.pshape)}")
+        return dpred.to(g.dtype), None, None, None, None
+
+
+def face_take3_band(pred: torch.Tensor, faces: torch.Tensor, perm: torch.Tensor,
+                    sel: torch.Tensor, vgather: torch.Tensor) -> torch.Tensor:
+    """pred[:, faces] (B, F, 3, C) in one gather, whose backward reorders the
+    cotangent by the corner vertex's device tile (`perm`) and makes one
+    float32 batched product against the 0/1 selector `sel` (nt, T, W)
+    (`graphs.artifact.face_band_tables`); `vgather` maps each original
+    vertex to its device position."""
+    return _FaceTake3Band.apply(pred, faces, perm, sel, vgather)
+
+
+FaceBand = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _face_corners(pred: torch.Tensor, faces: torch.Tensor,
+                  face_inv: Sequence[torch.Tensor] = (),
+                  face_band: Optional[FaceBand] = None):
+    """(p0, p1, p2), the corner gathers shared by the normal and edge losses:
+    through the banded VJP when `face_band` = (face_perm, face_sel,
+    vertex_gather) holds tables, else per corner through the ELL-inverse
+    VJP when `face_inv` does, else index gathers."""
+    if face_band is not None and face_band[1].numel():
+        c = face_take3_band(pred, faces, *face_band)
+        return c[:, :, 0], c[:, :, 1], c[:, :, 2]
+    if face_inv:
+        return tuple(face_take(pred, faces[:, c], face_inv[c]) for c in range(3))
+    return _corners(pred, faces)
 
 
 def coord_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -108,16 +198,19 @@ def pose2mesh_loss(pred_mesh: torch.Tensor, lift_pose: torch.Tensor,
                    pred_reg_pose: torch.Tensor, targets: Dict[str, torch.Tensor],
                    faces: torch.Tensor, *, normal_weight: float = 0.1,
                    edge_weight: float = 20.0, joint_weight: float = 1e-3,
-                   use_edge_loss: bool | torch.Tensor = False
+                   use_edge_loss: bool | torch.Tensor = False,
+                   face_inv: Sequence[torch.Tensor] = (),
+                   face_band: Optional[FaceBand] = None
                    ) -> Dict[str, torch.Tensor]:
     """The full training objective.
 
     pred_mesh (B, V, 3) m in original vertex order; lift_pose (B, J, 3) mm;
     pred_reg_pose (B, J_t, 3) mm; targets: mesh, mesh_valid, reg_pose3d,
     reg_pose3d_valid, lift_pose3d, lift_pose3d_valid.  `use_edge_loss`
-    gates the edge term."""
+    gates the edge term.  face_inv / face_band pick the face corners'
+    backward (`_face_corners`)."""
     l_vert = coord_l1(pred_mesh, targets["mesh"], targets["mesh_valid"])
-    corners = _corners(pred_mesh, faces)
+    corners = _face_corners(pred_mesh, faces, face_inv, face_band)
     l_norm = normal_weight * normal_vector_loss(pred_mesh, targets["mesh"], faces,
                                                 corners=corners)
     l_edge = edge_weight * edge_length_loss(pred_mesh, targets["mesh"], faces,

@@ -76,10 +76,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         mesh_dev, pose3d = model(art, batch["pose2d"], train=True, generator=generator)
         mesh = extract_mesh(art, mesh_dev)  # (B, V, 3), meters
         reg_pose = torch.einsum("jv,bvc->bjc", jreg, mesh * 1000.0)
+        # the face corners' backward: the banded selector product over the
+        # artifact's tables, as the JAX step's
         losses = pose2mesh_loss(
             mesh, pose3d, reg_pose, batch, art.faces, normal_weight=normal_weight,
             edge_weight=edge_weight, joint_weight=joint_weight,
-            use_edge_loss=use_edge_loss)
+            use_edge_loss=use_edge_loss,
+            face_band=(art.face_perm, art.face_sel, art.vertex_gather))
         losses["total"].backward()
         set_lr(optimizer, lr)
         optimizer.step()

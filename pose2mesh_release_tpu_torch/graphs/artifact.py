@@ -17,10 +17,11 @@ then stored as
 Every kind also carries the ELL form (`ell_idx`, `ell_w`; padded entries
 point at their own row with weight 0).  Pooling (the x2 nearest upsample
 between levels) and the final un-permutation to the original vertex order
-are index gathers (`up_idx`, `vertex_gather`).  The numpy packing mirrors
-the JAX package's `graphs/artifact.py` value for value, and
-`save_artifact` / `load_artifact` read and write its npz format (the face
-tables of the JAX package are not part of this port yet).
+are index gathers (`up_idx`, `vertex_gather`).  The artifact also carries
+the face tables of the face losses' backward (`face_band_tables`,
+`face_inverse_tables`).  The numpy packing mirrors the JAX package's
+`graphs/artifact.py` value for value, and `save_artifact` /
+`load_artifact` read and write its npz format.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from ..device import resolve_device
 from .build import GraphPyramid
 
 __all__ = ["LevelOperator", "PyramidArtifact", "pack_pyramid", "save_artifact",
-           "load_artifact", "strip_offset"]
+           "load_artifact", "strip_offset", "face_band_tables", "face_inverse_tables"]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -108,6 +109,16 @@ class PyramidArtifact:
     up_idx[k]: level-(k+1) device position of each level-k device position.
     vertex_gather: device position of each original mesh vertex.
     faces: (F, 3) triangle faces in original vertex order.
+    face_inv[c]: (V, Kc) int64, the faces where vertex v is corner c, padded
+        with F (a zero pad row of the cotangent): the ELL-inverse gather VJP
+        of `core.losses.face_take`.  Empty tuple: none.
+    face_perm, face_sel: the banded face-corner tables of
+        `core.losses.face_take3_band`.  The (face, corner) pairs are sorted
+        by the corner vertex's T-row device tile and padded to a stride W per
+        tile: face_perm (nt*W,) int64 rows of the corner-major (3F+1)-row
+        cotangent (pad slots point at the zero row 3F), face_sel (nt, T, W)
+        float32 0/1 selectors, so the backward is one batched product
+        (nt, T, W) @ (nt, W, 3B).  Empty: none.
     """
 
     mesh_ops: Tuple[LevelOperator, ...]
@@ -117,10 +128,14 @@ class PyramidArtifact:
     faces: torch.Tensor
     joint_num: int = 0
     num_vertices: int = 0
+    face_inv: Tuple[torch.Tensor, ...] = ()
+    face_perm: torch.Tensor = _empty(dtype=torch.int64)
+    face_sel: torch.Tensor = _empty(0, 0, 0)
 
     def to(self, device, dtype: Optional[torch.dtype] = None) -> "PyramidArtifact":
         """Move every tensor to `device`; `dtype` casts the Laplacians only
-        (index tensors keep their integer type)."""
+        (index tensors keep their integer type, and face_sel stays float32:
+        the face backward's product is float32)."""
         return dataclasses.replace(
             self,
             mesh_ops=tuple(op.to(device, dtype) for op in self.mesh_ops),
@@ -128,6 +143,9 @@ class PyramidArtifact:
             up_idx=tuple(u.to(device) for u in self.up_idx),
             vertex_gather=self.vertex_gather.to(device),
             faces=self.faces.to(device),
+            face_inv=tuple(t.to(device) for t in self.face_inv),
+            face_perm=self.face_perm.to(device),
+            face_sel=self.face_sel.to(device),
         )
 
 
@@ -302,19 +320,29 @@ def pack_pyramid(
     pyr: GraphPyramid,
     faces: Optional[np.ndarray] = None,
     *,
+    ordering: str = "rcm",
     block_size: int = 128,
     dense_threshold: int = 768,
+    sparse_kind: str = "band",
     strip_h: int = 128,
     device: str | torch.device | None = "cuda",
 ) -> PyramidArtifact:
     """Pack a host pyramid into the device artifact (float32 operators).
 
-    Levels with V <= dense_threshold are stored dense, the others banded,
-    with the strip form of `strip_h`-row tiles (0: none), as the JAX
-    package's default.
-    The binary-tree padding vertices of the reference pyramid are isolated
-    in every level's graph, so all levels but the coarsest (whose padded
-    layout fixes the FC layer's output size) keep real vertices only."""
+    ordering: "rcm" reorders each level for minimal bandwidth (the band
+        layout needs it); "tree" keeps the reference's binary-tree order,
+        fake slots included, and band levels become BCSR.
+    Levels with V <= dense_threshold are stored dense, the others as
+    `sparse_kind` ("band", with the strip form of `strip_h`-row tiles, 0:
+    none; or "bcsr", whose tile is the largest of block_size, 64, 32 that
+    divides V, else block_size).
+    Under "rcm" the binary-tree padding vertices of the reference pyramid,
+    isolated in every level's graph, are dropped on all levels but the
+    coarsest (whose padded layout fixes the FC layer's output size)."""
+    if ordering not in ("rcm", "tree"):
+        raise ValueError(f"ordering={ordering!r}: expected 'rcm' or 'tree'")
+    if sparse_kind not in ("band", "bcsr"):
+        raise ValueError(f"sparse_kind={sparse_kind!r}: expected 'band' or 'bcsr'")
     dev = resolve_device(device)
     n_levels = len(pyr.mesh_laplacians)
     real_sizes = pyr.real_sizes
@@ -329,11 +357,11 @@ def pack_pyramid(
     layouts: List[np.ndarray] = []
     for k in range(n_levels):
         P = pyr.mesh_laplacians[k].shape[0]
-        if k < n_levels - 1:
+        if ordering == "rcm" and k < n_levels - 1:
             keep = np.flatnonzero(np.asarray(pyr.orders[k]) < real_sizes[k])
         else:
             keep = np.arange(P, dtype=np.int64)
-        if len(keep) > dense_threshold:
+        if ordering == "rcm" and len(keep) > dense_threshold:
             adj = sp.csr_matrix(pyr.mesh_adjacencies[k])[keep][:, keep]
             rho = _min_bandwidth_order(adj, block_size)
         else:
@@ -344,8 +372,14 @@ def pack_pyramid(
     for k in range(n_levels):
         lay = layouts[k]
         L = sp.csr_matrix(pyr.mesh_laplacians[k])[lay][:, lay]
-        kind = "dense" if L.shape[0] <= dense_threshold else "band"
-        mesh_ops.append(_make_level_op(L, kind, block_size, strip_h=strip_h))
+        V = L.shape[0]
+        kind = "dense" if V <= dense_threshold else sparse_kind
+        if kind == "band" and ordering != "rcm":
+            kind = "bcsr"  # the band layout needs the bandwidth-minimized order
+        T = block_size
+        if kind == "bcsr":
+            T = next((c for c in (block_size, 64, 32) if V % c == 0), block_size)
+        mesh_ops.append(_make_level_op(L, kind, T, strip_h=strip_h))
     joint_op = _make_level_op(pyr.joint_laplacian, "dense", block_size)
 
     up_idx = []
@@ -358,17 +392,84 @@ def pack_pyramid(
 
     pos0 = np.zeros(pyr.mesh_laplacians[0].shape[0], dtype=np.int64)
     pos0[layouts[0]] = np.arange(len(layouts[0]))
+    vertex_gather = pos0[pyr.vertex_slot]
     faces_np = (np.asarray(faces, dtype=np.int64) if faces is not None
                 else np.zeros((0, 3), np.int64))
+    face_perm, face_sel = face_band_tables(faces_np, vertex_gather, pyr.num_vertices,
+                                           block_size)
     return PyramidArtifact(
         mesh_ops=tuple(mesh_ops),
         joint_op=joint_op,
         up_idx=tuple(up_idx),
-        vertex_gather=torch.from_numpy(pos0[pyr.vertex_slot]),
+        vertex_gather=torch.from_numpy(vertex_gather),
         faces=torch.from_numpy(faces_np),
         joint_num=pyr.joint_num,
         num_vertices=pyr.num_vertices,
+        face_inv=tuple(torch.from_numpy(t)
+                       for t in face_inverse_tables(faces_np, pyr.num_vertices)),
+        face_perm=torch.from_numpy(face_perm),
+        face_sel=torch.from_numpy(face_sel),
     ).to(dev)
+
+
+def face_band_tables(faces_np: np.ndarray, vertex_gather: np.ndarray, num_v: int,
+                     T: int = 128, max_w: int = 1536
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The banded face-corner tables (see `PyramidArtifact`).
+
+    faces_np: (F, 3) original vertex ids; vertex_gather: the device position
+    of each original vertex.  Returns (face_perm (nt*W,) int64, face_sel
+    (nt, T, W) float32), empty when there are no faces or a tile would need
+    W > max_w."""
+    F = faces_np.shape[0]
+    empty = (np.zeros((0,), np.int64), np.zeros((0, 0, 0), np.float32))
+    if F == 0:
+        return empty
+    dev = np.asarray(vertex_gather)[faces_np]          # (F, 3) device positions
+    # tree-ordered artifacts keep fake slots: device positions run past
+    # num_v, so the tile grid covers the largest position
+    nt = _cdiv(max(num_v, int(dev.max()) + 1), T)
+    # corner-major cotangent row of (face f, corner c): c*F + f
+    rows = (np.arange(3)[None, :] * F + np.arange(F)[:, None]).reshape(-1)
+    pos = dev.reshape(-1)
+    order = np.argsort(pos, kind="stable")
+    pos_s, rows_s = pos[order], rows[order]
+    tiles = pos_s // T
+    counts = np.bincount(tiles, minlength=nt)
+    W = _cdiv(max(int(counts.max()), 1), 128) * 128
+    if W > max_w:
+        import warnings
+        warnings.warn(f"face_band_tables: per-tile face count {counts.max()} needs "
+                      f"W > {max_w}; no face tables")
+        return empty
+    perm = np.full((nt * W,), 3 * F, np.int64)        # pad -> the zero row
+    sel = np.zeros((nt, T, W), np.float32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(len(pos_s)) - starts[tiles]       # slot within its tile
+    perm[tiles * W + slot] = rows_s
+    sel[tiles, pos_s % T, slot] = 1.0
+    return perm, sel
+
+
+def face_inverse_tables(faces_np: np.ndarray, num_v: int) -> Tuple[np.ndarray, ...]:
+    """Per-corner ELL inverse of the face list: table[c][v] lists the faces
+    where vertex v is corner c, padded with F (the cotangent's zero pad
+    row); int64."""
+    F = faces_np.shape[0]
+    if F == 0:
+        return ()
+    out = []
+    for c in range(3):
+        col = faces_np[:, c].astype(np.int64)
+        order = np.argsort(col, kind="stable")
+        counts = np.bincount(col, minlength=num_v)
+        K = max(int(counts.max()), 1)
+        tab = np.full((num_v, K), F, np.int64)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        pos = np.arange(F) - starts[col[order]]
+        tab[col[order], pos] = order
+        out.append(tab)
+    return tuple(out)
 
 
 _OP_ARRAYS = ("dense", "blk_col", "blk_val", "band_val", "ell_idx", "ell_w", "strip_val")
@@ -403,13 +504,17 @@ def save_artifact(path: str, art: PyramidArtifact) -> None:
     put("joint", art.joint_op)
     for k, up in enumerate(art.up_idx):
         out[f"up/{k}"] = _np(up, True)
+    for c, tab in enumerate(art.face_inv):
+        out[f"face_inv/{c}"] = _np(tab, True)
+    out["face_perm"] = _np(art.face_perm, True)
+    out["face_sel"] = _np(art.face_sel)
     np.savez_compressed(path, **out)
 
 
 def load_artifact(path: str, *, device: str | torch.device | None = "cuda"
                   ) -> PyramidArtifact:
-    """Read an npz written by `save_artifact` or by the JAX package (its face
-    tables are skipped); index tensors become int64, operators float32."""
+    """Read an npz written by `save_artifact` or by the JAX package; index
+    tensors become int64, operators and face_sel float32."""
     dev = resolve_device(device)
     z = np.load(path, allow_pickle=False)
 
@@ -438,4 +543,9 @@ def load_artifact(path: str, *, device: str | torch.device | None = "cuda"
         faces=arr("faces", True),
         joint_num=int(z["meta/joint_num"]),
         num_vertices=int(z["meta/num_vertices"]),
+        face_inv=tuple(arr(f"face_inv/{c}", True) for c in range(3)
+                       if f"face_inv/{c}" in z),
+        face_perm=(arr("face_perm", True) if "face_perm" in z
+                   else torch.zeros(0, dtype=torch.int64)),
+        face_sel=(arr("face_sel") if "face_sel" in z else torch.zeros(0, 0, 0)),
     ).to(dev)

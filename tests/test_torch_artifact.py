@@ -125,6 +125,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "ops = {'hop', 'strip_cheby', 'window_cheby', 'fused_cheby', 'fused_cheby_train'}\n"
         "assert ops <= {n.rsplit('.', 1)[-1] for n in names}, names\n"
+        "mods = {p.__name__ + '.' + m for m in ('body.model', 'body.loader',\n"
+        "        'body.synthetic', 'body.smpl', 'body.mano', 'data.gt_synth')}\n"
+        "assert mods <= set(names), names\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'pose2mesh_release_tpu'))\n"
         "print(bad)\n"
@@ -208,7 +211,9 @@ def test_npz_from_the_port_loads_into_jax(sphere_pyramids, tmp_path):
     for op, r in zip(got.mesh_ops, ref.mesh_ops):
         for f in OP_FIELDS:
             assert np.asarray(getattr(op, f)).dtype == np.asarray(getattr(r, f)).dtype, f
-    assert got.face_inv == () and np.asarray(got.face_perm).size == 0
+    # the face tables too (tests/test_torch_face_tables.py holds their values)
+    assert len(got.face_inv) == 3 and np.asarray(got.face_sel).size
+    np.testing.assert_array_equal(np.asarray(got.face_perm), np.asarray(ref.face_perm))
     # and back into the port
     artifact.save_artifact(path, artifact.load_artifact(path, device="cpu"))
     assert_artifacts_equal(artifact.load_artifact(path, device="cpu"), ref)

@@ -241,7 +241,7 @@ def _jax_and_port_cascade(art_j, art_t, blocks, hidden, pose2d, seed):
 
 
 def _run_steps(monkeypatch, art_j, art_t, blocks, hidden, batch, jreg, n_steps,
-               lrs=(1e-2, 2e-2)):
+               lrs=(1e-2, 2e-2), use_edge_loss=True):
     """n_steps JAX and port train steps from the same variables; returns the
     per-step losses, the final state dicts of both sides, the initial one,
     and (port model, JAX model, JAX state) after the steps.  The optimizer
@@ -263,9 +263,9 @@ def _run_steps(monkeypatch, art_j, art_t, blocks, hidden, batch, jreg, n_steps,
     tbatch = {k: torch.from_numpy(b) for k, b in batch.items()}
     losses = []
     for i in range(n_steps):
-        jstate, jl_ = jstep(jstate, art_j, jbatch, jnp.float32(lrs[i]), jnp.bool_(True),
-                            jax.random.PRNGKey(0))
-        state, tl_ = step(state, art_t, tbatch, lrs[i], True, None)
+        jstate, jl_ = jstep(jstate, art_j, jbatch, jnp.float32(lrs[i]),
+                            jnp.bool_(use_edge_loss), jax.random.PRNGKey(0))
+        state, tl_ = step(state, art_t, tbatch, lrs[i], use_edge_loss, None)
         losses.append((tl_, jl_))
     assert state.step == n_steps
     want = state_dict_from_flax(to_numpy({"params": jstate.params,
