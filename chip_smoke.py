@@ -64,8 +64,30 @@ Phases (any failure exits non-zero):
   10. GT synthesis: posed_mesh_rotated at batch 64 on the card against the
      same call on the CPU (max abs error <= 1e-2 mm, float32), MANO and
      SMPL, and its ms;
-  11. print the MANO kernels' numbers per pass as one JSON line, the kernel
-     table (SMPL passes) as one JSON line, then the result line.
+  11. the kernel table (SMPL passes);
+  12. the data layer (stand-in annotation files in the JSON layouts of
+     tests/test_data.py's fixtures, written to a temporary directory, with
+     joints regressed from each record's stand-in SMPL mesh): Human36M
+     (train, COCO input), COCO, MuCo and PW3D (test) with 128 records each
+     and FreiHAND (train) with 64, built with device="cuda" (GT synthesis
+     on the card); the datasets' graph (`pyramid_for`, dense_threshold
+     1024): SMPL 6890 / 3475 / 1849 band and 981 dense, MANO all dense.
+     The loader alone (ms per batch on the per-sample path over the mix, 16
+     threads, and on the get_batch path over Human36M) and the H2D copy of a
+     batch; Trainer's default path: MultipleDatasets(make_same_len=True) ->
+     BatchLoader(64, shuffle, drop_last, 16 threads, on the card) -> one
+     epoch (6 steps) of the train step on the datasets' graph (bf16,
+     RMSprop), exactly 8 K1 + 8 K2 per step, finite losses, the first loader
+     batch's step against the plain-K1/K2 step; the first batch on the card
+     against the same seed's batch on the CPU (one thread, relative L2 <=
+     1e-5 per tensor) on both paths; 2 steps of FreiHAND's MANO train step
+     with no band-level launch; Tester's evaluation loop over PW3D (the
+     deploy forward, group path, exactly 6 + 2 group convs per forward,
+     compute_both_err per batch, evaluate at the end) against the same loop
+     on the CPU through the plain versions (MPJPE, PA-MPJPE, MPVPE within
+     2e-2 relative);
+  then print the MANO kernels' numbers per pass, the data layer's numbers
+  and the kernel table as one JSON line each, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
@@ -214,6 +236,20 @@ FACE_GRAD_TOL = 1e-5
 GT_TOL_MM = 1e-2
 # K1 with keep_basis: (level vertex count, fin, fout)
 KEEP_BASIS_CONV = (1849, 256, 128)
+# phase 12, the data layer: records per stand-in dataset (FreiHAND's),
+# the loader's threads, loader-fed train steps (one epoch of the mix of
+# three 128-record datasets at batch 64), the card-vs-CPU batch tolerance
+# (relative L2 per tensor) and the evaluation metrics' (relative)
+DATA_RECORDS = 128
+HAND_RECORDS = 64
+LOADER_WORKERS = 16
+DATA_STEPS = 6
+BATCH_TOL = 1e-5
+EVAL_TOL = 2e-2
+# SMPL on the datasets' graph (dense_threshold 1024, 981 dense): per step
+# K1 and K2 on 8 band convs, per deploy forward 6 group basis + 2 commuted
+DATA_TRAIN_CONVS = 8
+DATA_DEPLOY_LAUNCHES = {"fused_cheby_conv": 6, "fused_cheby_conv_commuted": 2}
 
 
 def log(*a):
@@ -1058,6 +1094,465 @@ def mano_table(rows) -> list:
                     "shapes_per_pass": len(mine)})
     return out
 
+def _dump(path, obj):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def local_regressor(template, num_joints: int, seed: int, k: int = 8):
+    """(num_joints, V) regressor whose rows average k neighbouring vertices
+    of the template around random centres, so the joints spread over the
+    body as the real regressors' do."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centres = rng.choice(len(template), num_joints, replace=False)
+    dist = ((template[None] - template[centres][:, None]) ** 2).sum(-1)
+    near = np.argsort(dist, axis=1)[:, :k]
+    w = rng.random((num_joints, k)) + 0.5
+    reg = np.zeros((num_joints, len(template)), np.float32)
+    reg[np.arange(num_joints)[:, None], near] = w / w.sum(1, keepdims=True)
+    return reg
+
+
+def write_stand_in_data(root: str, seed: int = 0, device: str = "cuda") -> None:
+    """Stand-in annotation files in the JSON layouts of tests/test_data.py's
+    fixtures, DATA_RECORDS records each (FreiHAND HAND_RECORDS), under
+    root/<dataset>, and the H36M and COCO regressors under root/regressors.
+    Human36M's joint_3d (world mm), COCO's keypoints and MuCo's
+    keypoints_cam are regressed from each record's stand-in SMPL mesh (LBS
+    on `device`), so every record's fit error is ~0 and it keeps its mesh
+    supervision."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.data.gt_synth import posed_mesh_world
+    from pose2mesh_release_tpu_torch.data.joint_sets import HUMAN36
+    from pose2mesh_release_tpu_torch.data.muco import MUCO_JOINTS_NAME
+    rng = np.random.default_rng(seed)
+    n = DATA_RECORDS
+    template = SMPL().v_template
+    regs = {"Human36M/J_regressor_h36m_correct.npy": local_regressor(template, 17, 21),
+            "COCO/J_regressor_coco.npy": local_regressor(template, 17, 22)}
+    for rel, reg in regs.items():
+        os.makedirs(os.path.join(root, "regressors", os.path.dirname(rel)), exist_ok=True)
+        np.save(os.path.join(root, "regressors", rel), reg)
+    h36m_reg, coco_reg = regs["Human36M/J_regressor_h36m_correct.npy"], \
+        regs["COCO/J_regressor_coco.npy"]
+    params = SMPL().layer().to(device)
+
+    def draw(trans_z: float):
+        pose = (rng.standard_normal((n, 72)) * 0.1).astype(np.float32)
+        shape = (rng.standard_normal((n, 10)) * 0.5).astype(np.float32)
+        trans = np.tile(np.float32([0.0, 0.0, trans_z]), (n, 1))
+        with torch.no_grad():
+            mesh, _ = posed_mesh_world(params, *(torch.from_numpy(a).to(device)
+                                                 for a in (pose, shape, trans)))
+        return pose, shape, trans, mesh.cpu().numpy()
+
+    # Human36M, subject 1 (train, debug): camera R = I, t = (0, 0, 5 m)
+    pose, shape, trans, mesh = draw(0.0)
+    images, anns, joints, smpl_p = [], [], {"2": {"1": {}}}, {"2": {"1": {}}}
+    for i in range(n):
+        frame = i * 5
+        images.append({"id": i, "file_name": f"s_01_act_02_subact_01_ca_01_{frame:06d}.jpg",
+                       "width": 1000, "height": 1000, "subject": 1, "action_idx": 2,
+                       "subaction_idx": 1, "frame_idx": frame, "cam_idx": 1})
+        anns.append({"id": i, "image_id": i, "bbox": [300.0, 300.0, 400.0, 400.0]})
+        joints["2"]["1"][str(frame)] = (h36m_reg @ mesh[i]).tolist()
+        smpl_p["2"]["1"][str(frame)] = {"pose": pose[i].tolist(), "shape": shape[i].tolist(),
+                                        "trans": trans[i].tolist()}
+    base = os.path.join(root, "Human36M", "annotations", "Human36M_subject1")
+    _dump(base + "_data.json", {"images": images, "annotations": anns})
+    _dump(base + "_camera.json", {"1": {"R": np.eye(3).tolist(), "t": [0.0, 0.0, 5000.0],
+                                        "f": [1500.0, 1500.0], "c": [500.0, 500.0]}})
+    _dump(base + "_joint_3d.json", joints)
+    _dump(base + "_smpl_param.json", smpl_p)
+
+    # COCO: keypoints = the weak-perspective projection of the COCO joints
+    pose, shape, _, mesh = draw(0.0)
+    images, anns, smplify = [], [], {}
+    for i in range(n):
+        kp = np.full((17, 3), 2.0, np.float32)
+        kp[:, :2] = (coco_reg @ mesh[i])[:, :2] / 1000.0 * 150.0 + 250.0
+        images.append({"id": i, "file_name": f"{i}.jpg", "width": 640, "height": 480})
+        anns.append({"id": i, "image_id": i, "iscrowd": 0, "num_keypoints": 17,
+                     "bbox": [100.0, 100.0, 300.0, 300.0], "keypoints": kp.flatten().tolist()})
+        smplify[str(i)] = {"smpl_param": {"pose": pose[i].tolist(), "shape": shape[i].tolist()},
+                           "cam_param": {"s": [150.0], "t": [250.0, 250.0]}}
+    coco = os.path.join(root, "COCO", "annotations")
+    _dump(os.path.join(coco, "person_keypoints_train2017.json"),
+          {"images": images, "annotations": anns})
+    _dump(os.path.join(coco, "coco_smplify_train.json"), smplify)
+
+    # MuCo: one person per image, 3 m away; the H36M-named keypoints_cam
+    # are the H36M joints of the mesh
+    pose, shape, trans, mesh = draw(3.0)
+    images, anns, smpl_p = [], [], {}
+    for i in range(n):
+        h36m = h36m_reg @ mesh[i]
+        kp_cam = rng.standard_normal((21, 3)) * 200 + [0.0, 0.0, 3000.0]
+        for m, name in enumerate(MUCO_JOINTS_NAME):
+            if name in HUMAN36.joints_name:
+                kp_cam[m] = h36m[HUMAN36.joints_name.index(name)]
+        images.append({"id": i, "file_name": f"{i}.jpg", "width": 2048, "height": 2048,
+                       "f": [1500.0, 1500.0], "c": [1024.0, 1024.0]})
+        anns.append({"id": i, "image_id": i, "keypoints_cam": kp_cam.tolist(),
+                     "keypoints_img": (rng.random((21, 2)) * 2000).tolist(),
+                     "bbox": [500.0, 500.0, 800.0, 800.0]})
+        smpl_p[str(i)] = {"pose": pose[i].tolist(), "shape": shape[i].tolist(),
+                          "trans": trans[i].tolist()}
+    _dump(os.path.join(root, "MuCo", "data", "MuCo-3DHP.json"),
+          {"images": images, "annotations": anns})
+    _dump(os.path.join(root, "MuCo", "data", "smpl_param.json"), smpl_p)
+
+    # PW3D (test): one sequence, one person 4 m away, genders alternating
+    images, anns = [], []
+    for i in range(n):
+        images.append({"id": i, "file_name": f"image_{i:05d}.jpg", "width": 1920,
+                       "height": 1080, "sequence": "courtyard_stand_in_00",
+                       "cam_param": {"focal": [1960.0, 1969.0], "princpt": [960.0, 540.0]}})
+        anns.append({"id": i, "image_id": i, "person_id": 0,
+                     "bbox": [700.0, 200.0, 400.0, 700.0],
+                     "smpl_param": {"pose": (rng.standard_normal(72) * 0.1).tolist(),
+                                    "shape": (rng.standard_normal(10) * 0.3).tolist(),
+                                    "trans": [0.0, 0.0, 4.0],
+                                    "gender": "female" if i % 2 else "male"}})
+    _dump(os.path.join(root, "PW3D", "3DPW_latest_test.json"),
+          {"images": images, "annotations": anns})
+
+    # FreiHAND (train): the MANO hand 0.5 m away
+    images, anns, data = [], [], {}
+    for i in range(HAND_RECORDS):
+        images.append({"id": i, "file_name": f"rgb/{i:08d}.jpg", "width": 224,
+                       "height": 224, "db_idx": i})
+        anns.append({"id": i, "image_id": i, "bbox": [40.0, 40.0, 150.0, 150.0]})
+        data[str(i)] = {
+            "cam_param": {"focal": [500.0, 500.0], "princpt": [112.0, 112.0],
+                          "R": np.eye(3).tolist(), "t": [0.0, 0.0, 0.5]},
+            "mano_param": {"pose": (rng.standard_normal(48) * 0.2).tolist(),
+                           "shape": (rng.standard_normal(10) * 0.5).tolist()},
+            "joint_3d": (rng.standard_normal((21, 3)) * 50).tolist()}
+    _dump(os.path.join(root, "FreiHAND", "freihand_train_coco.json"),
+          {"images": images, "annotations": anns})
+    _dump(os.path.join(root, "FreiHAND", "freihand_train_data.json"), data)
+
+
+def build_datasets(root: str, device: str = "cuda") -> dict:
+    """Phase 12.1: the six datasets on the card (GT synthesis there), each's
+    build seconds, the graphs' level kinds, the share of valid samples."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.body.mano import MANO
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.data import get_dataset_class
+    smpl = SMPL(data_dir=os.path.join(root, "regressors"))
+    mano = MANO()
+    specs = {
+        "Human36M": ("train", smpl, {"debug": True, "input_joint_name": "coco"}),
+        "COCO": ("train", smpl, {}),
+        "MuCo": ("train", smpl, {}),
+        "PW3D": ("test", smpl, {}),
+        "FreiHAND": ("train", mano, {"output_dir": os.path.join(root, "freihand_out")}),
+    }
+    dbs, build_s = {}, {}
+    for name, (split, body, kw) in specs.items():
+        t0 = time.time()
+        dbs[name] = get_dataset_class(name)(split, data_dir=os.path.join(root, name),
+                                            mesh_model=body, device=device, **kw)
+        torch.cuda.synchronize()
+        build_s[name] = time.time() - t0
+    kinds = {name: [(op.kind, op.num_vertices) for op in ds.graph.mesh_ops]
+             for name, ds in dbs.items()}
+    valid = {name: float(np.mean(ds.fit_error <= ds.fitting_thr))
+             if ds.fit_error is not None else 1.0 for name, ds in dbs.items()}
+    n_all = sum(len(ds) for ds in dbs.values())
+    share = sum(valid[name] * len(ds) for name, ds in dbs.items()) / n_all
+    log(f"phase 12: datasets built on the card: "
+        f"{ {n: (len(ds), round(build_s[n], 3)) for n, ds in dbs.items()} } "
+        f"(records, build s; the first SMPL and the MANO build pack their pyramid)")
+    log(f"  graph levels: SMPL {kinds['Human36M']}; MANO {kinds['FreiHAND']}")
+    log(f"  share of samples with mesh_valid 1: {share:.4f} {valid}")
+    smpl_kinds = [k for k, _ in kinds["Human36M"][:4]]
+    if smpl_kinds != ["band", "band", "band", "dense"] or \
+            [v for _, v in kinds["Human36M"][:4]] != [6890, 3475, 1849, 981]:
+        raise SystemExit(f"the datasets' SMPL graph is not 6890/3475/1849 band, 981 dense: "
+                         f"{kinds['Human36M']}")
+    if any(k != "dense" for k, _ in kinds["FreiHAND"]):
+        raise SystemExit(f"the MANO datasets' graph has a band level: {kinds['FreiHAND']}")
+    if any(ds.graph is not dbs["Human36M"].graph for n, ds in dbs.items() if n != "FreiHAND"):
+        raise SystemExit("the SMPL datasets do not share one cached graph")
+    if share < 1.0:
+        raise SystemExit(f"stand-in records lost their mesh supervision: {valid}")
+    return {"dbs": dbs, "build_s": build_s, "levels": kinds, "valid_share": share,
+            "valid": valid}
+
+
+def _reseed(dbs, seed: int) -> None:
+    """The datasets' Generators and numpy's global one (augm_params'
+    rotation draw) reset alike before a run that is compared."""
+    import numpy as np
+    for ds in dbs:
+        ds.rng = np.random.default_rng(seed)
+    np.random.seed(seed)
+
+
+def _first_batch(loader):
+    it = iter(loader)
+    try:
+        return next(it)
+    finally:
+        it.close()  # stops and joins the producer thread
+
+
+def _leaves(batch) -> dict:
+    inputs, targets, meta = batch
+    return {**inputs, **targets, **meta}
+
+
+def loader_ms(loader, epochs: int = 1) -> tuple:
+    """(ms per batch the loader produces alone, batches): every batch of
+    `epochs` epochs taken after one untimed epoch (the first launches of
+    each op, the pinned buffers), nothing else run, the card synchronized
+    at the end."""
+    import torch
+    for _batch in loader:
+        pass
+    torch.cuda.synchronize()
+    n = 0
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        for _batch in loader:
+            n += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, n
+
+
+def data_train(data, card, resident_ms, device: str = "cuda") -> dict:
+    """Phases 12.2-12.3: Trainer's default path, loader-fed steps, batches
+    card vs CPU, the MANO step on its all-dense graph."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.data import BatchLoader, MultipleDatasets
+    from pose2mesh_release_tpu_torch.data.loader import stack_samples, tree_to_device
+    from pose2mesh_release_tpu_torch.train_setup import train_batch, train_setup_on
+    dbs = data["dbs"]
+    mix_dbs = [dbs["Human36M"], dbs["COCO"], dbs["MuCo"]]
+    dev = torch.device(device)
+
+    def mix_loader(workers, on=device, seed=0):
+        return BatchLoader(MultipleDatasets(mix_dbs, make_same_len=True, seed=seed), BATCH,
+                           shuffle=True, drop_last=True, num_workers=workers, seed=seed,
+                           device=on)
+
+    # the loaders alone: the per-sample path (a mix) and get_batch (one dataset)
+    _reseed(mix_dbs, 0)
+    per_sample_ms, n_ps = loader_ms(mix_loader(LOADER_WORKERS))
+    one_thread_ms, _ = loader_ms(mix_loader(1))
+    h36m_loader = BatchLoader(dbs["Human36M"], BATCH, shuffle=True, drop_last=True,
+                              num_workers=LOADER_WORKERS, device=device)
+    get_batch_ms, n_gb = loader_ms(h36m_loader, epochs=3)
+    host = stack_samples([mix_dbs[0][i] for i in range(BATCH)])
+    h2d = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tree_to_device(host, dev)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    h2d_bytes = sum(a.nbytes for part in host for a in part.values())
+    log(f"phase 12: loader alone, batch {BATCH}: per-sample path ({LOADER_WORKERS} threads, "
+        f"the mix) {per_sample_ms:.3f} ms per batch over {n_ps} (1 thread: "
+        f"{one_thread_ms:.3f}); get_batch path (Human36M) "
+        f"{get_batch_ms:.3f} ms per batch over {n_gb}; H2D (pin + copy) of a per-sample "
+        f"batch, {h2d_bytes} bytes: min {min(h2d):.3f} ms, median "
+        f"{sorted(h2d)[len(h2d) // 2]:.3f} ms ({card})")
+
+    # Trainer's default path: the first loader batch's step against the
+    # plain-K1/K2 step, then one epoch of loader-fed steps
+    _reseed(mix_dbs, 1)
+    first = _first_batch(mix_loader(LOADER_WORKERS, seed=1))
+    setup = train_setup_on(dbs["Human36M"].graph, dbs["Human36M"].target_regressor(),
+                           train_batch(*first), dtype=torch.bfloat16, device=device, seed=0)
+    fresh = step_check("datasets' graph, first loader batch",
+                       *train_step_vs_plain(setup, setup.state))
+    state = setup.state
+    loader = mix_loader(LOADER_WORKERS, seed=2)
+    torch.cuda.synchronize()
+    reset_launches()
+    step_ms, wait_ms, losses = [], [], []
+    t_all = t0 = time.perf_counter()
+    for batch in loader:
+        t_got = time.perf_counter()
+        state, loss = setup.train_step(state, setup.art_compute, train_batch(*batch), LR, True,
+                                       setup.generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        wait_ms.append((t_got - t0) * 1e3)
+        losses.append({k: float(v) for k, v in loss.items()})
+        t0 = t1
+    total_s = time.perf_counter() - t_all
+    launches = read_launches()
+    rate = len(step_ms) * BATCH / total_s
+    log(f"  {len(step_ms)} loader-fed steps (bf16, RMSprop lr {LR}): ms per step "
+        f"{[round(t, 3) for t in step_ms]}, of which waiting for the loader "
+        f"{[round(t, 3) for t in wait_ms]}, against phase 5's resident-batch "
+        f"{[round(t, 3) for t in resident_ms]}; {rate:.1f} samples/s; totals "
+        f"{[round(l['total'], 5) for l in losses]}; launches {launches} ({card})")
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * DATA_STEPS,
+                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * DATA_STEPS)
+    if len(step_ms) != DATA_STEPS or launches != want:
+        raise SystemExit(f"loader-fed steps: {len(step_ms)} steps, launches {launches} "
+                         f"!= {want}")
+    if not all(math.isfinite(v) for l in losses for v in l.values()):
+        raise SystemExit(f"loader-fed steps: non-finite loss: {losses}")
+    del setup, state
+
+    # the same seed's first batch on the card and on the CPU, one thread
+    same = {}
+    for label, make, dbs_of in (
+            ("per-sample (the mix)", lambda d: mix_loader(1, d, seed=3), mix_dbs),
+            ("get_batch (Human36M)", lambda d: BatchLoader(
+                dbs["Human36M"], BATCH, shuffle=True, drop_last=True, num_workers=1,
+                seed=3, device=d), [dbs["Human36M"]])):
+        got = {}
+        for d in ("card", "cpu"):
+            _reseed(dbs_of, 3)
+            got[d] = _leaves(_first_batch(make(device if d == "card" else "cpu")))
+        errs = {k: rel_l2(got["card"][k].cpu(), got["cpu"][k]) for k in got["cpu"]}
+        devices = {str(t.device.type) for t in got["card"].values()}
+        log(f"  first batch, card vs CPU, {label}: rel_l2 {errs} (tolerance {BATCH_TOL}); "
+            f"devices {devices}")
+        if devices != {dev.type} or not all(e <= BATCH_TOL for e in errs.values()):
+            raise SystemExit(f"{label}: the card's batch differs from the CPU's: {errs}")
+        same[label] = errs
+
+    # FreiHAND's MANO train step on its all-dense graph: no band kernel
+    frei = dbs["FreiHAND"]
+    hand_loader = BatchLoader(frei, BATCH, shuffle=True, drop_last=True,
+                              num_workers=LOADER_WORKERS, device=device)
+    hand = train_setup_on(frei.graph, frei.target_regressor(),
+                          train_batch(*_first_batch(hand_loader)), mano=True,
+                          dtype=torch.bfloat16, device=device, seed=0)
+    hstate = hand.state
+    torch.cuda.synchronize()
+    reset_launches()
+    hand_ms, hand_losses = [], []
+    for _ in range(2):
+        for batch in hand_loader:
+            t0 = time.perf_counter()
+            hstate, loss = hand.train_step(hstate, hand.art_compute, train_batch(*batch), LR,
+                                           True, hand.generator)
+            torch.cuda.synchronize()
+            hand_ms.append((time.perf_counter() - t0) * 1e3)
+            hand_losses.append(float(loss["total"]))
+    hand_launches = read_launches()
+    log(f"  FreiHAND (MANO, all-dense graph): {len(hand_ms)} steps, ms "
+        f"{[round(t, 3) for t in hand_ms]}, totals {[round(v, 5) for v in hand_losses]}, "
+        f"launches {hand_launches} ({card})")
+    if len(hand_ms) != 2 or hand_launches != expect() or \
+            not all(math.isfinite(v) for v in hand_losses):
+        raise SystemExit(f"FreiHAND step: {hand_ms} ms, launches {hand_launches}, "
+                         f"losses {hand_losses}")
+    return {"loader_per_sample_ms": per_sample_ms, "loader_get_batch_ms": get_batch_ms,
+            "loader_per_sample_1_thread_ms": one_thread_ms, "step_wait_ms": wait_ms,
+            "h2d_ms": h2d, "h2d_bytes": h2d_bytes, "step_ms": step_ms,
+            "resident_step_ms": resident_ms, "samples_per_s": rate, "losses": losses,
+            "launches": launches, "first_batch_step": fresh, "card_vs_cpu": same,
+            "mano_step_ms": hand_ms, "mano_launches": hand_launches}
+
+
+def eval_loop(ds, d, device: str) -> tuple:
+    """Tester.test's loop (the JAX package's core/engine.py:390-455): the
+    test loader (no shuffle, the tail padded to BATCH) -> the deploy forward
+    -> compute_both_err per batch, evaluate at the end.  Returns (results,
+    ms per batch)."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.data import BatchLoader
+    loader = BatchLoader(ds, BATCH, shuffle=False, drop_last=False,
+                         num_workers=LOADER_WORKERS, device=device)
+    j_errs, v_errs, meshes, targets, ms = [], [], [], [], []
+    t0 = time.perf_counter()
+    for inputs, tgt, _meta in loader:
+        pose2d = inputs["pose2d"]
+        n = pose2d.shape[0]
+        if n < BATCH:  # pad the tail to the batch shape
+            pose2d = torch.cat([pose2d, pose2d[-1:].expand(BATCH - n, -1, -1)])
+        mesh_mm, reg_pose, _ = d.eval_step(d.art_compute, pose2d)
+        mesh_mm = mesh_mm[:n].float().cpu().numpy()
+        reg_pose = reg_pose[:n].float().cpu().numpy()
+        gt_mesh = tgt["mesh"].float().cpu().numpy() * 1000.0
+        gt_reg = tgt["reg_pose3d"].float().cpu().numpy()
+        j, v = ds.compute_both_err(mesh_mm, gt_mesh, reg_pose, gt_reg)
+        j_errs.append(j)
+        v_errs.append(v)
+        meshes.append(mesh_mm)
+        targets.append(gt_mesh)
+        t1 = time.perf_counter()
+        ms.append((t1 - t0) * 1e3)
+        t0 = t1
+    res = {"joint_err": float(np.mean(j_errs)), "mesh_err": float(np.mean(v_errs))}
+    res.update(ds.evaluate({"mesh_coord": np.concatenate(meshes),
+                            "mesh_coord_target": np.concatenate(targets)}))
+    return res, ms
+
+
+def data_eval(data, card, device: str = "cuda") -> dict:
+    """Phase 12.4: the evaluation loop on PW3D through the deploy forward
+    (group path, BatchNorm folded) on the card, exactly 6 + 2 group convs a
+    forward, against the same loop on the CPU through the plain versions."""
+    import torch
+    from pose2mesh_release_tpu_torch.deploy import deploy_forward_on
+    ds = data["dbs"]["PW3D"]
+    d = deploy_forward_on(ds.graph, ds.target_regressor(), dtype=torch.bfloat16,
+                          device=device, seed=0)
+    d.eval_step(d.art_compute, torch.zeros(BATCH, ds.joint_num, 2, device=device))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    card_res, card_ms = eval_loop(ds, d, device)
+    launches = read_launches()
+    nb = len(card_ms)
+    want = expect(**{k: v * nb for k, v in DATA_DEPLOY_LAUNCHES.items()})
+    cpu = deploy_forward_on(ds.graph, ds.target_regressor(), dtype=torch.bfloat16,
+                            device="cpu", seed=0)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in d.model.state_dict().items()})
+    cpu_res, cpu_ms = eval_loop(ds, cpu, "cpu")
+    errs = {k: abs(card_res[k] - cpu_res[k]) / abs(cpu_res[k])
+            for k in ("mpjpe", "pa_mpjpe", "mpvpe")}
+    log(f"phase 12: PW3D evaluation, {len(ds)} records, {nb} batches of {BATCH}: card "
+        f"{ {k: round(v, 4) for k, v in card_res.items()} }, ms per batch "
+        f"{[round(t, 3) for t in card_ms]} ({card}); CPU through the plain versions "
+        f"{ {k: round(v, 4) for k, v in cpu_res.items()} }, ms per batch "
+        f"{[round(t, 1) for t in cpu_ms]}; relative difference {errs} (tolerance "
+        f"{EVAL_TOL}); launches {launches}")
+    if launches != want:
+        raise SystemExit(f"evaluation loop: launch counts {launches} != {want}")
+    if not all(e <= EVAL_TOL for e in errs.values()):
+        raise SystemExit(f"evaluation on the card disagrees with the CPU loop: {errs}")
+    return {"card": card_res, "cpu": cpu_res, "rel_diff": errs, "ms_per_batch": card_ms,
+            "cpu_ms_per_batch": cpu_ms, "launches": launches}
+
+
+def data_layer(card, resident_ms, device: str = "cuda") -> dict:
+    """Phase 12: the data layer on the card (stand-in annotation files in a
+    temporary directory).  `device` is "cuda" but for a rehearsal of the
+    phase's control flow on the CPU."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        write_stand_in_data(root, device=device)
+        log(f"phase 12: stand-in annotation files written in {time.time() - t0:.2f} s")
+        data = build_datasets(root, device)
+        report = {"build_s": data["build_s"], "levels": data["levels"],
+                  "valid_share": data["valid_share"], "valid": data["valid"]}
+        report.update(data_train(data, card, resident_ms, device))
+        report["eval"] = data_eval(data, card, device)
+        del data
+    torch.cuda.empty_cache()
+    return report
+
 
 def main() -> int:
     import torch
@@ -1311,10 +1806,27 @@ def main() -> int:
             "shapes_per_pass": len(main),
         })
     report["kernels"] = kernels
+
+    # -- phase 12: the data layer feeding the train step and the evaluation --
+    data = report["data"] = data_layer(card, report["train"]["ms_per_step"])
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"mano_kernels": report["mano_kernels"], "card": card}), flush=True)
+    print(json.dumps({"data": {
+        "card": card, "build_s": data["build_s"], "valid_share": data["valid_share"],
+        "loader_ms_per_batch": {"per_sample": data["loader_per_sample_ms"],
+                                "per_sample_1_thread": data["loader_per_sample_1_thread_ms"],
+                                "get_batch": data["loader_get_batch_ms"]},
+        "h2d_ms": min(data["h2d_ms"]), "h2d_bytes": data["h2d_bytes"],
+        "step_ms": data["step_ms"], "step_wait_ms": data["step_wait_ms"],
+        "resident_step_ms": data["resident_step_ms"],
+        "samples_per_s": data["samples_per_s"], "train_launches": data["launches"],
+        "mano_step_launches": data["mano_launches"],
+        "eval_ms_per_batch": data["eval"]["ms_per_batch"],
+        "eval_launches": data["eval"]["launches"], "eval_card": data["eval"]["card"],
+        "eval_rel_diff": data["eval"]["rel_diff"],
+        "card_vs_cpu_batch_rel_l2": data["card_vs_cpu"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

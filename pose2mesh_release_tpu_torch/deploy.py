@@ -31,7 +31,7 @@ from .models.fold import fold_bn_variables
 from .models.pose2mesh import Pose2Mesh
 
 __all__ = ["DeployForward", "smpl_deploy_forward", "mano_deploy_forward", "on_path",
-           "with_random_batch_norm", "build_artifact"]
+           "deploy_forward_on", "with_random_batch_norm", "build_artifact"]
 
 DENSE_THRESHOLD = 768
 POSENET_HIDDEN = 4096
@@ -74,12 +74,18 @@ def with_random_batch_norm(model: Pose2Mesh, generator: torch.Generator
     return sd
 
 
-def _deploy_forward(face: np.ndarray, joints: JointSet, levels: int, mano: bool,
-                    j_regressor: np.ndarray, *, dtype: torch.dtype, dev: torch.device,
-                    seed: int, flat_impl: str, fused: bool) -> DeployForward:
-    art = build_artifact(face, joints, levels, dev)
+def deploy_forward_on(art: PyramidArtifact, j_regressor: np.ndarray, *, mano: bool = False,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: str | torch.device | None = "cuda", seed: int = 0,
+                      flat_impl: str = "group", fused: bool = True) -> DeployForward:
+    """The deploy forward on a packed artifact (float32, moved to `device`):
+    the cascade for art.joint_num input joints with seeded random weights
+    and BatchNorm folded; its eval step regresses `j_regressor`'s joints.
+    The datasets' graph (`data.base.pyramid_for`) runs through this."""
+    dev = resolve_device(device)
+    art = art.to(dev)
     g = torch.Generator().manual_seed(seed)
-    model = Pose2Mesh(joints.joint_num, art.mesh_ops[-1].num_vertices, mano=mano,
+    model = Pose2Mesh(art.joint_num, art.mesh_ops[-1].num_vertices, mano=mano,
                       posenet_hidden=POSENET_HIDDEN, dtype=dtype, flat_impl=flat_impl,
                       fused=fused, device=dev, generator=g)
     model.load_state_dict(fold_bn_variables(with_random_batch_norm(model, g)))
@@ -96,9 +102,9 @@ def smpl_deploy_forward(*, dtype: torch.dtype = torch.bfloat16,
     """The SMPL deploy forward; its eval step regresses the 17 H36M joints."""
     dev = resolve_device(device)
     smpl = SMPL()
-    return _deploy_forward(smpl.face, HUMAN36, 9, False, smpl.joint_regressor_h36m,
-                           dtype=dtype, dev=dev, seed=seed, flat_impl=flat_impl,
-                           fused=fused)
+    return deploy_forward_on(build_artifact(smpl.face, HUMAN36, 9, dev),
+                             smpl.joint_regressor_h36m, dtype=dtype, device=dev,
+                             seed=seed, flat_impl=flat_impl, fused=fused)
 
 
 def mano_deploy_forward(*, dtype: torch.dtype = torch.bfloat16,
@@ -108,9 +114,9 @@ def mano_deploy_forward(*, dtype: torch.dtype = torch.bfloat16,
     """The MANO deploy forward; its eval step regresses the 21 MANO joints."""
     dev = resolve_device(device)
     mano = MANO()
-    return _deploy_forward(mano.face, MANO_SET, 6, True, mano.joint_regressor_mano,
-                           dtype=dtype, dev=dev, seed=seed, flat_impl=flat_impl,
-                           fused=fused)
+    return deploy_forward_on(build_artifact(mano.face, MANO_SET, 6, dev),
+                             mano.joint_regressor_mano, mano=True, dtype=dtype, device=dev,
+                             seed=seed, flat_impl=flat_impl, fused=fused)
 
 
 def on_path(d: DeployForward, *, flat_impl: str = "group",

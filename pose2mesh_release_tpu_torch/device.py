@@ -6,9 +6,10 @@ device="cpu" to run the plain PyTorch versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -19,3 +20,13 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `dev`.  On the card the array is copied
+    into pinned memory and from there without blocking, on the current
+    stream: its readers must run on that stream or wait on it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t

@@ -40,8 +40,8 @@ from .device import resolve_device
 from .graphs.artifact import PyramidArtifact
 from .models.pose2mesh import Pose2Mesh
 
-__all__ = ["TrainSetup", "smpl_train_setup", "mano_train_setup", "synthetic_batch",
-           "batch_from_mesh", "mano_gt_inputs"]
+__all__ = ["TrainSetup", "smpl_train_setup", "mano_train_setup", "train_setup_on",
+           "train_batch", "synthetic_batch", "batch_from_mesh", "mano_gt_inputs"]
 
 MANO_CAMERA_Z_MM = 500.0
 
@@ -98,9 +98,24 @@ def _mano_gt_mesh(mano: MANO, pose: torch.Tensor, shape: torch.Tensor) -> torch.
     return (mesh_mm - root) / 1000.0
 
 
-def _train_setup(art: PyramidArtifact, mano: bool, j_reg: np.ndarray,
-                 batch: Dict[str, np.ndarray], dtype: torch.dtype,
-                 dev: torch.device, seed: int) -> TrainSetup:
+def train_batch(inputs: Dict, targets: Dict, meta: Dict) -> Dict:
+    """A loader's (inputs, targets, meta) as the train step's batch (the
+    keys `Trainer` feeds it, core/engine.py:225-231 of the JAX package)."""
+    return {"pose2d": inputs["pose2d"], "mesh": targets["mesh"],
+            "lift_pose3d": targets["lift_pose3d"], "reg_pose3d": targets["reg_pose3d"],
+            **meta}
+
+
+def train_setup_on(art: PyramidArtifact, j_reg: np.ndarray, batch: Dict, *,
+                   mano: bool = False, dtype: torch.dtype = torch.bfloat16,
+                   device: str | torch.device | None = "cuda",
+                   seed: int = 0) -> TrainSetup:
+    """The train step on a packed artifact (float32, moved to `device` and
+    cast to `dtype`) with seeded random weights; `batch` (numpy arrays or
+    tensors) is moved to `device`.  The datasets' graph
+    (`data.base.pyramid_for`) runs through this."""
+    dev = resolve_device(device)
+    art = art.to(dev)
     model = Pose2Mesh(art.joint_num, art.mesh_ops[-1].num_vertices, mano=mano,
                       posenet_hidden=POSENET_HIDDEN, dtype=dtype, inference_fused=False,
                       device=dev, generator=torch.Generator().manual_seed(seed))
@@ -109,7 +124,7 @@ def _train_setup(art: PyramidArtifact, mano: bool, j_reg: np.ndarray,
         art_compute=art.to(dev, dtype),
         state=TrainState(model, optimizer),
         train_step=make_train_step(model, optimizer, j_reg, device=dev),
-        batch={k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+        batch={k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
         j_regressor=j_reg,
         generator=torch.Generator(device=dev).manual_seed(seed))
 
@@ -123,8 +138,8 @@ def smpl_train_setup(*, dtype: torch.dtype = torch.bfloat16,
     rng = np.random.default_rng(seed)
     j_reg = rng.random((17, art.num_vertices)).astype(np.float32)
     j_reg /= j_reg.sum(axis=1, keepdims=True)
-    return _train_setup(art, False, j_reg, synthetic_batch(smpl.v_template, batch, j_reg, rng),
-                        dtype, dev, seed)
+    return train_setup_on(art, j_reg, synthetic_batch(smpl.v_template, batch, j_reg, rng),
+                          dtype=dtype, device=dev, seed=seed)
 
 
 def mano_train_setup(*, dtype: torch.dtype = torch.bfloat16,
@@ -138,4 +153,5 @@ def mano_train_setup(*, dtype: torch.dtype = torch.bfloat16,
         mesh = _mano_gt_mesh(mano, torch.from_numpy(pose).to(dev),
                             torch.from_numpy(shape).to(dev))
     data = batch_from_mesh(mesh.cpu().numpy(), mano.joint_regressor_mano)
-    return _train_setup(art, True, mano.joint_regressor_mano, data, dtype, dev, seed)
+    return train_setup_on(art, mano.joint_regressor_mano, data, mano=True, dtype=dtype,
+                          device=dev, seed=seed)
