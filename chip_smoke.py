@@ -86,8 +86,33 @@ Phases (any failure exits non-zero):
      compute_both_err per batch, evaluate at the end) against the same loop
      on the CPU through the plain versions (MPJPE, PA-MPJPE, MPVPE within
      2e-2 relative);
-  then print the MANO kernels' numbers per pass, the data layer's numbers
-  and the kernel table as one JSON line each, then the result line.
+  13. the engine and the entry points over phase 12's stand-in files, at
+     the same width (batch 64, bf16, PoseNet 4096, 16 loader threads, the
+     mix tested on PW3D), each through the entry point a user calls:
+     cli.train for 2 epochs (checkpoint{1,2}, best and final .pth.tar,
+     metrics.jsonl, the two PDF plots; exactly 8 K1 + 8 K2 in every step
+     and 8 K1 in every in-epoch eval forward, counted per call by wrapping
+     core.engine's step makers; ms per step, samples/s, each epoch's wall
+     seconds); a Trainer resumed from checkpoint2 (epoch 3, model and
+     optimizer state equal to the file's exactly) for one more epoch;
+     cli.test from best.pth.tar through the deploy Tester (6 group + 2
+     commuted convs a forward) against the training-form eval of the same
+     checkpoint (8 K1 a forward; every metric within 2e-2 relative);
+     PoseNet alone (cli.train one epoch, cli.test on its checkpoint; no
+     band launch); cli.demo with best.pth.tar on a 17-keypoint COCO .npy
+     and a COCO detections .json (two people after the NMS), and on a
+     17-joint H36M .npy with random weights (best.pth.tar holds a 19-joint
+     lifter): .obj files of 6890 finite vertices, 8 K1 a person, seconds a
+     person and the camera fit's ms, and each fit against fit_camera on
+     the CPU from the same inputs (reprojection error within 1e-3
+     relative; the parameters beside their sensitivity to a 1e-6 nudge,
+     since the demo's joints, from a barely trained model, do not match
+     its keypoints and leave the L1 fit's optimum flat), then the fit on
+     the stand-in body's own joints under a known camera (parameters
+     within 1e-3 of the CPU's);
+  then print the MANO kernels' numbers per pass, the data layer's numbers,
+  the engine's numbers and the kernel table as one JSON line each, then
+  the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
@@ -119,6 +144,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNEL_TOL = 1e-2
@@ -250,6 +276,13 @@ EVAL_TOL = 2e-2
 # K1 and K2 on 8 band convs, per deploy forward 6 group basis + 2 commuted
 DATA_TRAIN_CONVS = 8
 DATA_DEPLOY_LAUNCHES = {"fused_cheby_conv": 6, "fused_cheby_conv_commuted": 2}
+# phase 13, the engine and the entry points: epochs of cli.train (then one
+# resumed), the deploy Tester's metrics against the training-form eval of
+# the same checkpoint (relative), the card's camera fit against the CPU's
+# (relative L2)
+ENGINE_EPOCHS = 2
+DEPLOY_VS_TRAIN_TOL = 2e-2
+CAMERA_TOL = 1e-3
 
 
 def log(*a):
@@ -1118,7 +1151,8 @@ def local_regressor(template, num_joints: int, seed: int, k: int = 8):
 def write_stand_in_data(root: str, seed: int = 0, device: str = "cuda") -> None:
     """Stand-in annotation files in the JSON layouts of tests/test_data.py's
     fixtures, DATA_RECORDS records each (FreiHAND HAND_RECORDS), under
-    root/<dataset>, and the H36M and COCO regressors under root/regressors.
+    root/<dataset>, and the H36M and COCO regressors where SMPL(data_dir=root)
+    reads them (root/Human36M, root/COCO, the reference's data layout).
     Human36M's joint_3d (world mm), COCO's keypoints and MuCo's
     keypoints_cam are regressed from each record's stand-in SMPL mesh (LBS
     on `device`), so every record's fit error is ~0 and it keeps its mesh
@@ -1135,8 +1169,8 @@ def write_stand_in_data(root: str, seed: int = 0, device: str = "cuda") -> None:
     regs = {"Human36M/J_regressor_h36m_correct.npy": local_regressor(template, 17, 21),
             "COCO/J_regressor_coco.npy": local_regressor(template, 17, 22)}
     for rel, reg in regs.items():
-        os.makedirs(os.path.join(root, "regressors", os.path.dirname(rel)), exist_ok=True)
-        np.save(os.path.join(root, "regressors", rel), reg)
+        os.makedirs(os.path.join(root, os.path.dirname(rel)), exist_ok=True)
+        np.save(os.path.join(root, rel), reg)
     h36m_reg, coco_reg = regs["Human36M/J_regressor_h36m_correct.npy"], \
         regs["COCO/J_regressor_coco.npy"]
     params = SMPL().layer().to(device)
@@ -1246,7 +1280,7 @@ def build_datasets(root: str, device: str = "cuda") -> dict:
     from pose2mesh_release_tpu_torch.body.mano import MANO
     from pose2mesh_release_tpu_torch.body.smpl import SMPL
     from pose2mesh_release_tpu_torch.data import get_dataset_class
-    smpl = SMPL(data_dir=os.path.join(root, "regressors"))
+    smpl = SMPL(data_dir=root)
     mano = MANO()
     specs = {
         "Human36M": ("train", smpl, {"debug": True, "input_joint_name": "coco"}),
@@ -1534,23 +1568,379 @@ def data_eval(data, card, device: str = "cuda") -> dict:
             "cpu_ms_per_batch": cpu_ms, "launches": launches}
 
 
-def data_layer(card, resident_ms, device: str = "cuda") -> dict:
-    """Phase 12: the data layer on the card (stand-in annotation files in a
-    temporary directory).  `device` is "cuda" but for a rehearsal of the
+def data_layer(root: str, card, resident_ms, device: str = "cuda") -> dict:
+    """Phase 12: the data layer on the card over the stand-in annotation
+    files under `root`.  `device` is "cuda" but for a rehearsal of the
     phase's control flow on the CPU."""
-    import tempfile
     import torch
-    with tempfile.TemporaryDirectory() as root:
+    data = build_datasets(root, device)
+    report = {"build_s": data["build_s"], "levels": data["levels"],
+              "valid_share": data["valid_share"], "valid": data["valid"]}
+    report.update(data_train(data, card, resident_ms, device))
+    report["eval"] = data_eval(data, card, device)
+    del data
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def engine_cfg(path: str, root: str, out: str, **sections) -> str:
+    """A JSON experiment file at `path`: the default mix (Human36M with the
+    COCO input, COCO, MuCo) tested on PW3D, read from the stand-in files
+    under `root`, batch BATCH, LOADER_WORKERS threads, ENGINE_EPOCHS epochs,
+    seed 0, writing under `out`; `sections` override keys of a section."""
+    cfg = {"DATASET": {"workers": LOADER_WORKERS},
+           "TRAIN": {"batch_size": BATCH, "end_epoch": ENGINE_EPOCHS},
+           "TEST": {"batch_size": BATCH},
+           "data_dir": root, "output_dir": out, "seed": 0}
+    for name, keys in sections.items():
+        cfg[name] = {**cfg.get(name, {}), **keys}
+    _dump(path, cfg)
+    return path
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+
+
+class EngineProbe:
+    """The kernel launches of each call of the engine's train and eval steps
+    while an entry point runs: wraps core.engine's make_train_step and
+    make_eval_step, leaving the steps themselves unchanged (an eval call is
+    also timed, to a synchronize)."""
+
+    def __enter__(self):
+        from pose2mesh_release_tpu_torch.core import engine
+        self.train, self.eval, self.eval_ms = [], [], []
+        self._engine = engine
+        self._orig = make_train, make_eval = engine.make_train_step, engine.make_eval_step
+
+        def train_maker(*a, **kw):
+            step = make_train(*a, **kw)
+
+            def counted(*args):
+                before = read_launches()
+                out = step(*args)
+                self.train.append(_delta(before))
+                return out
+            return counted
+
+        def eval_maker(*a, **kw):
+            step = make_eval(*a, **kw)
+
+            def counted(*args):
+                import torch
+                before, t0 = read_launches(), time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                self.eval_ms.append((time.perf_counter() - t0) * 1e3)
+                self.eval.append(_delta(before))
+                return out
+            return counted
+
+        engine.make_train_step, engine.make_eval_step = train_maker, eval_maker
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.make_train_step, self._engine.make_eval_step = self._orig
+
+
+def _same(a, b) -> bool:
+    """Nested state dicts equal exactly (tensors compared on the CPU)."""
+    import torch
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype and \
+            torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict) and isinstance(b, dict):
+        return sorted(a, key=str) == sorted(b, key=str) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _check_steps(label: str, records: list, want: dict, count: int) -> None:
+    if len(records) != count or any(r != want for r in records):
+        raise SystemExit(f"{label}: {len(records)} calls (want {count}), launches per call "
+                         f"{records} (want {want} each)")
+
+
+TRAIN_STEP_LAUNCHES = {"fused_cheby_conv_train": DATA_TRAIN_CONVS,
+                       "fused_cheby_conv_bwd": DATA_TRAIN_CONVS}
+EVAL_TRAIN_FORM_LAUNCHES = {"fused_cheby_conv_train": DATA_TRAIN_CONVS}
+
+
+def engine_train(root: str, out: str, card, device: str) -> dict:
+    """Phases 13.1-13.2: cli.train for ENGINE_EPOCHS epochs, its files, its
+    launches per step and per in-epoch eval forward, then a resumed Trainer
+    (state equal to the saved one exactly) for one more epoch."""
+    import torch
+    from pose2mesh_release_tpu_torch.cli import train as cli_train
+    from pose2mesh_release_tpu_torch.config import load_config
+    from pose2mesh_release_tpu_torch.core.engine import Trainer
+    cfg_path = engine_cfg(os.path.join(root, "train.json"), root, out)
+    reset_launches()
+    t0 = time.time()
+    with EngineProbe() as probe:
+        result = cli_train.main(["--cfg", cfg_path, "--debug", "--device", device])
+    wall = time.time() - t0
+    total = read_launches()
+    ck = os.path.join(out, "checkpoint")
+    files = [os.path.join(ck, f"{n}.pth.tar") for n in
+             ("checkpoint1", "checkpoint2", "best", "final")] + \
+        [os.path.join(out, "metrics.jsonl")] + \
+        [os.path.join(out, "graph", f"{t}.pdf") for t in ("train_loss", "test_joint_err")]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        raise SystemExit(f"cli.train: missing {missing}")
+    with open(files[4]) as f:
+        epochs = [json.loads(line) for line in f]
+    steps, forwards = DATA_STEPS * ENGINE_EPOCHS, len(probe.eval)
+    _check_steps("cli.train steps", probe.train, TRAIN_STEP_LAUNCHES, steps)
+    _check_steps("cli.train in-epoch eval forwards", probe.eval, EVAL_TRAIN_FORM_LAUNCHES,
+                 forwards)
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (steps + forwards),
+                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * steps)
+    if total != want or forwards == 0:
+        raise SystemExit(f"cli.train launches {total} != {want} ({forwards} eval forwards)")
+    if not all(math.isfinite(e["train_loss"]) and math.isfinite(e["joint_err"])
+               for e in epochs):
+        raise SystemExit(f"cli.train: non-finite loss or error {epochs}")
+    step_ms = [e["train_s"] * 1e3 / DATA_STEPS for e in epochs]
+    log(f"phase 13: cli.train, {ENGINE_EPOCHS} epochs of {DATA_STEPS} steps (batch {BATCH}, "
+        f"bf16, RMSprop, {LOADER_WORKERS} loader threads) in {wall:.2f} s: epoch wall s "
+        f"{[round(e['epoch_s'], 3) for e in epochs]}, training s "
+        f"{[round(e['train_s'], 3) for e in epochs]}, ms per step {[round(t, 2) for t in step_ms]}, "
+        f"samples/s {[round(BATCH * DATA_STEPS / e['train_s'], 1) for e in epochs]}; losses "
+        f"{[round(e['train_loss'], 5) for e in epochs]}; joint err "
+        f"{[round(e['joint_err'], 3) for e in epochs]} mm; launches per step "
+        f"{probe.train[0]}, per eval forward {probe.eval[0]} ({forwards} forwards) ({card})")
+
+    # resume: a Trainer from the latest checkpoint, state equal to the file's
+    cfg = load_config(cfg_path)
+    cfg.TRAIN.end_epoch = ENGINE_EPOCHS + 1
+    saved = torch.load(os.path.join(ck, f"checkpoint{ENGINE_EPOCHS}.pth.tar"),
+                       map_location="cpu", weights_only=True)
+    with EngineProbe() as resumed_probe:
         t0 = time.time()
-        write_stand_in_data(root, device=device)
-        log(f"phase 12: stand-in annotation files written in {time.time() - t0:.2f} s")
-        data = build_datasets(root, device)
-        report = {"build_s": data["build_s"], "levels": data["levels"],
-                  "valid_share": data["valid_share"], "valid": data["valid"]}
-        report.update(data_train(data, card, resident_ms, device))
-        report["eval"] = data_eval(data, card, device)
-        del data
-    torch.cuda.empty_cache()
+        tr = Trainer(cfg, resume=True, debug=True, device=device)
+        build_s = time.time() - t0
+        if tr.begin_epoch != ENGINE_EPOCHS + 1 or tr.state.step != steps:
+            raise SystemExit(f"resume: begin_epoch {tr.begin_epoch}, step {tr.state.step}")
+        if not _same(tr.model.state_dict(), saved["model_state_dict"]) or \
+                not _same(tr.optimizer.state_dict(), saved["optim_state_dict"]):
+            raise SystemExit("resume: the model or optimizer state differs from the checkpoint")
+        reset_launches()
+        t0 = time.time()
+        resumed = tr.fit()
+        resume_s = time.time() - t0
+    _check_steps("resumed steps", resumed_probe.train, TRAIN_STEP_LAUNCHES, DATA_STEPS)
+    _check_steps("resumed eval forwards", resumed_probe.eval, EVAL_TRAIN_FORM_LAUNCHES,
+                 len(resumed_probe.eval))
+    if not os.path.exists(os.path.join(ck, f"checkpoint{ENGINE_EPOCHS + 1}.pth.tar")) or \
+            len(tr.train_log) != ENGINE_EPOCHS + 1:
+        raise SystemExit(f"resume: no epoch {ENGINE_EPOCHS + 1} checkpoint or log")
+    log(f"  resumed Trainer: built in {build_s:.2f} s at epoch {tr.begin_epoch}, model and "
+        f"optimizer state equal to checkpoint{ENGINE_EPOCHS}'s; one epoch in {resume_s:.2f} s, "
+        f"loss {tr.train_log[-1]:.5f}, joint err {resumed['joint_err']:.3f} mm")
+    del tr
+    return {"wall_s": wall, "epoch_s": [e["epoch_s"] for e in epochs],
+            "train_s": [e["train_s"] for e in epochs], "ms_per_step": step_ms,
+            "samples_per_s": [BATCH * DATA_STEPS / e["train_s"] for e in epochs],
+            "losses": [e["train_loss"] for e in epochs], "result": result,
+            "launches_per_step": probe.train[0], "launches_per_eval_forward": probe.eval[0],
+            "in_epoch_eval_ms": probe.eval_ms, "resume_build_s": build_s,
+            "resume_epoch_s": resume_s, "resumed_result": resumed}
+
+
+def engine_test(root: str, out: str, card, device: str) -> dict:
+    """Phase 13.3: cli.test from best.pth.tar through the deploy Tester
+    (6 group + 2 commuted convs a forward) against the training-form eval
+    of the same checkpoint (8 K1 a forward), within DEPLOY_VS_TRAIN_TOL."""
+    from pose2mesh_release_tpu_torch.cli import test as cli_test
+    best = os.path.join(out, "checkpoint", "best.pth.tar")
+    runs = {}
+    for form, deploy, want in (("deploy", True, DATA_DEPLOY_LAUNCHES),
+                               ("training form", False, EVAL_TRAIN_FORM_LAUNCHES)):
+        cfg_path = engine_cfg(os.path.join(root, f"test_{deploy}.json"), root, out,
+                              TEST={"deploy": deploy})
+        reset_launches()
+        t0 = time.time()
+        with EngineProbe() as probe:
+            res = cli_test.main(["--cfg", cfg_path, "--weights", best, "--debug",
+                                 "--device", device])
+        wall = time.time() - t0
+        _check_steps(f"cli.test ({form}) forwards", probe.eval, want, len(probe.eval))
+        if read_launches() != expect(**{k: v * len(probe.eval) for k, v in want.items()}) \
+                or not probe.eval:
+            raise SystemExit(f"cli.test ({form}): launches {read_launches()}")
+        runs[form] = {"result": res, "wall_s": wall, "eval_ms": probe.eval_ms,
+                      "launches_per_forward": probe.eval[0]}
+    keys = ("joint_err", "mesh_err", "mpjpe", "pa_mpjpe", "mpvpe")
+    dep, tf = runs["deploy"]["result"], runs["training form"]["result"]
+    rel = {k: abs(dep[k] - tf[k]) / abs(tf[k]) for k in keys}
+    log(f"phase 13: cli.test from best.pth.tar: deploy "
+        f"{ {k: round(dep[k], 4) for k in keys} }, eval-step ms per batch "
+        f"{[round(t, 3) for t in runs['deploy']['eval_ms']]}, wall {runs['deploy']['wall_s']:.2f} s, "
+        f"launches per forward {runs['deploy']['launches_per_forward']}; training form "
+        f"{ {k: round(tf[k], 4) for k in keys} }, ms per batch "
+        f"{[round(t, 3) for t in runs['training form']['eval_ms']]}, launches per forward "
+        f"{runs['training form']['launches_per_forward']}; relative difference "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tolerance {DEPLOY_VS_TRAIN_TOL}) ({card})")
+    if not all(v <= DEPLOY_VS_TRAIN_TOL for v in rel.values()):
+        raise SystemExit(f"deploy Tester disagrees with the training-form eval: {rel}")
+    return {"runs": runs, "rel_diff": rel}
+
+
+def engine_lift(root: str, out: str, card, device: str) -> dict:
+    """Phase 13.4: cli.train with MODEL.name posenet for one epoch, then
+    cli.test on its best checkpoint; neither launches a band kernel."""
+    from pose2mesh_release_tpu_torch.cli import test as cli_test
+    from pose2mesh_release_tpu_torch.cli import train as cli_train
+    cfg_path = engine_cfg(os.path.join(root, "lift.json"), root, out,
+                          MODEL={"name": "posenet"}, TRAIN={"end_epoch": 1})
+    reset_launches()
+    t0 = time.time()
+    trained = cli_train.main(["--cfg", cfg_path, "--debug", "--device", device])
+    train_s = time.time() - t0
+    t0 = time.time()
+    tested = cli_test.main(["--cfg", cfg_path, "--debug", "--device", device, "--weights",
+                            os.path.join(out, "checkpoint", "best.pth.tar")])
+    test_s = time.time() - t0
+    launches = read_launches()
+    log(f"phase 13: PoseNet alone: cli.train 1 epoch in {train_s:.2f} s, loss "
+        f"{trained['loss']:.4f}, MPJPE {trained['mpjpe']:.3f}; cli.test from best.pth.tar in "
+        f"{test_s:.2f} s, MPJPE {tested['mpjpe']:.3f}, PA-MPJPE {tested['pa_mpjpe']:.3f}; "
+        f"no band kernel on this path: launches {launches} ({card})")
+    if launches != expect() or not math.isfinite(tested["mpjpe"]) or \
+            abs(tested["mpjpe"] - trained["mpjpe"]) > 1e-3 * abs(trained["mpjpe"]):
+        raise SystemExit(f"PoseNet alone: launches {launches}, train {trained}, test {tested}")
+    return {"train_s": train_s, "test_s": test_s, "train": trained, "test": tested}
+
+
+def _pixels(joints, offset=(0.0, 0.0)):
+    """A stand-in body's joints (J, 3) metres as pixels: 400 px a metre, y
+    down, centred at (500, 500) + offset."""
+    import numpy as np
+    return np.float32(joints[:, :2] * [400.0, -400.0] + [500.0 + offset[0], 500.0 + offset[1]])
+
+
+def engine_demo(root: str, out: str, card, device: str) -> dict:
+    """Phase 13.5: cli.demo on the card with best.pth.tar (the COCO-input
+    cascade, 19 joints): a 17-keypoint COCO .npy, and a COCO detections
+    .json (two people after the NMS, pelvis and neck completed); a 17-joint
+    H36M .npy with --joint_set human36 and random weights (best.pth.tar
+    holds a 19-joint lifter).  Each: .obj files of 6890 finite vertices,
+    8 K1 a person, the card's camera fit within CAMERA_TOL of the same fit
+    on the CPU."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.cli import demo
+    from pose2mesh_release_tpu_torch.models.camera import fit_camera, project_weak
+    best = os.path.join(out, "checkpoint", "best.pth.tar")
+    smpl = SMPL(data_dir=root)  # the stand-in files' regressors: joints spread over the body
+    coco = _pixels(smpl.joint_regressor_coco @ smpl.v_template)
+    h36m = _pixels(smpl.joint_regressor_h36m @ smpl.v_template)
+    np.save(os.path.join(root, "coco.npy"), coco)
+    np.save(os.path.join(root, "h36m.npy"), h36m)
+    kp = np.concatenate([coco, np.full((17, 1), 0.9, np.float32)], 1)
+    dets = [kp, kp + [4.0, 3.0, -0.1], kp + [600.0, 0.0, -0.2], kp * [1, 1, 0.05]]
+    _dump(os.path.join(root, "dets.json"), [{"keypoints": d.flatten().tolist()} for d in dets])
+    runs = {}
+    for label, pose, joint_set, weights, persons in (
+            ("coco .npy", "coco.npy", "coco", best, 1),
+            ("coco detections .json", "dets.json", "coco", best, 2),
+            ("human36 .npy, random weights", "h36m.npy", "human36", "", 1)):
+        argv = ["--input_pose", os.path.join(root, pose), "--joint_set", joint_set,
+                "--out_dir", os.path.join(out, "demo", joint_set + pose[-4:]),
+                "--device", device] + (["--weights", weights] if weights else [])
+        reset_launches()
+        t0 = time.time()
+        res = demo.main(argv)
+        wall = time.time() - t0
+        launches = read_launches()
+        people = res["people"]
+        if len(people) != persons or \
+                launches != expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * persons):
+            raise SystemExit(f"demo {label}: {len(people)} people, launches {launches}")
+        fits = []
+        for p in people:
+            with open(p["obj"]) as f:
+                verts = np.array([[float(x) for x in line.split()[1:]] for line in f
+                                  if line.startswith("v ")])
+            if verts.shape != (6890, 3) or not np.isfinite(verts).all():
+                raise SystemExit(f"demo {label}: mesh {verts.shape}, finite "
+                                 f"{np.isfinite(verts).all()}")
+            fits.append(camera_vs_cpu(np.float32(p["joints3d"]), np.float32(p["target2d"]),
+                                      torch.tensor(p["cam"]), demo.CROP_SIZE))
+        runs[label] = {"wall_s": wall, "s_per_person": wall / persons,
+                       "forward_s": [p["forward_s"] for p in people],
+                       "camera_ms": [p["camera_s"] * 1e3 for p in people],
+                       "cam": [p["cam"] for p in people], "camera_vs_cpu": fits,
+                       "launches": launches}
+        sci = {k: [format(f[k], ".2e") for f in fits] for k in ("loss", "params", "sensitivity")}
+        log(f"phase 13: demo, {label}: {persons} people in {wall:.2f} s "
+            f"({wall / persons:.2f} s a person; forward s "
+            f"{[round(p['forward_s'], 4) for p in people]}, camera fit ms "
+            f"{[round(p['camera_s'] * 1e3, 1) for p in people]}); launches {launches}; camera "
+            f"card vs CPU: reprojection px {[round(f['card_px'], 3) for f in fits]} vs "
+            f"{[round(f['cpu_px'], 3) for f in fits]} (relative {sci['loss']}, tolerance "
+            f"{CAMERA_TOL}), parameters rel_l2 {sci['params']} against {sci['sensitivity']} "
+            f"from a 1e-6 nudge of the joints on the CPU ({card})")
+        if not all(f["loss"] <= CAMERA_TOL for f in fits):
+            raise SystemExit(f"demo {label}: the card's camera fit reprojects worse or better "
+                             f"than the CPU's: {fits}")
+    # the camera fit where its optimum is well defined: the stand-in body's
+    # COCO joints against their projection under a known camera, 2 px noise
+    joints = smpl.joint_regressor_coco @ smpl.v_template
+    joints = np.float32(joints - joints[:1])
+    rng = np.random.default_rng(5)
+    target = np.float32(project_weak(torch.from_numpy(joints), torch.tensor([1.6, 0.05, -0.1]),
+                                     demo.CROP_SIZE).numpy() + rng.normal(0, 2, (17, 2)))
+    cam_card = fit_camera(joints, target, img_res=demo.CROP_SIZE, device=device)
+    posed = camera_vs_cpu(joints, target, cam_card.cpu(), demo.CROP_SIZE)
+    log(f"  camera fit on the stand-in body's joints (true cam (1.6, 0.05, -0.1), 2 px noise): "
+        f"card {cam_card.cpu().numpy().round(5).tolist()}, parameters rel_l2 vs the CPU "
+        f"{posed['params']:.2e} (tolerance {CAMERA_TOL}; 1e-6 nudge on the CPU "
+        f"{posed['sensitivity']:.2e}), reprojection {posed['card_px']:.3f} px")
+    if posed["params"] > CAMERA_TOL:
+        raise SystemExit(f"the card's camera fit differs from the CPU's: {posed}")
+    runs["camera_well_posed"] = posed
+    return runs
+
+
+def camera_vs_cpu(joints, target, cam_card, img_res) -> dict:
+    """The card's fitted camera against fit_camera on the CPU from the same
+    inputs: the relative difference of the reprojection error (px), the
+    parameters' relative L2, and the parameters' sensitivity (relative L2
+    of the CPU fit after a 1e-6 relative nudge of the joints)."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.models.camera import fit_camera, project_weak
+    cpu = fit_camera(joints, target, img_res=img_res, device="cpu")
+    nudged = fit_camera(joints * np.float32(1 + 1e-6), target, img_res=img_res, device="cpu")
+
+    def px(cam):
+        return float((project_weak(torch.from_numpy(joints), cam, img_res)
+                      - torch.from_numpy(target)).abs().mean())
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    card_px, cpu_px = px(cam_card), px(cpu)
+    return {"card_px": card_px, "cpu_px": cpu_px, "loss": abs(card_px - cpu_px) / cpu_px,
+            "params": rel(cam_card, cpu), "sensitivity": rel(nudged, cpu)}
+
+
+def engine_layer(root: str, card, device: str = "cuda") -> dict:
+    """Phase 13: the engine and the entry points (the CLIs, Trainer,
+    Tester, LiftTrainer, LiftTester, the demo) over phase 12's stand-in
+    files under `root`.  `device` is "cuda" but for a rehearsal of the
+    phase's control flow on the CPU."""
+    out = os.path.join(root, "experiment")
+    report = {"train": engine_train(root, out, card, device),
+              "test": engine_test(root, out, card, device),
+              "lift": engine_lift(root, out + "_lift", card, device),
+              "demo": engine_demo(root, out, card, device)}
     return report
 
 
@@ -1807,8 +2197,14 @@ def main() -> int:
         })
     report["kernels"] = kernels
 
-    # -- phase 12: the data layer feeding the train step and the evaluation --
-    data = report["data"] = data_layer(card, report["train"]["ms_per_step"])
+    # -- phases 12-13: the data layer, then the engine and the entry points,
+    # over stand-in annotation files in a temporary directory
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        write_stand_in_data(root)
+        log(f"phase 12: stand-in annotation files written in {time.time() - t0:.2f} s")
+        data = report["data"] = data_layer(root, card, report["train"]["ms_per_step"])
+        eng = report["engine"] = engine_layer(root, card)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1827,6 +2223,24 @@ def main() -> int:
         "eval_launches": data["eval"]["launches"], "eval_card": data["eval"]["card"],
         "eval_rel_diff": data["eval"]["rel_diff"],
         "card_vs_cpu_batch_rel_l2": data["card_vs_cpu"]}}), flush=True)
+    tr, te = eng["train"], eng["test"]["runs"]
+    print(json.dumps({"engine": {
+        "card": card, "fit_ms_per_step": tr["ms_per_step"], "fit_epoch_s": tr["epoch_s"],
+        "fit_samples_per_s": tr["samples_per_s"], "fit_losses": tr["losses"],
+        "launches_per_step": tr["launches_per_step"],
+        "launches_per_in_epoch_eval_forward": tr["launches_per_eval_forward"],
+        "resume_epoch_s": tr["resume_epoch_s"],
+        "test_deploy_ms_per_batch": te["deploy"]["eval_ms"],
+        "test_deploy_launches_per_forward": te["deploy"]["launches_per_forward"],
+        "test_training_form_ms_per_batch": te["training form"]["eval_ms"],
+        "deploy_vs_training_form_rel": eng["test"]["rel_diff"],
+        "lift_train_s": eng["lift"]["train_s"], "lift_test_s": eng["lift"]["test_s"],
+        "demo": {k: {"s_per_person": v["s_per_person"], "forward_s": v["forward_s"],
+                     "camera_ms": v["camera_ms"], "camera_vs_cpu": v["camera_vs_cpu"],
+                     "launches": v["launches"]}
+                 for k, v in eng["demo"].items() if k != "camera_well_posed"},
+        "camera_well_posed_vs_cpu": eng["demo"]["camera_well_posed"]}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

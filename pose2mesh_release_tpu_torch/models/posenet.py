@@ -16,6 +16,7 @@ drawn from the `torch.Generator` the caller passes.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -102,6 +103,19 @@ class PoseNet(nn.Module):
         self.linear_stages = nn.ModuleList(
             ResidualStage(hidden) for _ in range(num_stages))
         self.w2 = nn.Linear(hidden, num_joint * 3)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Linears uniform(+-1/sqrt(fan_in)) (torch's default bounds) drawn
+        from `generator` (a CPU one); BatchNorm identity with unit running
+        variance."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.weight.shape[1])
+                for p in (m.weight, m.bias):
+                    p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
 
     def forward(self, x2d: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -126,10 +126,14 @@ def test_port_imports_no_jax():
         "ops = {'hop', 'strip_cheby', 'window_cheby', 'fused_cheby', 'fused_cheby_train'}\n"
         "assert ops <= {n.rsplit('.', 1)[-1] for n in names}, names\n"
         "mods = {p.__name__ + '.' + m for m in ('body.model', 'body.loader',\n"
-        "        'body.synthetic', 'body.smpl', 'body.mano', 'data.gt_synth')}\n"
+        "        'body.synthetic', 'body.smpl', 'body.mano', 'data.gt_synth', 'config',\n"
+        "        'core.checkpoint', 'core.engine', 'cli.train', 'cli.test', 'cli.demo',\n"
+        "        'models.camera', 'utils.metrics_log', 'utils.plots', 'utils.renderer',\n"
+        "        'utils.vis')}\n"
         "assert mods <= set(names), names\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'pose2mesh_release_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pose2mesh_release_tpu',\n"
+        "              'yaml', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
