@@ -99,20 +99,40 @@ Phases (any failure exits non-zero):
      commuted convs a forward) against the training-form eval of the same
      checkpoint (8 K1 a forward; every metric within 2e-2 relative);
      PoseNet alone (cli.train one epoch, cli.test on its checkpoint; no
-     band launch); cli.demo with best.pth.tar on a 17-keypoint COCO .npy
+     band launch); cli.demo (float32 on every device, as the JAX demo) with
+     best.pth.tar on a 17-keypoint COCO .npy
      and a COCO detections .json (two people after the NMS), and on a
      17-joint H36M .npy with random weights (best.pth.tar holds a 19-joint
-     lifter): .obj files of 6890 finite vertices, 8 K1 a person, seconds a
-     person and the camera fit's ms, and each fit against fit_camera on
+     lifter): .obj files of 6890 finite vertices, 8 float32 K1 a person,
+     seconds a person and the camera fit's ms, and each fit against fit_camera on
      the CPU from the same inputs (reprojection error within 1e-3
      relative; the parameters beside their sensitivity to a 1e-6 nudge,
      since the demo's joints, from a barely trained model, do not match
      its keypoints and leave the L1 fit's optimum flat), then the fit on
      the stand-in body's own joints under a known camera (parameters
      within 1e-3 of the CPU's);
+  14. the float32 instances (the `f32` argument of csrc's group, commuted,
+     K1 and K2 entry points) and the float32 paths at full SMPL width: each
+     instance against its plain version on the same float32 inputs at the
+     shapes of phases 2 and 4 (the group and commuted convs, K1 with its
+     fold and statistics, K2, K1 with keep_basis; the band_k = 2 level),
+     relative L2 <= 1e-5, K1 and K2 run twice to equal bits, and its ms,
+     plain ms and bound; smpl_deploy_forward(dtype=float32), 4 requests of
+     batch 64, exactly 8 group + 2 commuted convs each, within 1e-4 of the
+     plain float32 forward; smpl_train_setup(dtype=float32), the step from
+     the fresh state against the plain-K1/K2 float32 step (loss 1e-5,
+     gradients 1e-3), then 1 + 4 steps of exactly 10 K1 + 10 K2; over phase
+     12's stand-in files, cli.train with TPU.compute_dtype f32 for one epoch (8
+     K1 + 8 K2 a step, 8 K1 an in-epoch eval forward), cli.test of its
+     checkpoint, deploy (6 + 2 group convs a forward) against the training
+     form (every metric within 1e-4), and cli.demo on the card with
+     --input_img a PNG written with PIL (decoded by PIL where matplotlib is
+     missing; 8 float32 K1 a person) against the same demo on the CPU (mesh
+     and joints within 1e-4);
   then print the MANO kernels' numbers per pass, the data layer's numbers,
-  the engine's numbers and the kernel table as one JSON line each, then
-  the result line.
+  the engine's numbers, the float32 paths' numbers and the kernel table
+  (the bf16 kernels and, named `...[f32]`, their float32 instances) as one
+  JSON line each, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
@@ -125,10 +145,14 @@ through the plain K1 and K2: relative difference of the total loss <= 2e-2
 and relative L2 error of each parameter's gradient <= 5e-2, except the
 biases that feed a training BatchNorm, whose exact gradient is zero (they are
 reported, not held).  Matmuls of the plain versions run in full float32
-(TF32 off).
+(TF32 off).  The float32 instances (phase 14) against their plain versions
+on the same float32 inputs: relative L2 <= 1e-5 (the 3xTF32 products keep
+about float32's precision; one TF32 product, about three decimal digits,
+would not).
 
 Bounds: bytes over 3.35 TB/s and operations over 989 TFLOP/s (H100 SXM
-bf16 dense), the larger of the two.  Operations: the Laplacian hops at the
+bf16 dense; the float32 instances 495 / 3 TFLOP/s, dense TF32 over the
+three products of 3xTF32), the larger of the two.  Operations: the Laplacian hops at the
 operator's nonzeros, the projections densely, over the real rows (K2: two
 hops of the cotangent, the dx product and the dW product; the strip conv's
 hops on Fout columns in commuted order).  Bytes: each input read once and
@@ -157,6 +181,20 @@ TRAIN_STEPS = 4
 LR = 1e-3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# phase 14, the float32 instances: each against its plain version on the
+# same float32 inputs (relative L2), their bound at the 3xTF32 rate (three
+# TF32 products per float32 product: 495 / 3 TFLOP/s), the float32 forward
+# against the plain float32 forward, the float32 step against the
+# plain-K1/K2 float32 step (loss, gradients), the float32 deploy Tester's
+# metrics against the float32 training-form eval (relative), the demo's
+# mesh on the card against the CPU's (relative L2)
+F32_KERNEL_TOL = 1e-5
+PEAK_3XTF32_FLOPS = 495e12 / 3
+F32_FORWARD_TOL = 1e-4
+F32_STEP_LOSS_TOL = 1e-5
+F32_STEP_GRAD_TOL = 1e-3
+F32_DEPLOY_VS_TRAIN_TOL = 1e-4
+F32_DEMO_MESH_TOL = 1e-4
 REPLACES = {
     "fused_cheby_conv": "pose2mesh_release_tpu/ops/pallas_cheby.py:713",
     "fused_cheby_conv_commuted": "pose2mesh_release_tpu/ops/pallas_cheby.py:421",
@@ -291,7 +329,8 @@ def log(*a):
 
 def kernel_label(mangled: str) -> str:
     """A ptxas entry name, shortened to the last component of its (nested)
-    name and its integer template arguments: `cheby_proj_kernel<128,1>`."""
+    name and its integer template arguments, with `[f32]` for a float32
+    instance: `cheby_proj_kernel<128,1>`, `band_hop_kernel<16,0,0>[f32]`."""
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -299,9 +338,11 @@ def kernel_label(mangled: str) -> str:
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
-    args = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[i:])
+    args = re.match(r"I(13__nv_bfloat16|f)?((?:L[a-z]+\d+E)*)E", mangled[i:])
     if args:
-        name += f"<{','.join(re.findall(r'L[a-z]+(\d+)E', args.group(1)))}>"
+        ints = re.findall(r"L[a-z]+(\d+)E", args.group(2))
+        name += f"<{','.join(ints)}>" if ints else ""
+        name += "[f32]" if args.group(1) == "f" else ""
     return name
 
 
@@ -327,10 +368,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(flops: int, bytes_: int):
+def bound(flops: int, bytes_: int, f32: bool = False):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the bf16 tensor-core rate."""
-    t_bytes, t_flops = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    operations over the bf16 tensor-core rate (float32: the 3xTF32 rate)."""
+    peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
+    t_bytes, t_flops = bytes_ / PEAK_BYTES * 1e3, flops / peak * 1e3
     return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
 
 
@@ -388,13 +430,14 @@ def restrip(op, strip_h: int):
     return _make_level_op(L, "band", T, strip_h=strip_h)
 
 
-def conv_case(op, fin, fout, epilogue, gen):
-    """bf16 inputs of one deploy conv on the card at batch BATCH: x (Vp, B,
-    fin), W (3 fin, fout), b, and the epilogue's skip and skip_w (or None)."""
+def conv_case(op, fin, fout, epilogue, gen, dtype=None):
+    """Inputs of one deploy conv on the card at batch BATCH, bf16 (or
+    `dtype`): x (Vp, B, fin), W (3 fin, fout), b, and the epilogue's skip and
+    skip_w (or None)."""
     import torch
     from pose2mesh_release_tpu_torch.models.meshnet import channel_interp_matrix
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     Vp = op.padded_vertices
 
     def randn(*shape, scale=1.0):
@@ -413,15 +456,16 @@ def conv_case(op, fin, fout, epilogue, gen):
     return x, W, b, skip, skip_w
 
 
-def check_conv(op, name, fin, fout, epilogue, gen, tag):
-    """A group deploy kernel vs its plain version on the card; returns the
-    row of numbers."""
+def check_conv(op, name, fin, fout, epilogue, gen, tag, dtype=None):
+    """A group deploy kernel vs its plain version on the card, bf16 (or its
+    `dtype` instance); returns the row of numbers."""
     import torch
     from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
 
-    band = op.band_val.to("cuda", torch.bfloat16)
-    V = op.num_vertices
-    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen)
+    dtype = dtype or torch.bfloat16
+    band = op.band_val.to("cuda", dtype)
+    V, es = op.num_vertices, band.element_size()
+    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen, dtype)
     kw = {"relu": epilogue != "final"}
     if name == "fused_cheby_conv":
         kw.update(skip=skip, skip_w=skip_w)
@@ -437,13 +481,13 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag):
     # bytes by the same rule as the operations: vertex tensors at the real
     # rows, the band operator at its nonzero values
     bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w)
-              + V * BATCH * fout * 2 + nnz * 2)
+              + V * BATCH * fout * es + nnz * es)
     row = measure(
         tag, name, {"V": V, "band_k": op.band_k, "fin": fin, "fout": fout,
                     "epilogue": epilogue},
         lambda: kernel(band, x, W, b, **kw), lambda: plain(band, x, W, b, **kw),
         lambda: plain(band.float(), x.float(), W.float(), b.float(), **f32),
-        ("y",), V, flops, bytes_)
+        ("y",), V, flops, bytes_, dtype=dtype)
     # its launches apart (not counted as launches)
     if name == "fused_cheby_conv":
         run, _ = fc.conv_launcher(band, x, W, b, kw["relu"], skip, skip_w)
@@ -462,12 +506,14 @@ def split_ms(tag, label, run, stages, whole_ms) -> dict:
     return ms
 
 
-def check_train_conv(op, fin, fout, fold, stats, gen, tag):
-    """K1 and K2 vs their plain versions on the card; returns their two rows."""
+def check_train_conv(op, fin, fout, fold, stats, gen, tag, dtype=None):
+    """K1 and K2 vs their plain versions on the card, bf16 (or their `dtype`
+    instances, then also K1 and K2 run twice to equal bits); returns their
+    two rows."""
     import torch
     from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
 
-    dev, bf = gen.device, torch.bfloat16
+    dev, bf = gen.device, dtype or torch.bfloat16
     band = op.band_val.to(dev, bf)
     V = op.num_vertices
 
@@ -497,8 +543,8 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag):
         ("y", "sum_y", "sum_y2"), V,
         # two hops of u, the projection
         2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout,
-        nbytes(x, W, b) + V * BATCH * fout * 2 + band_bytes + fold_bytes
-        + (2 * fout * 4 if stats else 0))
+        nbytes(x, W, b) + V * BATCH * fout * x.element_size() + band_bytes + fold_bytes
+        + (2 * fout * 4 if stats else 0), dtype=dtype)
     k2 = measure(
         tag, "fused_cheby_conv_bwd", info,
         lambda: ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold),
@@ -509,22 +555,32 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag):
         # two hops of g, the dx product, the dW product
         2 * 2 * nnz * BATCH * fout + 2 * 2 * V * BATCH * 3 * fout * fin,
         nbytes(g, x, W) + nbytes(x) + 3 * fin * fout * 4 + fout * 4 + band_bytes
-        + (fold_bytes + 2 * fin * 4 if fold else 0))
+        + (fold_bytes + 2 * fin * 4 if fold else 0), dtype=dtype)
     # each kernel's launches apart, on the same inputs (not counted as launches)
     run, _ = ft.train_launcher(band, x, W, b, in_fold, stats, False)
     k1_stages = {n: m for n, m in ft.TRAIN_STAGES.items() if fold or n != "fold"}
     k1["split_ms"] = split_ms(tag, "K1", run, k1_stages, k1["ms"])
     run, _ = ft.bwd_launcher(band, g, x, W, in_fold)
     k2["split_ms"] = split_ms(tag, "K2", run, ft.BWD_STAGES, k2["ms"])
+    if dtype is not None:  # the ordered, atomic-free reductions: equal bits twice
+        for row, fn in ((k1, lambda: ft.fused_cheby_conv_train(
+                            band, x, W, b, in_fold=in_fold, emit_stats=stats)),
+                        (k2, lambda: ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold))):
+            a, c = fn(), fn()
+            a, c = (a, c) if isinstance(a, tuple) else ((a,), (c,))
+            row["bits_equal"] = all(torch.equal(u, v) for u, v in zip(a, c))
+            row["ok"] = row["ok"] and row["bits_equal"]
+        log(f"  {tag:10s} two runs, equal bits: K1 {k1['bits_equal']}, K2 {k2['bits_equal']}")
     return [k1, k2]
 
 
 def measure(tag, name, info, kernel, plain, ref32, names, rows, flops, bytes_,
-            library=None, timed=None, timed_plain=None):
+            library=None, timed=None, timed_plain=None, dtype=None):
     """Hold the kernel's outputs (the first `rows` rows of each, or all of
-    them) against the float32 plain version; time kernel (or `timed`), plain
-    version (or `timed_plain`) and library call.  Returns the row of
-    numbers."""
+    them) against the float32 plain version, within KERNEL_TOL (a float32
+    instance, `dtype` float32: within F32_KERNEL_TOL, bound at the 3xTF32
+    rate); time kernel (or `timed`), plain version (or `timed_plain`) and
+    library call.  Returns the row of numbers."""
     import torch
     out = kernel()
     torch.cuda.synchronize()
@@ -536,9 +592,11 @@ def measure(tag, name, info, kernel, plain, ref32, names, rows, flops, bytes_,
     ms = cuda_ms(timed or kernel, 20)
     plain_ms = cuda_ms(timed_plain or plain, 5)
     library_ms = None if library is None else cuda_ms(library, 20)
-    bound_ms, bound_by = bound(flops, bytes_)
+    f32 = dtype is not None and dtype == torch.float32
+    bound_ms, bound_by = bound(flops, bytes_, f32)
+    tol = F32_KERNEL_TOL if f32 else KERNEL_TOL
     row = {"tag": tag, "name": name, **info, "batch": BATCH, "rel_l2": errs,
-           "max_abs_err": max_abs, "ok": finite and max(errs.values()) <= KERNEL_TOL,
+           "max_abs_err": max_abs, "ok": finite and max(errs.values()) <= tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": bytes_}
     log(f"  {tag:10s} {name:22s} {info} rel_l2 "
@@ -702,12 +760,13 @@ def check_window(op, fin, fout, epilogue, gen, tag):
     return row
 
 
-def check_keep_basis(op, fin, fout, gen, tag):
-    """K1b: K1 with keep_basis (y, z1, z2) vs its plain version; the one call
-    held against it is counted as this variant's launch."""
+def check_keep_basis(op, fin, fout, gen, tag, dtype=None):
+    """K1b: K1 with keep_basis (y, z1, z2) vs its plain version, bf16 (or its
+    `dtype` instance); the one call held against it is counted as this
+    variant's launch."""
     import torch
     from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     band = op.band_val.to(dev, bf)
     V = op.num_vertices
     x = (torch.randn(V, BATCH, fin, generator=gen, device=dev) * 0.5).to(bf)
@@ -726,7 +785,8 @@ def check_keep_basis(op, fin, fout, gen, tag):
                                                 b.float(), keep_basis=True),
         ("y", "z1", "z2"), V,
         2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout,
-        nbytes(x, W, b) + V * BATCH * (fout + 2 * fin) * 2 + nnz * 2)
+        nbytes(x, W, b) + (V * BATCH * (fout + 2 * fin) + nnz) * x.element_size(),
+        dtype=dtype)
     row["launches"] = launches
     log(f"  {tag:10s} keep_basis: {launches} launch of the check")
     return row
@@ -886,18 +946,19 @@ def train_step_vs_plain(setup, state):
     return loss_k, loss_p, errs, left_out, plain_ms
 
 
-def step_check(label, loss_k, loss_p, grad_errs, left_out, plain_step_ms) -> dict:
+def step_check(label, loss_k, loss_p, grad_errs, left_out, plain_step_ms,
+               loss_tol=STEP_LOSS_TOL, grad_tol=STEP_GRAD_TOL) -> dict:
     """Print and hold one train_step_vs_plain comparison; returns its
     figures."""
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]
     log(f"  step vs plain-version step ({label}): total {loss_k:.6f} vs {loss_p:.6f} "
-        f"(rel {loss_err:.2e}, tolerance {STEP_LOSS_TOL}); gradient rel_l2 max "
-        f"{worst[0][1]:.3e} (tolerance {STEP_GRAD_TOL}), worst {worst}; "
+        f"(rel {loss_err:.2e}, tolerance {loss_tol}); gradient rel_l2 max "
+        f"{worst[0][1]:.3e} (tolerance {grad_tol}), worst {worst}; "
         f"plain step {plain_step_ms:.3f} ms")
     log(f"  biases feeding a BatchNorm (|grad| kernels, plain): "
         f"{ {n: (round(a, 8), round(b, 8)) for n, (a, b) in left_out.items()} }")
-    if not (loss_err <= STEP_LOSS_TOL and worst[0][1] <= STEP_GRAD_TOL):
+    if not (loss_err <= loss_tol and worst[0][1] <= grad_tol):
         raise SystemExit(f"the train step ({label}) disagrees with the plain-version step")
     return {"loss_rel_err": loss_err, "worst": worst, "grad_rel_l2": grad_errs,
             "zero_grad_biases": left_out, "plain_step_ms": plain_step_ms}
@@ -1944,6 +2005,295 @@ def engine_layer(root: str, card, device: str = "cuda") -> dict:
     return report
 
 
+def f32_kernels(by_v, gen) -> tuple:
+    """Phase 14.1: the float32 instances of the group and commuted convs, K1
+    (with the statistics and the fold, and keep_basis) and K2 against their
+    plain versions on the same float32 inputs, at the main path's shapes and
+    the band_k = 2 level; K1 and K2 run twice to equal bits.  Returns
+    (deploy rows, train rows)."""
+    import torch
+    f32 = torch.float32
+    log(f"phase 14: the float32 instances vs plain (the same float32 inputs), batch "
+        f"{BATCH}, tolerance rel_l2 <= {F32_KERNEL_TOL}; bound at {PEAK_3XTF32_FLOPS / 1e12:.0f} "
+        f"TFLOP/s (3xTF32)")
+    rows = [check_conv(by_v[V], name, fin, fout, ep, gen, f"f32main{i}", f32)
+            for i, (V, name, fin, fout, ep) in enumerate(MAIN_PATH_CONVS)]
+    op2 = k2_level(3475)
+    rows += [check_conv(op2, name, fin, fout, ep, gen, f"f32k2_{i}", f32)
+             for i, (name, fin, fout, ep) in enumerate(K2_CONVS)]
+    train_rows = []
+    for i, (V, fin, fout, fold, stats) in enumerate(TRAIN_CONVS):
+        train_rows += check_train_conv(by_v[V], fin, fout, fold, stats, gen, f"f32train{i}",
+                                       f32)
+    train_rows += check_train_conv(op2, *K2_TRAIN_CONV, gen, "f32k2_train", f32)
+    V, fin, fout = KEEP_BASIS_CONV
+    train_rows.append(check_keep_basis(by_v[V], fin, fout, gen, "f32keep_basis", f32))
+    bad = [(r["tag"], r["name"]) for r in rows + train_rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"float32 kernel check failed: {bad}")
+    return rows, train_rows
+
+
+def f32_forward(deploy, card) -> dict:
+    """Phase 14.2: the float32 deploy forward (group path), REQUESTS
+    requests of batch BATCH: exactly 8 group + 2 commuted convs each, the
+    mesh and joints within F32_FORWARD_TOL of the plain float32 forward."""
+    import torch
+    step, art = deploy.eval_step, deploy.art_compute
+    g = torch.Generator().manual_seed(1)
+    batches = [torch.randn(BATCH, 17, 2, generator=g).cuda() for _ in range(REQUESTS)]
+    step(art, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    outs, times = [], []
+    for p in batches:
+        t0 = time.perf_counter()
+        outs.append(step(art, p))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    log(f"phase 14: float32 deploy forward, {REQUESTS} requests of batch {BATCH}: ms per "
+        f"batch {[round(t, 3) for t in times]} ({card}); launches {launches}")
+    want = expect(fused_cheby_conv=8 * REQUESTS, fused_cheby_conv_commuted=2 * REQUESTS)
+    if launches != want:
+        raise SystemExit(f"float32 forward: launch counts {launches} != {want}")
+    for out in outs:
+        assert [tuple(t.shape) for t in out] == [(BATCH, 6890, 3), (BATCH, 17, 3),
+                                                 (BATCH, 17, 3)]
+        assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
+    ref, plain_ms = plain_forward("group", step, art, batches[0])
+    errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
+            "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1])}
+    log(f"  float32 forward vs plain float32 forward: "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tolerance {F32_FORWARD_TOL}); plain forward {plain_ms:.3f} ms")
+    if max(errs.values()) > F32_FORWARD_TOL:
+        raise SystemExit(f"float32 forward disagrees with the plain forward: {errs}")
+    return {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
+            "plain_forward_ms": plain_ms, **errs}
+
+
+def f32_train(card) -> dict:
+    """Phase 14.3: the float32 train step (smpl_train_setup, float32
+    compute): from the fresh state against the plain-K1/K2 float32 step
+    (loss within F32_STEP_LOSS_TOL, gradients within F32_STEP_GRAD_TOL),
+    then 1 warm-up and TRAIN_STEPS counted steps, exactly 10 K1 + 10 K2
+    each."""
+    import torch
+    from pose2mesh_release_tpu_torch.train_setup import smpl_train_setup
+    t0 = time.time()
+    setup = smpl_train_setup(dtype=torch.float32, device="cuda", seed=0, batch=BATCH)
+    log(f"phase 14: float32 train setup in {time.time() - t0:.1f} s; batch {BATCH}, "
+        f"RMSprop lr {LR}, edge loss on")
+    state = setup.state
+    fresh = step_check("float32, fresh state", *train_step_vs_plain(setup, state),
+                       loss_tol=F32_STEP_LOSS_TOL, grad_tol=F32_STEP_GRAD_TOL)
+    state, warm = setup.train_step(state, setup.art_compute, setup.batch, LR, True,
+                                   setup.generator)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, out = setup.train_step(state, setup.art_compute, setup.batch, LR, True,
+                                      setup.generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    launches = read_launches()
+    log(f"  float32 warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps: ms per "
+        f"step {[round(t, 3) for t in step_ms]} ({card}); totals "
+        f"{[round(l['total'], 5) for l in losses]}; launches {launches}")
+    want = expect(fused_cheby_conv_train=10 * TRAIN_STEPS, fused_cheby_conv_bwd=10 * TRAIN_STEPS)
+    if launches != want:
+        raise SystemExit(f"float32 step: launch counts {launches} != {want}")
+    if not all(math.isfinite(v) for l in losses for v in l.values()) or \
+            not losses[-1]["total"] < losses[0]["total"]:
+        raise SystemExit(f"float32 step: losses {losses}")
+    return {"card": card, "batch": BATCH, "ms_per_step": step_ms, "losses": losses,
+            "launches": launches, "fresh_state": fresh}
+
+
+def f32_engine(root: str, card) -> dict:
+    """Phase 14.4: the entry points with TPU.compute_dtype f32 over phase
+    12's stand-in files: cli.train for one epoch (8 K1 + 8 K2 a step, 8 K1
+    an in-epoch eval forward); cli.test of its best.pth.tar, deploy (6
+    group + 2 commuted a forward) against the training form (8 K1), every
+    metric within F32_DEPLOY_VS_TRAIN_TOL; cli.demo with that checkpoint on
+    the stand-in body's COCO keypoints and --input_img a PNG written with
+    PIL: 8 float32 K1 a person, the mesh before the camera fit within
+    F32_DEMO_MESH_TOL of the same demo's on the CPU."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.cli import demo
+    from pose2mesh_release_tpu_torch.cli import test as cli_test
+    from pose2mesh_release_tpu_torch.cli import train as cli_train
+    out = os.path.join(root, "experiment_f32")
+    f32 = {"TPU": {"compute_dtype": "f32"}}
+    cfg_path = engine_cfg(os.path.join(root, "train_f32.json"), root, out,
+                          TRAIN={"end_epoch": 1}, **f32)
+    reset_launches()
+    t0 = time.time()
+    with EngineProbe() as probe:
+        cli_train.main(["--cfg", cfg_path, "--debug", "--device", "cuda"])
+    wall = time.time() - t0
+    total, forwards = read_launches(), len(probe.eval)
+    _check_steps("float32 cli.train steps", probe.train, TRAIN_STEP_LAUNCHES, DATA_STEPS)
+    _check_steps("float32 cli.train in-epoch eval forwards", probe.eval,
+                 EVAL_TRAIN_FORM_LAUNCHES, forwards)
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (DATA_STEPS + forwards),
+                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * DATA_STEPS)
+    if total != want or forwards == 0:
+        raise SystemExit(f"float32 cli.train launches {total} != {want}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    if not (math.isfinite(epoch["train_loss"]) and math.isfinite(epoch["joint_err"])):
+        raise SystemExit(f"float32 cli.train: {epoch}")
+    train = {"wall_s": wall, "epoch_s": epoch["epoch_s"], "train_s": epoch["train_s"],
+             "ms_per_step": epoch["train_s"] * 1e3 / DATA_STEPS, "loss": epoch["train_loss"],
+             "launches_per_step": probe.train[0], "launches_per_eval_forward": probe.eval[0]}
+    log(f"phase 14: float32 cli.train, 1 epoch of {DATA_STEPS} steps in {wall:.2f} s: epoch "
+        f"wall {epoch['epoch_s']:.3f} s, {train['ms_per_step']:.2f} ms per step, loss "
+        f"{epoch['train_loss']:.5f}; launches per step {probe.train[0]}, per eval forward "
+        f"{probe.eval[0]} ({forwards} forwards) ({card})")
+
+    best = os.path.join(out, "checkpoint", "best.pth.tar")
+    runs = {}
+    for form, deploy, want in (("deploy", True, DATA_DEPLOY_LAUNCHES),
+                               ("training form", False, EVAL_TRAIN_FORM_LAUNCHES)):
+        path = engine_cfg(os.path.join(root, f"test_f32_{deploy}.json"), root, out,
+                          TEST={"deploy": deploy}, **f32)
+        reset_launches()
+        with EngineProbe() as probe:
+            res = cli_test.main(["--cfg", path, "--weights", best, "--debug", "--device",
+                                 "cuda"])
+        _check_steps(f"float32 cli.test ({form}) forwards", probe.eval, want, len(probe.eval))
+        if read_launches() != expect(**{k: v * len(probe.eval) for k, v in want.items()}) \
+                or not probe.eval:
+            raise SystemExit(f"float32 cli.test ({form}): launches {read_launches()}")
+        runs[form] = {"result": res, "eval_ms": probe.eval_ms,
+                      "launches_per_forward": probe.eval[0]}
+    keys = ("joint_err", "mesh_err", "mpjpe", "pa_mpjpe", "mpvpe")
+    dep, tf = runs["deploy"]["result"], runs["training form"]["result"]
+    rel = {k: abs(dep[k] - tf[k]) / abs(tf[k]) for k in keys}
+    log(f"phase 14: float32 cli.test: deploy eval-step ms per batch "
+        f"{[round(t, 3) for t in runs['deploy']['eval_ms']]}, launches per forward "
+        f"{runs['deploy']['launches_per_forward']}; training form ms per batch "
+        f"{[round(t, 3) for t in runs['training form']['eval_ms']]}; deploy vs training form "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tolerance {F32_DEPLOY_VS_TRAIN_TOL}) "
+        f"({card})")
+    if not all(v <= F32_DEPLOY_VS_TRAIN_TOL for v in rel.values()):
+        raise SystemExit(f"float32 deploy Tester disagrees with the training-form eval: {rel}")
+
+    # the demo: the stand-in body's COCO keypoints, a PNG written with PIL
+    smpl = SMPL(data_dir=root)
+    np.save(os.path.join(root, "coco_f32.npy"), _pixels(smpl.joint_regressor_coco
+                                                         @ smpl.v_template))
+    img = np.random.default_rng(14).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    png = os.path.join(root, "photo.png")
+    Image.fromarray(img).save(png)
+    decoder = "matplotlib" if importlib.util.find_spec("matplotlib") else "PIL"
+    if not np.array_equal(demo._read_image(png), img):
+        raise SystemExit(f"--input_img: the {decoder} decode differs from the PNG's pixels")
+    demo_runs = {}
+    for device, extra in (("cuda", ["--input_img", png]), ("cpu", ["--cam_steps", "20"])):
+        argv = ["--input_pose", os.path.join(root, "coco_f32.npy"), "--joint_set", "coco",
+                "--weights", best, "--device", device,
+                "--out_dir", os.path.join(out, f"demo_{device}")] + extra
+        reset_launches()
+        t0 = time.time()
+        res = demo.main(argv)
+        wall = time.time() - t0
+        (person,) = res["people"]
+        with open(person["obj"]) as f:
+            verts = np.array([[float(v) for v in line.split()[1:]] for line in f
+                              if line.startswith("v ")])
+        demo_runs[device] = {"wall_s": wall, "forward_s": person["forward_s"],
+                             "camera_ms": person["camera_s"] * 1e3, "launches": read_launches(),
+                             "verts": verts, "joints3d": np.float64(person["joints3d"])}
+    card_run = demo_runs["cuda"]
+    if card_run["launches"] != expect(fused_cheby_conv_train=DATA_TRAIN_CONVS) or \
+            demo_runs["cpu"]["launches"] != expect():
+        raise SystemExit(f"float32 demo launches {card_run['launches']}")
+    if not os.path.exists(os.path.join(out, "demo_cuda", "person_0_overlay.png")):
+        raise SystemExit("float32 demo: no overlay on the --input_img photo")
+
+    def rel_np(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    mesh_err = rel_np(card_run["verts"], demo_runs["cpu"]["verts"])
+    joints_err = rel_np(card_run["joints3d"], demo_runs["cpu"]["joints3d"])
+    log(f"phase 14: float32 demo, --input_img {decoder}-decoded PNG: {card_run['wall_s']:.2f} s "
+        f"a person (forward {card_run['forward_s']:.4f} s, camera fit "
+        f"{card_run['camera_ms']:.1f} ms); launches {card_run['launches']}; mesh card vs CPU "
+        f"rel_l2 {mesh_err:.2e}, joints {joints_err:.2e} (tolerance {F32_DEMO_MESH_TOL}) "
+        f"({card})")
+    if not (mesh_err <= F32_DEMO_MESH_TOL and joints_err <= F32_DEMO_MESH_TOL):
+        raise SystemExit(f"float32 demo: the card's mesh differs from the CPU's ({mesh_err}, "
+                         f"{joints_err})")
+    demo_out = {"decoder": decoder, "s_per_person": card_run["wall_s"],
+                "forward_s": card_run["forward_s"], "camera_ms": card_run["camera_ms"],
+                "launches": card_run["launches"], "mesh_vs_cpu": mesh_err,
+                "joints_vs_cpu": joints_err}
+    return {"train": train, "test": {"runs": runs, "rel_diff": rel}, "demo": demo_out}
+
+
+def f32_layer(root: str, card) -> dict:
+    """Phase 14: the float32 instances and the float32 paths at full SMPL
+    width (14.1 kernels, 14.2 deploy forward, 14.3 train step, 14.4 the
+    entry points over phase 12's stand-in files under `root`)."""
+    import torch
+    from pose2mesh_release_tpu_torch.deploy import smpl_deploy_forward
+    precision = getattr(torch.backends.cuda.matmul, "fp32_precision", "ieee")
+    log(f"phase 14: float32; matmul allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"fp32_precision {precision}, cudnn allow_tf32 {torch.backends.cudnn.allow_tf32} "
+        f"({card})")
+    if torch.backends.cuda.matmul.allow_tf32 or precision != "ieee":
+        raise SystemExit("phase 14: the plain float32 versions need full float32 matmuls")
+    deploy = smpl_deploy_forward(dtype=torch.float32, device="cuda", seed=0)
+    by_v = {op.num_vertices: op for op in deploy.art.mesh_ops}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows, train_rows = f32_kernels(by_v, gen)
+    report = {"convs": rows, "train_convs": train_rows, "forward": f32_forward(deploy, card)}
+    del deploy
+    torch.cuda.empty_cache()
+    report["train"] = f32_train(card)
+    torch.cuda.empty_cache()
+    report["engine"] = f32_engine(root, card)
+    return report
+
+
+def kernel_table(rows, launches_of, main_tags, suffix="") -> list:
+    """The {"kernels": ...} rows of SOURCES' kernels (name + suffix): per
+    kernel its launches on its path, ms, plain ms, library ms and bound
+    summed over the shapes of one pass of that path (the rows whose tags
+    start with main_tags)."""
+    kernels = []
+    for name in SOURCES:
+        every = [r for r in rows if r["name"] == name]
+        if not every:
+            continue
+        main = [r for r in every if r["tag"].startswith(main_tags)]
+        lib = [r["library_ms"] for r in main]
+        kernels.append({
+            "name": name + suffix, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": launches_of[name],
+            "max_abs_err": max(r["max_abs_err"] for r in every),
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in main)
+                         * 2 >= len(main) else "operations"),
+            "library_ms": None if None in lib else sum(lib),
+            "status": "ok",
+            "shapes_per_pass": len(main),
+        })
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2176,25 +2526,7 @@ def main() -> int:
                    **{n: c[n] for n, c in path_launches.items()},
                    "fused_cheby_conv_train(keep_basis)": keep_row["launches"]}
     main_tags = ("main", "train", "hop", "strip", "window", "keep_basis")
-    kernels = []
-    for name in SOURCES:
-        every = [r for r in rows + path_rows + train_rows if r["name"] == name]
-        main = [r for r in every if r["tag"].startswith(main_tags)]
-        lib = [r["library_ms"] for r in main]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": launches_of[name],
-            "max_abs_err": max(r["max_abs_err"] for r in every),
-            "ms": sum(r["ms"] for r in main),
-            "plain_ms": sum(r["plain_ms"] for r in main),
-            "bound_ms": sum(r["bound_ms"] for r in main),
-            "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in main)
-                         * 2 >= len(main) else "operations"),
-            "library_ms": None if None in lib else sum(lib),
-            "status": "ok",
-            "shapes_per_pass": len(main),
-        })
+    kernels = kernel_table(rows + path_rows + train_rows, launches_of, main_tags)
     report["kernels"] = kernels
 
     # -- phases 12-13: the data layer, then the engine and the entry points,
@@ -2205,6 +2537,16 @@ def main() -> int:
         log(f"phase 12: stand-in annotation files written in {time.time() - t0:.2f} s")
         data = report["data"] = data_layer(root, card, report["train"]["ms_per_step"])
         eng = report["engine"] = engine_layer(root, card)
+        # -- phase 14: the float32 instances and paths --------------------------
+        f32 = report["f32"] = f32_layer(root, card)
+    f32_launches = {"fused_cheby_conv": f32["forward"]["launches"]["fused_cheby_conv"],
+                    "fused_cheby_conv_commuted":
+                        f32["forward"]["launches"]["fused_cheby_conv_commuted"],
+                    **{n: f32["train"]["launches"][n] for n in TRAIN_KERNELS},
+                    "fused_cheby_conv_train(keep_basis)": f32["train_convs"][-1]["launches"]}
+    kernels += kernel_table(f32["convs"] + f32["train_convs"], f32_launches,
+                            ("f32main", "f32train", "f32keep_basis"), "[f32]")
+    report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2241,6 +2583,22 @@ def main() -> int:
                  for k, v in eng["demo"].items() if k != "camera_well_posed"},
         "camera_well_posed_vs_cpu": eng["demo"]["camera_well_posed"]}}),
         flush=True)
+    f32_eng = f32["engine"]
+    print(json.dumps({"f32": {
+        "card": card, "forward_ms_per_batch": f32["forward"]["ms_per_batch"],
+        "forward_launches": f32["forward"]["launches"],
+        "forward_vs_plain": {k: f32["forward"][k] for k in ("mesh_vs_plain",
+                                                             "reg_pose_vs_plain")},
+        "step_ms": f32["train"]["ms_per_step"], "step_launches": f32["train"]["launches"],
+        "step_loss_rel_err": f32["train"]["fresh_state"]["loss_rel_err"],
+        "step_worst_grad_rel_l2": f32["train"]["fresh_state"]["worst"][0],
+        "fit_ms_per_step": f32_eng["train"]["ms_per_step"],
+        "fit_launches_per_step": f32_eng["train"]["launches_per_step"],
+        "test_deploy_ms_per_batch": f32_eng["test"]["runs"]["deploy"]["eval_ms"],
+        "test_deploy_launches_per_forward":
+            f32_eng["test"]["runs"]["deploy"]["launches_per_forward"],
+        "deploy_vs_training_form_rel": f32_eng["test"]["rel_diff"],
+        "demo": f32_eng["demo"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

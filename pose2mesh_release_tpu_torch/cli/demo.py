@@ -15,10 +15,11 @@ z-buffer overlay render (utils.renderer) + .obj dump.  The multi-person
 path reads HigherHRNet-format COCO json, adds pelvis/neck,
 confidence-filters and NMS-dedups boxes (run.py:253-326).
 
-The cascade computes in default_config().TPU.compute_dtype (bf16) on the
-card, where the band kernels take bfloat16, and in float32 on the CPU.
-Drawings are PNGs written by utils.vis; --input_img needs matplotlib to
-decode the photo.
+The cascade computes in float32 on every device, as the JAX demo's default
+Pose2Mesh does (on the card its band convs run the kernels' float32
+instances).  Drawings are PNGs written by utils.vis; --input_img decodes the
+photo with matplotlib, as the JAX demo does, or with PIL where matplotlib is
+missing.
 """
 from __future__ import annotations
 
@@ -159,11 +160,19 @@ def _nms_people(dets, joint_thr=0.1, box_iou_thr=0.6):
 
 
 def _read_image(path: str) -> np.ndarray:
+    """The photo's first three channels as uint8: matplotlib's imread, its
+    floats in [0, 1] scaled by 255 (the JAX demo's decode), or where
+    matplotlib is missing PIL's decode, the same pixels for 8-bit files."""
     try:
         import matplotlib.image as mpimg
-    except ImportError as e:
-        raise RuntimeError("--input_img needs matplotlib to decode the photo, and it is "
-                           "not installed") from e
+    except ImportError:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise RuntimeError("--input_img needs matplotlib or PIL to decode the photo, "
+                               "and neither is installed") from e
+        with Image.open(path) as im:
+            return np.asarray(im)[..., :3]
     img = np.asarray(mpimg.imread(path))[..., :3]
     return (img * 255).astype(np.uint8) if img.max() <= 1.0 else img
 
@@ -187,8 +196,7 @@ def main(argv=None):
 
     cfg = default_config()
     dev = resolve_device(args.device)
-    dtype = (torch.bfloat16 if dev.type == "cuda" and cfg.TPU.compute_dtype == "bf16"
-             else torch.float32)
+    dtype = torch.float32  # the JAX demo's default Pose2Mesh, whatever the device
     os.makedirs(args.out_dir, exist_ok=True)
     mesh_model, js, levels, regressor = _setting(args.joint_set)
     art_host = pyramid_for(np.asarray(mesh_model.face), js, levels)

@@ -1,5 +1,6 @@
-// The banded hop engine: y[:, cols] = bf16(act(alpha * (L x)[:, cols] + beta * add[:, cols])
-// (+ post[:, cols])) for the banded Laplacian L, float32 accumulation, one rounding.
+// The banded hop engine: y[:, cols] = T(act(alpha * (L x)[:, cols] + beta * add[:, cols])
+// (+ post[:, cols])) for the banded Laplacian L, float32 accumulation, one rounding
+// for the bf16 operand type T and none for float32.
 //
 // Used by K4 (csrc/banded_hop.cu: alpha = 1, beta = 0), by the fused training
 // backward K2 (csrc/fused_cheby_bwd.cu: g1 = L g, then h2 = 2 L g1 - g with
@@ -37,14 +38,15 @@
 //               window conv (ops/window_cheby.py window_cat) is this layout
 //               with h = T, Wd = (2k+1) T and off = its window offsets.
 // ops/hop.py hop_layout mirrors this addressing.
-// x, add, post, y (V, C) bf16 row-major, C a multiple of 16, V <= nt*T.  Rows
-// >= V read as zero and are never written.  The epilogue (the template
-// parameter EPI): kHopAdd a bf16 add operand (or none), then the ReLU where
-// `relu` is set; kHopF32Add a float32 add operand (read as float2; 8-byte
-// aligned), then the ReLU; kHopSkipAdd and kHopSkipProj as kHopAdd, then a
-// bf16 (skip add) or float32 (skip projection) `post` operand added after the
-// activation, before the one rounding (the strip conv's commuted order with
-// a skip).
+// L, x, add, post, y (V, C) of the operand type T (bf16, or float32: the
+// float32 instances, block band only) row-major, C a multiple of 16, V <=
+// nt*T.  Rows >= V read as zero and are never written.  The epilogue (the
+// template parameter EPI): kHopAdd an add operand of type T (or none), then
+// the ReLU where `relu` is set; kHopF32Add a float32 add operand (read as
+// float2; 8-byte aligned), then the ReLU (at T = float32 the same as
+// kHopAdd); kHopSkipAdd and kHopSkipProj as kHopAdd, then a T (skip add) or
+// float32 (skip projection) `post` operand added after the activation,
+// before the one rounding (the strip conv's commuted order with a skip).
 //
 // Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores, cp.async staging):
 //   * Work items are (row tile t, CC-column chunk), t-major.  A persistent
@@ -63,6 +65,16 @@
 //     the nonzero sub-tiles stays in registers; the epilogue writes packed
 //     bf16 pairs (4 bytes per lane, neighbouring lanes on neighbouring
 //     addresses) with no float32 staging.
+//   * float32 (T = float): the same tiles, masks, ring and grid, the
+//     products by 3xTF32 on mma.sync m16n8k8 (each operand split into a
+//     TF32 big and small part, three products; one TF32 product keeps about
+//     three decimal digits), the three summed into a zeroed partial that is
+//     added to the sum with an IEEE float32 add, so the tensor core's
+//     truncating accumulation never runs along the sum.  A sub-tile's A
+//     fragment takes 8 registers (raw float32, split at each use), so fewer
+//     are kept (hop_cap); the operands load with 32-bit shared loads
+//     (ldmatrix moves b16 elements).  The staged row stride CC + 8 keeps
+//     those loads free of bank conflicts.
 // Bound on the H100: at the band's nonzeros the hop does ~1 operation per
 // byte, so device memory bounds it (x read once, y written once).
 #pragma once
@@ -75,6 +87,14 @@ namespace p2m {
 
 // nonzero 16 x 16 band sub-tiles whose A fragments a warp keeps in registers
 constexpr int kHopCap = 12;
+// ... at float32, by chunk width (each fragment takes 8 registers)
+template <typename T, int CC>
+__host__ __device__ constexpr int hop_cap() {
+  return sizeof(T) == 2 ? kHopCap : (CC <= 16 ? 6 : 3);
+}
+// registers of one sub-tile's A fragment
+template <typename T>
+__host__ __device__ constexpr int frag_regs() { return sizeof(T) == 2 ? 4 : 8; }
 // the engine's pipeline depth (x chunks in flight)
 constexpr int kHopStages = 2;
 // blocks the engine keeps on an SM (registers: 65536 / (256 x this))
@@ -92,6 +112,83 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 8 tf32, row-major fragment) @ b (8 x 8 tf32, column-major fragment)
+__device__ __forceinline__ void mma1688(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = big + small to about 2^-22 of x, both TF32 (round to nearest)
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// d += a @ b in float32 by 3xTF32: small x big + big x small + big x big (the
+// small x small term is below float32's precision) into a zeroed partial,
+// then added to d with IEEE adds.  The fragments of m16n8k8 leave d in the
+// layout of m16n8k16, so the epilogues serve both operand types.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ab)[4],
+                                           const unsigned (&as)[4], unsigned bb0,
+                                           unsigned bb1, unsigned bs0, unsigned bs1) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma1688(t, as, bb0, bb1);
+  mma1688(t, ab, bs0, bs1);
+  mma1688(t, ab, bb0, bb1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+}
+
+// d += a @ b for one float32 k8 step: a the raw float32 A fragment of
+// m16n8k8 (rows g, g + 8, columns c, c + 4), b0 / b1 the B elements at rows
+// c / c + 4 of column g.
+__device__ __forceinline__ void mma_f32(float (&d)[4], const unsigned (&ab)[4],
+                                        const unsigned (&as)[4], float b0, float b1) {
+  unsigned bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_3xtf32(d, ab, as, bb0, bb1, bs0, bs1);
+}
+
+// the big and small TF32 parts of a raw float32 fragment
+__device__ __forceinline__ void split_frag(const unsigned* a, unsigned (&ab)[4],
+                                           unsigned (&as)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ab[i], as[i]);
+}
+
+// acc[mi][ni] += A[16 mi .. +16, 0 .. K) @ B[0 .. K, 8 ni .. +8) for float32
+// tiles in shared memory (the GEMMs' float32 k-loops): A's element (i, k) at
+// a[i * ar + k * ak] (row-major, or transposed for K2's u^T), B's (k, j) at
+// b[k * ldb + j]; 3xTF32 k8 steps, A split once per step, B once per column
+// tile.
+template <int K, int MI, int NI>
+__device__ __forceinline__ void mma_tile_f32(float (&acc)[MI][NI][4], const float* a, int ar,
+                                             int ak, const float* b, int ldb) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, c = lane & 3;
+#pragma unroll 1  // unrolled, the k8 steps' loads spill the 64-column projection
+  for (int k8 = 0; k8 < K; k8 += 8) {
+    unsigned ab[MI][4], as[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const float* r = a + (mi * 16 + g) * ar + (k8 + c) * ak;
+      const unsigned raw[4] = {__float_as_uint(r[0]), __float_as_uint(r[8 * ar]),
+                               __float_as_uint(r[4 * ak]), __float_as_uint(r[8 * ar + 4 * ak])};
+      split_frag(raw, ab[mi], as[mi]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const float* q = b + (k8 + c) * ldb + ni * 8 + g;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) mma_f32(acc[mi][ni], ab[mi], as[mi], q[0], q[4 * ldb]);
+    }
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
@@ -134,6 +231,20 @@ __device__ __forceinline__ void load_a_global(unsigned (&a)[4], const bf16* tile
   a[3] = *reinterpret_cast<const unsigned*>(tile + (g + 8) * ld + c + 8);
 }
 
+// The float32 A fragments of a 16 x 16 tile for two m16n8k8 steps: a[4s ..
+// 4s + 4) the columns 8s .. 8s + 8 (rows g, g + 8; columns c, c + 4), raw
+// float32 bits.
+__device__ __forceinline__ void load_a_global(unsigned (&a)[8], const float* tile, int ld) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    a[4 * s] = __float_as_uint(tile[g * ld + 8 * s + c]);
+    a[4 * s + 1] = __float_as_uint(tile[(g + 8) * ld + 8 * s + c]);
+    a[4 * s + 2] = __float_as_uint(tile[g * ld + 8 * s + c + 4]);
+    a[4 * s + 3] = __float_as_uint(tile[(g + 8) * ld + 8 * s + c + 4]);
+  }
+}
+
 // acc[q] += a @ rows[:, 8q .. 8q+8) for q < NQ, rows 16 x (8 NQ) bf16 in
 // shared memory, row-major with leading dimension ld.
 template <int NQ>
@@ -150,43 +261,62 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NQ][4], const unsigned (&a
   }
 }
 
+// ... float32 rows by 3xTF32 (two k8 steps), B by 32-bit shared loads
+template <int NQ>
+__device__ __forceinline__ void mma_rows(float (&acc)[NQ][4], const unsigned (&a)[8],
+                                         const float* rows, int ld) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    unsigned ab[4], as[4];
+    split_frag(a + 4 * s, ab, as);
+    const float* p = rows + (8 * s + c) * ld + g;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) mma_f32(acc[q], ab, as, p[q * 8], p[4 * ld + q * 8]);
+  }
+}
+
 // the engine's epilogues (the template parameter EPI)
 constexpr int kHopAdd = 0, kHopF32Add = 1, kHopSkipAdd = 2, kHopSkipProj = 3;
 
-struct HopArgs {
-  const bf16* band;  // the block band, or the strip form (STRIP)
-  const bf16* x;
-  const bf16* add;  // bf16 add operand; null: beta is not used (not with kHopF32Add)
-  bf16* y;
+template <typename T>
+struct HopArgsT {
+  const T* band;  // the block band, or the strip form (STRIP)
+  const T* x;
+  const T* add;  // add operand; null: beta is not used (not with kHopF32Add)
+  T* y;
   float alpha, beta;
   int V, nt, k, C;               // k: the block band's band_k
   const float* addf = nullptr;   // kHopF32Add: the float32 add operand (V, C)
   const int* wrow = nullptr;     // STRIP: v0(t, w), the warps' source rows (nt, 8)
   int relu = 0;                  // ReLU after the add
   int ld = 0, span = 0;          // STRIP: Wd, the staged 16-row groups of a row tile
-  const bf16* post = nullptr;    // kHopSkipAdd: bf16 (V, C) added after the activation
+  const T* post = nullptr;       // kHopSkipAdd: (V, C) added after the activation
   const float* postf = nullptr;  // kHopSkipProj: float32 (V, C) added after the activation
 };
+using HopArgs = HopArgsT<bf16>;
 
 // 16-row source groups the engine stages for the block band
 __host__ __device__ constexpr int band_span(int k) { return 8 * (2 * k + 1); }
 
-// Shared memory of the engine's x ring for CC-column chunks and `span`
-// staged 16-row groups (must match ops/hop.py hop_smem).
-__host__ __device__ constexpr size_t band_hop_smem(int CC, int span) {
-  return (size_t)kHopStages * span * 16 * (CC + 8) * sizeof(bf16);
+// Shared memory of the engine's x ring for CC-column chunks of `esize`-byte
+// elements and `span` staged 16-row groups (must match ops/hop.py hop_smem).
+__host__ __device__ constexpr size_t band_hop_smem(int CC, int span, int esize = 2) {
+  return (size_t)kHopStages * span * 16 * (CC + 8) * esize;
 }
 
-template <int CC, bool STRIP, int EPI>
+template <typename T, int CC, bool STRIP, int EPI>
 __global__ void __launch_bounds__(kThreads, kHopBlocksPerSm)
-band_hop_kernel(HopArgs a, int per_block) {
-  constexpr int LD = CC + 8;  // staged row stride: 16 bytes of pad against bank conflicts
+band_hop_kernel(HopArgsT<T> a, int per_block) {
+  constexpr int LD = CC + 8;  // staged row stride: 8 elements of pad against bank conflicts
   constexpr int NQ = CC / 8;  // n8 tiles of a chunk
-  constexpr int VPR = CC / 8; // 16-byte vectors of a staged row
+  constexpr int VE = vec_elems<T>();
+  constexpr int VPR = CC / VE;  // 16-byte vectors of a staged row
+  constexpr int CAP = hop_cap<T, CC>();
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ unsigned long long wmask[kWarps];
   __shared__ int wshift[kWarps];  // STRIP: each warp's staged-row offset into the ring
-  bf16* xs = reinterpret_cast<bf16*>(smem);
+  T* xs = reinterpret_cast<T*>(smem);
   const int nbd = 2 * a.k + 1;
   const int ngrp = STRIP ? a.span : band_span(a.k);  // staged 16-row groups of a row tile
   const int stage_elems = ngrp * 16 * LD;
@@ -207,28 +337,34 @@ band_hop_kernel(HopArgs a, int per_block) {
     const int t = it / nch;
     const int n = min(it_end, (t + 1) * nch) - it;  // chunks of tile t in this run
     // 1. this warp's nonzero sub-tiles of operator rows t*T + 16*warp .. +16,
-    // in batches of 8 (the strip form's last batch may be partial)
-    const bf16* brow = a.band + (long)t * kT * ld + warp * 16 * ld;
+    // in batches of 8 (the strip form's last batch may be partial); a lane
+    // reads 8 elements of a sub-tile's row (two 16-byte loads at float32)
+    const T* brow = a.band + (long)t * kT * ld + warp * 16 * ld;
     const int nsub = STRIP ? a.ld / 16 : 8 * nbd;
     unsigned long long mine = 0;
     for (int d = 0; 8 * d < nsub; ++d) {
       if (!STRIP && (t + d - a.k < 0 || t + d - a.k >= a.nt)) continue;
-      const bf16* bb = brow + sub(8 * d) + (lane / 2) * ld + (lane % 2) * 8;
+      const T* bb = brow + sub(8 * d) + (lane / 2) * ld + (lane % 2) * 8;
       uint4 v[8];
 #pragma unroll
-      for (int cg = 0; cg < 8; ++cg)
+      for (int cg = 0; cg < 8; ++cg) {
         v[cg] = !STRIP || 8 * d + cg < nsub ? *reinterpret_cast<const uint4*>(bb + cg * 16)
                                             : make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (VE == 4) {
+          const uint4 w = *reinterpret_cast<const uint4*>(bb + cg * 16 + 4);
+          v[cg].x |= w.x, v[cg].y |= w.y, v[cg].z |= w.z, v[cg].w |= w.w;
+        }
+      }
 #pragma unroll
       for (int cg = 0; cg < 8; ++cg)
         if (__ballot_sync(0xffffffffu, (v[cg].x | v[cg].y | v[cg].z | v[cg].w) != 0u))
           mine |= 1ull << (d * 8 + cg);
     }
-    unsigned af[kHopCap][4];
+    unsigned af[CAP][frag_regs<T>()];
     {
       unsigned long long rem = mine;
 #pragma unroll
-      for (int s = 0; s < kHopCap; ++s) {
+      for (int s = 0; s < CAP; ++s) {
         if (rem) {
           const int j = __ffsll((long long)rem) - 1;
           rem &= rem - 1;
@@ -257,10 +393,10 @@ band_hop_kernel(HopArgs a, int per_block) {
 
     // 2. stage the needed x rows of a chunk: source rows vmin(t) + r
     auto stage = [&](int buf, int c0) {
-      bf16* dst = xs + buf * stage_elems;
+      T* dst = xs + buf * stage_elems;
       const long v0 = STRIP ? (long)a.wrow[t * kWarps] : (long)(t - a.k) * kT;
       for (int e = threadIdx.x; e < ngrp * 16 * VPR; e += kThreads) {
-        const int r = e / VPR, col = (e % VPR) * 8;
+        const int r = e / VPR, col = (e % VPR) * VE;
         if (!((need >> (r / 16)) & 1ull)) continue;
         const long v = v0 + r;
         const bool ok = v >= 0 && v < a.V;
@@ -274,13 +410,13 @@ band_hop_kernel(HopArgs a, int per_block) {
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
-      const bf16* xb = xs + (i % kHopStages) * stage_elems + (STRIP ? wshift[warp] : 0);
+      const T* xb = xs + (i % kHopStages) * stage_elems + (STRIP ? wshift[warp] : 0);
       float acc[NQ][4];
 #pragma unroll
       for (int q = 0; q < NQ; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
       unsigned long long rem = mine;
 #pragma unroll
-      for (int s = 0; s < kHopCap; ++s) {
+      for (int s = 0; s < CAP; ++s) {
         if (!rem) break;
         const int j = __ffsll((long long)rem) - 1;
         rem &= rem - 1;
@@ -289,11 +425,11 @@ band_hop_kernel(HopArgs a, int per_block) {
       while (rem) {  // beyond the register slots: fragments from L2
         const int j = __ffsll((long long)rem) - 1;
         rem &= rem - 1;
-        unsigned fa[4];
+        unsigned fa[frag_regs<T>()];
         load_a_global(fa, brow + sub(j), ld);
         mma_rows<NQ>(acc, fa, xb + j * 16 * LD, LD);
       }
-      // 3. epilogue: y = act(alpha * acc + beta * add) (+ post), packed bf16 pairs
+      // 3. epilogue: y = act(alpha * acc + beta * add) (+ post), packed pairs
       const int c0 = ((it + i) % nch) * CC + 2 * cq;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -309,8 +445,7 @@ band_hop_kernel(HopArgs a, int per_block) {
             y0 = __fadd_rn(y0, __fmul_rn(a.beta, ad.x));
             y1 = __fadd_rn(y1, __fmul_rn(a.beta, ad.y));
           } else if (a.add) {
-            const float2 ad =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.add + off));
+            const float2 ad = load2(a.add + off);
             y0 = __fadd_rn(y0, __fmul_rn(a.beta, ad.x));
             y1 = __fadd_rn(y1, __fmul_rn(a.beta, ad.y));
           }
@@ -319,8 +454,7 @@ band_hop_kernel(HopArgs a, int per_block) {
             y1 = fmaxf(y1, 0.0f);
           }
           if constexpr (EPI == kHopSkipAdd) {
-            const float2 ps =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.post + off));
+            const float2 ps = load2(a.post + off);
             y0 = __fadd_rn(y0, ps.x);
             y1 = __fadd_rn(y1, ps.y);
           } else if constexpr (EPI == kHopSkipProj) {
@@ -328,7 +462,7 @@ band_hop_kernel(HopArgs a, int per_block) {
             y0 = __fadd_rn(y0, ps.x);
             y1 = __fadd_rn(y1, ps.y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(a.y + off) = __floats2bfloat162_rn(y0, y1);
+          store2(a.y + off, y0, y1);
         }
       }
       __syncthreads();  // the buffer is restaged two chunks on
@@ -337,25 +471,27 @@ band_hop_kernel(HopArgs a, int per_block) {
   }
 }
 
-template <int CC, bool STRIP, int EPI>
-inline cudaError_t launch_band_hop_cc(const HopArgs& a, int grid, int per_block, size_t smem,
-                                      cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(band_hop_kernel<CC, STRIP, EPI>,
+template <typename T, int CC, bool STRIP, int EPI>
+inline cudaError_t launch_band_hop_cc(const HopArgsT<T>& a, int grid, int per_block,
+                                      size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(band_hop_kernel<T, CC, STRIP, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  band_hop_kernel<CC, STRIP, EPI><<<grid, kThreads, smem, stream>>>(a, per_block);
+  band_hop_kernel<T, CC, STRIP, EPI><<<grid, kThreads, smem, stream>>>(a, per_block);
   return cudaGetLastError();
 }
 
 // One engine launch over the plan's grid (ops/hop.py hop_plan): cc columns
-// per chunk (16, 32 or 64, dividing C), grid blocks of per_block items each.
-// STRIP: L in its strip form (a.wrow, a.ld and a.span set; a.k is not
-// read); otherwise the block band at band_k a.k in {1, 2}, which stages
-// band_span(a.k) groups.  EPI: the epilogue and the operands it reads.
-template <bool STRIP = false, int EPI = kHopAdd>
-inline cudaError_t launch_band_hop(const HopArgs& a0, int cc, int grid, int per_block,
+// per chunk (16, 32 or 64, dividing C; at float32 16 or 32), grid blocks of
+// per_block items each.  STRIP: L in its strip form (a.wrow, a.ld and
+// a.span set; a.k is not read; bf16 only); otherwise the block band at
+// band_k a.k in {1, 2}, which stages band_span(a.k) groups.  EPI: the
+// epilogue and the operands it reads.
+template <bool STRIP = false, int EPI = kHopAdd, typename T>
+inline cudaError_t launch_band_hop(const HopArgsT<T>& a0, int cc, int grid, int per_block,
                                    cudaStream_t stream) {
-  HopArgs a = a0;
+  static_assert(sizeof(T) == 2 || !STRIP, "the strip form has bf16 instances only");
+  HopArgsT<T> a = a0;
   if (!STRIP) a.span = band_span(a.k);
   const long items = (long)a.nt * (a.C / (cc > 0 ? cc : 1));
   bool bad = cc <= 0 || a.C % cc || grid <= 0 || per_block <= 0 ||
@@ -373,12 +509,15 @@ inline cudaError_t launch_band_hop(const HopArgs& a0, int cc, int grid, int per_
        reinterpret_cast<uintptr_t>(a.add) | reinterpret_cast<uintptr_t>(a.post)) % 16 ||
       (reinterpret_cast<uintptr_t>(a.addf) | reinterpret_cast<uintptr_t>(a.postf)) % 8)
     return cudaErrorMisalignedAddress;
-  const size_t smem = band_hop_smem(cc, a.span);
+  const size_t smem = band_hop_smem(cc, a.span, (int)sizeof(T));
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   switch (cc) {
-    case 16: return launch_band_hop_cc<16, STRIP, EPI>(a, grid, per_block, smem, stream);
-    case 32: return launch_band_hop_cc<32, STRIP, EPI>(a, grid, per_block, smem, stream);
-    case 64: return launch_band_hop_cc<64, STRIP, EPI>(a, grid, per_block, smem, stream);
+    case 16: return launch_band_hop_cc<T, 16, STRIP, EPI>(a, grid, per_block, smem, stream);
+    case 32: return launch_band_hop_cc<T, 32, STRIP, EPI>(a, grid, per_block, smem, stream);
+    case 64:
+      if constexpr (sizeof(T) == 2)
+        return launch_band_hop_cc<T, 64, STRIP, EPI>(a, grid, per_block, smem, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

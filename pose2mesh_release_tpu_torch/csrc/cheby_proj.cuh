@@ -2,9 +2,12 @@
 //
 //   y[m, :Fout] = epi(A0[m] W0 + A1[m] W1 + A2[m] W2 + b)   for m < M
 //
-// A0, A1, A2 are (M, F) bf16 row-major (u or x, z1 = L u, z2 = 2 L z1 - u),
+// A0, A1, A2 are (M, F) row-major (u or x, z1 = L u, z2 = 2 L z1 - u),
 // read as the three K-blocks of the basis-major W (3F, Np) = [W0; W1; W2];
-// nothing is concatenated.  float32 accumulation, one rounding to bf16.
+// nothing is concatenated.  The operand type T is bf16 (float32
+// accumulation, one rounding to bf16) or float32 (the float32 instances:
+// 3xTF32 products, see band_hop.cuh, and nothing rounded); every operand and
+// output but the float32 scratch and statistics is of type T.
 // Used by the training conv K1 (csrc/fused_cheby_train.cu), the group
 // deploy conv (csrc/fused_cheby.cu) and the strip and window convs in basis
 // order (csrc/strip_cheby.cu) after two launches of the hop engine
@@ -28,7 +31,7 @@
 //              block s, whose K-loop reads Wc's rows sF .. (s+1)F.  Block 0
 //              writes a = x (W0 - W2) + b and block 1 p1 = x W1 to yf (2, M,
 //              fo) in float32, unrounded as the TPU kernel adds them; block 2
-//              writes p2 = x W2 to y (M, fo) in bf16.  Packed pairs straight
+//              writes p2 = x W2 to y (M, fo) in T.  Packed pairs straight
 //              from registers (float2 / bf16x2), no staging.
 //   kEpiCommutedBf16 the same three blocks, all stored to y (3, M, fo) in
 //              bf16: [p | t0 | u] = bf16([x (W0 - W2) + b | x W1 | x W2]),
@@ -45,8 +48,13 @@
 //   * A and W k-tiles of 32 rows through a 3-stage 16-byte cp.async ring in
 //     shared memory (rows >= M and k >= K zero-filled by the copy),
 //     fragments by ldmatrix (.trans for W).
-//   * The tile is staged in shared memory as bf16 and written with 16-byte
-//     stores where Fout % 8 == 0, element by element otherwise.
+//   * The tile is staged in shared memory as T and written with 16-byte
+//     stores where Fout is a multiple of the vector, element by element
+//     otherwise.
+//   * float32: the same tiles (BN at most 64: registers) and ring, A's
+//     staged row stride BK + 4 (32-bit fragment loads free of bank
+//     conflicts), m16n8k8 3xTF32 steps with the partials added in IEEE
+//     float32.
 // Bound on the H100: at F, Fout >= 64 the product does ~3 Fout / 2 operations
 // per byte of A, far below the 295 of the tensor cores' balance point, so
 // device memory bounds it: A0-A2 read once (M x 3F bf16), y written once.
@@ -62,19 +70,23 @@ constexpr int kProjBM = 128;           // output tile rows
 constexpr int kProjBK = 32;            // k-tile rows
 constexpr int kProjStages = 3;         // cp.async ring depth
 constexpr int kProjBlocksPerSm = 2;    // registers: at most 128 a thread
-constexpr int kProjALd = kProjBK + 8;  // staged A row stride (16 bytes of pad)
+// staged A row stride: 16 bytes of pad (bf16), 4 elements (float32)
+template <typename T>
+__host__ __device__ constexpr int proj_ald() { return kProjBK + (sizeof(T) == 2 ? 8 : 4); }
 
-struct ProjArgs {
-  const bf16* a[3];     // A0, A1, A2: (M, F)
-  const bf16* W;        // (3F, Np) basis-major, zero beyond Fout
-  const bf16* bias;     // (Fout,)
-  const bf16* skip;     // kEpiDeploy: (M, Fs), or null
-  const bf16* skip_w;   // kEpiDeploy: (Fs, Np) for the skip projection, null for the add
-  bf16* y;              // (M, Fout)
+template <typename T>
+struct ProjArgsT {
+  const T* a[3];        // A0, A1, A2: (M, F)
+  const T* W;           // (3F, Np) basis-major, zero beyond Fout
+  const T* bias;        // (Fout,)
+  const T* skip;        // kEpiDeploy: (M, Fs), or null
+  const T* skip_w;      // kEpiDeploy: (Fs, Np) for the skip projection, null for the add
+  T* y;                 // (M, Fout)
   float* part;          // kEpiStats: (gridDim.x, 2 Fout) [sum y; sum y^2] per block
   int M, F, Fout, Np, Fs, relu;
   float* yf = nullptr;  // kEpiCommuted: (2, M, Np / 3) float32 [a; p1]; kEpiF32: (M, Np)
 };
+using ProjArgs = ProjArgsT<bf16>;
 
 // the epilogues of one operand x against column blocks of W (commuted_tile)
 __host__ __device__ constexpr bool proj_blocks(int epi) {
@@ -84,17 +96,20 @@ __host__ __device__ constexpr bool proj_blocks(int epi) {
 // warps across the tile's columns: 2 for BN >= 64, else 1
 __host__ __device__ constexpr int proj_wc(int BN) { return BN >= 64 ? 2 : 1; }
 
-// Dynamic shared memory of the projection (ops/fused_cheby.py proj_plan):
+// Dynamic shared memory of the projection (ops/fused_cheby.py proj_smem):
 // the ring, or the staged output tile if larger, then the statistics slots.
+template <typename T>
 __host__ __device__ constexpr size_t proj_smem(int BN, int Np, bool stats) {
-  const size_t ring = (size_t)kProjStages * (kProjBM * kProjALd + kProjBK * (BN + 8)) * 2;
-  const size_t tile = (size_t)kProjBM * (BN + 8) * 2;
+  const size_t ring =
+      (size_t)kProjStages * (kProjBM * proj_ald<T>() + kProjBK * (BN + 8)) * sizeof(T);
+  const size_t tile = (size_t)kProjBM * (BN + 8) * sizeof(T);
   return (ring > tile ? ring : tile) +
          (stats ? (size_t)2 * (kWarps / proj_wc(BN)) * Np * sizeof(float) : 0);
 }
 
 // ops[b] for b < 3 without indexing the parameter array at run time
-__device__ __forceinline__ const bf16* proj_operand(const ProjArgs& p, int b) {
+template <typename T>
+__device__ __forceinline__ const T* proj_operand(const ProjArgsT<T>& p, int b) {
   return b == 0 ? p.a[0] : (b == 1 ? p.a[1] : p.a[2]);
 }
 
@@ -103,29 +118,30 @@ __device__ __forceinline__ const bf16* proj_operand(const ProjArgs& p, int b) {
 // k % lda of operand k / lda (the skip and the commuted conv: one operand,
 // lda = K).  Warp (wr, wc) owns rows wr*WM .. +WM and columns wc*WN .. +WN
 // of the tile.  Ends with the ring drained and synced.
-template <int BN, int MI, int NI>
-__device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjArgs& p,
-                                           bool skip_ops, int lda, int K, const bf16* Wk,
-                                           int ldw, int m0, int n0, bf16* As, bf16* Bs) {
+template <int BN, typename T, int MI, int NI>
+__device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjArgsT<T>& p,
+                                           bool skip_ops, int lda, int K, const T* Wk,
+                                           int ldw, int m0, int n0, T* As, T* Bs) {
   constexpr int WC = proj_wc(BN), WM = kProjBM / (kWarps / WC), WN = BN / WC;
-  constexpr int LDB = BN + 8, SA = kProjBM * kProjALd, SB = kProjBK * LDB;
+  constexpr int ALD = proj_ald<T>(), LDB = BN + 8, SA = kProjBM * ALD, SB = kProjBK * LDB;
+  constexpr int VE = vec_elems<T>();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp / WC, wc = warp % WC;
   const int KT = (K + kProjBK - 1) / kProjBK;
   auto load = [&](int buf, int kt) {
-    bf16* a_s = As + buf * SA;
-    bf16* b_s = Bs + buf * SB;
-    for (int e = threadIdx.x; e < kProjBM * kProjBK / 8; e += kThreads) {
-      const int r = e / (kProjBK / 8), c = (e % (kProjBK / 8)) * 8;
+    T* a_s = As + buf * SA;
+    T* b_s = Bs + buf * SB;
+    for (int e = threadIdx.x; e < kProjBM * kProjBK / VE; e += kThreads) {
+      const int r = e / (kProjBK / VE), c = (e % (kProjBK / VE)) * VE;
       const int kk = kt * kProjBK + c;
       const long m = m0 + r;
       const bool ok = m < p.M && kk < K;
       const int b = ok ? kk / lda : 0;
-      const bf16* src = skip_ops ? p.skip : proj_operand(p, b);
-      cp_async16(a_s + r * kProjALd + c, ok ? src + m * lda + (kk - b * lda) : Wk, ok);
+      const T* src = skip_ops ? p.skip : proj_operand(p, b);
+      cp_async16(a_s + r * ALD + c, ok ? src + m * lda + (kk - b * lda) : Wk, ok);
     }
-    for (int e = threadIdx.x; e < kProjBK * BN / 8; e += kThreads) {
-      const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+    for (int e = threadIdx.x; e < kProjBK * BN / VE; e += kThreads) {
+      const int r = e / (BN / VE), c = (e % (BN / VE)) * VE;
       const int kk = kt * kProjBK + r;
       cp_async16(b_s + r * LDB + c, kk < K ? Wk + (long)kk * ldw + n0 + c : Wk, kk < K);
     }
@@ -140,26 +156,30 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
     __syncthreads();
     if (kt + kProjStages - 1 < KT) load((kt + kProjStages - 1) % kProjStages, kt + kProjStages - 1);
     cp_async_commit();
-    const bf16* a_s = As + (kt % kProjStages) * SA;
-    const bf16* b_s = Bs + (kt % kProjStages) * SB;
+    const T* a_s = As + (kt % kProjStages) * SA;
+    const T* b_s = Bs + (kt % kProjStages) * SB;
+    if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int k16 = 0; k16 < kProjBK; k16 += 16) {
-      unsigned af[MI][4];
+      for (int k16 = 0; k16 < kProjBK; k16 += 16) {
+        unsigned af[MI][4];
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldmatrix_x4(af[mi], a_s + (wr * WM + mi * 16 + lane % 16) * kProjALd + k16 +
-                                (lane / 16) * 8);
-#pragma unroll
-      for (int q = 0; q < NI / 2; ++q) {
-        unsigned bq[4];
-        ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * LDB + wc * WN + q * 16 +
+        for (int mi = 0; mi < MI; ++mi)
+          ldmatrix_x4(af[mi], a_s + (wr * WM + mi * 16 + lane % 16) * ALD + k16 +
                                   (lane / 16) * 8);
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma16816(acc[mi][2 * q], af[mi], bq[0], bq[1]);
-          mma16816(acc[mi][2 * q + 1], af[mi], bq[2], bq[3]);
+        for (int q = 0; q < NI / 2; ++q) {
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * LDB + wc * WN + q * 16 +
+                                    (lane / 16) * 8);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma16816(acc[mi][2 * q], af[mi], bq[0], bq[1]);
+            mma16816(acc[mi][2 * q + 1], af[mi], bq[2], bq[3]);
+          }
         }
       }
+    } else {
+      mma_tile_f32<kProjBK>(acc, a_s + wr * WM * ALD, ALD, 1, b_s + wc * WN, LDB);
     }
   }
   cp_async_wait<0>();
@@ -169,9 +189,9 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
 // The epilogues of proj_blocks: the tile (m0, n0) of [a | p1 | p2]
 // (kEpiCommuted), of [p | t0 | u] (kEpiCommutedBf16) or of the one block
 // (kEpiF32), stored from registers.
-template <int BN, int EPI, int MI, int NI>
-__device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const ProjArgs& p,
-                                              int m0, int n0, bf16* As, bf16* Bs) {
+template <int BN, int EPI, typename T, int MI, int NI>
+__device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const ProjArgsT<T>& p,
+                                              int m0, int n0, T* As, T* Bs) {
   constexpr int WC = proj_wc(BN), WM = kProjBM / (kWarps / WC), WN = BN / WC;
   const int fo = EPI == kEpiF32 ? p.Np : p.Np / 3, s = n0 / fo, nl = n0 - s * fo;
   proj_kloop<BN>(acc, p, false, p.F, p.F, p.W + (long)s * p.F * fo, fo, m0, nl, As, Bs);
@@ -190,27 +210,26 @@ __device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const Pro
         if (m >= p.M) continue;
         const float v0 = acc[mi][ni][2 * h] + b0, v1 = acc[mi][ni][2 * h + 1] + b1;
         if (EPI == kEpiCommutedBf16)
-          *reinterpret_cast<__nv_bfloat162*>(p.y + ((long)s * p.M + m) * fo + f) =
-              __floats2bfloat162_rn(v0, v1);
+          store2(p.y + ((long)s * p.M + m) * fo + f, v0, v1);
         else if (EPI == kEpiCommuted && s == 2)
-          *reinterpret_cast<__nv_bfloat162*>(p.y + m * fo + f) = __floats2bfloat162_rn(v0, v1);
+          store2(p.y + m * fo + f, v0, v1);
         else
           *reinterpret_cast<float2*>(p.yf + ((long)s * p.M + m) * fo + f) = make_float2(v0, v1);
       }
   }
 }
 
-template <int BN, int EPI>
+template <typename T, int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
-cheby_proj_kernel(ProjArgs p) {
+cheby_proj_kernel(ProjArgsT<T> p) {
   constexpr int WC = proj_wc(BN), WR = kWarps / WC;
   constexpr int WM = kProjBM / WR, WN = BN / WC, MI = WM / 16, NI = WN / 8;
-  constexpr int LDO = BN + 8;
-  constexpr size_t kRing = proj_smem(BN, 0, false);
+  constexpr int LDO = BN + 8, VE = vec_elems<T>();
+  constexpr size_t kRing = proj_smem<T>(BN, 0, false);
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kProjStages * kProjBM * kProjALd;
-  bf16* os = As;  // (kProjBM, LDO) output tile, over the ring after the k-loops
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + kProjStages * kProjBM * proj_ald<T>();
+  T* os = As;  // (kProjBM, LDO) output tile, over the ring after the k-loops
   float* ssum = reinterpret_cast<float*>(smem + kRing);  // (WR, Np)
   float* ssq = ssum + WR * p.Np;                         // (WR, Np)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -297,7 +316,7 @@ cheby_proj_kernel(ProjArgs p) {
       }
     }
 
-    // stage the tile as bf16 (the skip add in float32 first)
+    // stage the tile as T (the skip add in float32 first)
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -314,13 +333,13 @@ cheby_proj_kernel(ProjArgs p) {
               if (f + 1 < p.Fout) v1 += to_f(p.skip[m * p.Fs + f + 1]);
             }
           }
-          *reinterpret_cast<__nv_bfloat162*>(os + r * LDO + cl) = __floats2bfloat162_rn(v0, v1);
+          store2(os + r * LDO + cl, v0, v1);
         }
       }
     __syncthreads();
-    if (p.Fout % 8 == 0) {
-      for (int e = threadIdx.x; e < kProjBM * BN / 8; e += kThreads) {
-        const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+    if (p.Fout % VE == 0) {
+      for (int e = threadIdx.x; e < kProjBM * BN / VE; e += kThreads) {
+        const int r = e / (BN / VE), c = (e % (BN / VE)) * VE;
         const long m = m0 + r;
         if (m < p.M && n0 + c < p.Fout)
           *reinterpret_cast<uint4*>(p.y + m * p.Fout + n0 + c) =
@@ -348,23 +367,24 @@ cheby_proj_kernel(ProjArgs p) {
   }
 }
 
-template <int BN, int EPI>
-inline cudaError_t launch_proj_bn(const ProjArgs& p, int grid, cudaStream_t stream) {
-  const size_t smem = proj_smem(BN, p.Np, EPI == kEpiStats);
+template <typename T, int BN, int EPI>
+inline cudaError_t launch_proj_bn(const ProjArgsT<T>& p, int grid, cudaStream_t stream) {
+  const size_t smem = proj_smem<T>(BN, p.Np, EPI == kEpiStats);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(cheby_proj_kernel<BN, EPI>,
+  cudaError_t err = cudaFuncSetAttribute(cheby_proj_kernel<T, BN, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  cheby_proj_kernel<BN, EPI><<<grid, kThreads, smem, stream>>>(p);
+  cheby_proj_kernel<T, BN, EPI><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // One projection launch over the plan's grid (ops/fused_cheby.py proj_plan,
-// commuted_plan): bn columns per tile (16, 32, 64 or 128, dividing Np, and
-// with kEpiCommuted or kEpiCommutedBf16 dividing Np / 3); with kEpiStats
-// also the ordered reduction of the blocks' partials into stats (2, Fout).
-template <int EPI>
-inline cudaError_t launch_proj(const ProjArgs& p, int bn, int grid, float* stats,
+// commuted_plan): bn columns per tile (16, 32, 64 or 128, at float32 at
+// most 64, dividing Np, and with kEpiCommuted or kEpiCommutedBf16 dividing
+// Np / 3); with kEpiStats also the ordered reduction of the blocks' partials
+// into stats (2, Fout).
+template <int EPI, typename T>
+inline cudaError_t launch_proj(const ProjArgsT<T>& p, int bn, int grid, float* stats,
                                cudaStream_t stream) {
   if (p.M <= 0 || p.F % 16 || p.Fout <= 0 || p.Fout > p.Np || bn <= 0 || p.Np % bn ||
       grid <= 0 || (p.skip_w && p.Fs % 16) || (p.skip && !p.skip_w && p.Fs != p.Fout))
@@ -379,14 +399,19 @@ inline cudaError_t launch_proj(const ProjArgs& p, int bn, int grid, float* stats
                  reinterpret_cast<uintptr_t>(p.a[2]) | reinterpret_cast<uintptr_t>(p.W) |
                  reinterpret_cast<uintptr_t>(p.skip_w) |
                  (p.skip_w ? reinterpret_cast<uintptr_t>(p.skip) : 0) |
-                 (p.Fout % 8 == 0 ? reinterpret_cast<uintptr_t>(p.y) : 0);
+                 (p.Fout % vec_elems<T>() == 0 ? reinterpret_cast<uintptr_t>(p.y) : 0);
   if (al % 16) return cudaErrorMisalignedAddress;
   cudaError_t err;
   switch (bn) {
-    case 16: err = launch_proj_bn<16, EPI>(p, grid, stream); break;
-    case 32: err = launch_proj_bn<32, EPI>(p, grid, stream); break;
-    case 64: err = launch_proj_bn<64, EPI>(p, grid, stream); break;
-    case 128: err = launch_proj_bn<128, EPI>(p, grid, stream); break;
+    case 16: err = launch_proj_bn<T, 16, EPI>(p, grid, stream); break;
+    case 32: err = launch_proj_bn<T, 32, EPI>(p, grid, stream); break;
+    case 64: err = launch_proj_bn<T, 64, EPI>(p, grid, stream); break;
+    case 128:
+      if constexpr (sizeof(T) == 2) {
+        err = launch_proj_bn<T, 128, EPI>(p, grid, stream);
+        break;
+      }
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || EPI != kEpiStats) return err;

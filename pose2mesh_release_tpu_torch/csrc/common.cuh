@@ -1,5 +1,6 @@
-// Shared pieces of the banded Chebyshev-conv kernels: the bf16 type, the
-// row-tile size and the block shape.
+// Shared pieces of the banded Chebyshev-conv kernels: the operand types
+// (bf16, or float32 for the float32 instances), the row-tile size, the block
+// shape and the element access both types share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +20,26 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+// Elements of the operand type T in one 16-byte vector (cp.async, stores).
+template <typename T>
+__host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
+
+// Two neighbouring elements as float2 (8- or 4-byte aligned), and back: the
+// bf16 store rounds once to nearest, the float32 store does not round.
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
 
 }  // namespace p2m
 

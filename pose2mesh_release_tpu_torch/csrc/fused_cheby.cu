@@ -7,7 +7,9 @@
 //
 // Layout: band (2k+1, nt, T, T), x (nt*T, B, F), W (3F, Np) basis-major and
 // zero-padded to Np columns, bias (Fout,), skip (nt*T, B, Fs), skip_w (Fs,
-// Np), z1 and z2 (nt*T, B, F) scratch, out (nt*T, B, Fout); all bf16.
+// Np), z1 and z2 (nt*T, B, F) scratch, out (nt*T, B, Fout); all bf16, or all
+// float32 (the float32 instances, the `f32` argument: nothing rounded, the
+// products by 3xTF32 as in band_hop.cuh).
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1-2. z1 = L x and z2 = 2 L z1 - x: two launches of the banded hop engine
@@ -31,41 +33,59 @@
 
 using namespace p2m;
 
+namespace {
+
+template <typename T>
+cudaError_t group_conv(const void* band, const void* x, const void* W, const void* bias,
+                       const void* skip, const void* skip_w, void* z1, void* z2, void* out,
+                       int nt, int k, int B, int F, int Fout, int Np, int Fs, int relu,
+                       int skip_mode, int hop_cc, int hop_grid, int hop_per_block, int bn,
+                       int proj_grid, int stages, cudaStream_t st) {
+  const int V = nt * kT;
+  const T* xb = static_cast<const T*>(x);
+  T* z1b = static_cast<T*>(z1);
+  T* z2b = static_cast<T*>(z2);
+  cudaError_t err = cudaSuccess;
+  if (stages & 1) {
+    const T* bb = static_cast<const T*>(band);
+    const int C = B * F;
+    err = launch_band_hop(HopArgsT<T>{bb, xb, nullptr, z1b, 1.0f, 0.0f, V, nt, k, C}, hop_cc,
+                          hop_grid, hop_per_block, st);
+    if (err != cudaSuccess) return err;
+    err = launch_band_hop(HopArgsT<T>{bb, z1b, xb, z2b, 2.0f, -1.0f, V, nt, k, C}, hop_cc,
+                          hop_grid, hop_per_block, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (!(stages & 2)) return cudaSuccess;
+  ProjArgsT<T> p{{xb, z1b, z2b}, static_cast<const T*>(W), static_cast<const T*>(bias),
+                 skip_mode ? static_cast<const T*>(skip) : nullptr,
+                 skip_mode == 2 ? static_cast<const T*>(skip_w) : nullptr,
+                 static_cast<T*>(out), nullptr, V * B, F, Fout, Np, Fs, relu};
+  return launch_proj<kEpiDeploy>(p, bn, proj_grid, nullptr, st);
+}
+
+}  // namespace
+
 // skip_mode: 0 none, 1 add (Fs == Fout), 2 projection through skip_w.  The
 // launch plan (ops/fused_cheby.py conv_launcher): the hop engine's chunk,
 // grid and items per block (hop_plan over B*F columns); the projection's tile
 // width bn and grid (proj_plan).  stages: 1 the two hops, 2 the projection; 3
-// is the whole conv (the parts alone only time the split).  Returns a
-// cudaError_t.
+// is the whole conv (the parts alone only time the split).  f32: the
+// operands are float32, else bf16.  Returns a cudaError_t.
 extern "C" int p2m_fused_cheby_conv(const void* band, const void* x, const void* W,
                                     const void* bias, const void* skip, const void* skip_w,
                                     void* z1, void* z2, void* out, int nt, int k, int B,
                                     int F, int Fout, int Np, int Fs, int relu, int skip_mode,
                                     int hop_cc, int hop_grid, int hop_per_block, int bn,
-                                    int proj_grid, int stages, void* stream) {
+                                    int proj_grid, int stages, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F % 16 || B <= 0 || skip_mode < 0 || skip_mode > 2) return cudaErrorInvalidValue;
-  const int V = nt * kT;
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* z1b = static_cast<bf16*>(z1);
-  bf16* z2b = static_cast<bf16*>(z2);
-  cudaError_t err = cudaSuccess;
-  if (stages & 1) {
-    const bf16* bb = static_cast<const bf16*>(band);
-    const int C = B * F;
-    err = launch_band_hop(HopArgs{bb, xb, nullptr, z1b, 1.0f, 0.0f, V, nt, k, C}, hop_cc,
-                          hop_grid, hop_per_block, st);
-    if (err != cudaSuccess) return err;
-    err = launch_band_hop(HopArgs{bb, z1b, xb, z2b, 2.0f, -1.0f, V, nt, k, C}, hop_cc,
-                          hop_grid, hop_per_block, st);
-    if (err != cudaSuccess) return err;
-  }
-  if (!(stages & 2)) return cudaSuccess;
-  ProjArgs p{{xb, z1b, z2b}, static_cast<const bf16*>(W), static_cast<const bf16*>(bias),
-             skip_mode ? static_cast<const bf16*>(skip) : nullptr,
-             skip_mode == 2 ? static_cast<const bf16*>(skip_w) : nullptr,
-             static_cast<bf16*>(out), nullptr, V * B, F, Fout, Np, Fs, relu};
-  return launch_proj<kEpiDeploy>(p, bn, proj_grid, nullptr, st);
+  auto run = [&](auto zero) {
+    return group_conv<decltype(zero)>(band, x, W, bias, skip, skip_w, z1, z2, out, nt, k, B,
+                                      F, Fout, Np, Fs, relu, skip_mode, hop_cc, hop_grid,
+                                      hop_per_block, bn, proj_grid, stages, st);
+  };
+  return f32 ? run(0.0f) : run(bf16{});
 }
 
 extern "C" const char* p2m_fused_cheby_error_string(int err) {

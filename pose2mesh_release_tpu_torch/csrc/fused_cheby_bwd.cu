@@ -16,7 +16,9 @@
 // where Fout is not one); g1 and h2 (V, B, Fo_pad) in g's layout; Wt (Gw, Fp)
 // = [W0^T; W1^T; W2^T] with each block's rows padded to Fo_pad, Gw = 3*Fo_pad
 // rounded up to 64 and Fp = F rounded up to 64, zero elsewhere; bf16 operands,
-// float32 sums.
+// float32 sums; or float32 operands (the float32 instances, the `f32`
+// argument: g1 and h2 not rounded, every product by 3xTF32 as in
+// band_hop.cuh, A's staged row stride BK + 4 and a two-stage dW ring).
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1-2. g1 and h2: two launches of the banded hop engine (band_hop.cuh) over
@@ -51,43 +53,57 @@ using namespace p2m;
 
 namespace {
 
-// the three cotangent operands g, g1, h2, each (M, Fo_pad) bf16 row-major
+// the three cotangent operands g, g1, h2, each (M, Fo_pad) row-major
+template <typename T>
 struct Cot {
-  const bf16* op[3];
+  const T* op[3];
 };
 
 // cot.op[b] for b < 3 without indexing the parameter array at run time
-__device__ __forceinline__ const bf16* operand(const Cot& cot, int b) {
+template <typename T>
+__device__ __forceinline__ const T* operand(const Cot<T>& cot, int b) {
   return b == 0 ? cot.op[0] : (b == 1 ? cot.op[1] : cot.op[2]);
 }
 
 constexpr int kBK = 32;                       // k-tile rows of both products
 constexpr int kStages = 3;                    // cp.async ring depth
 constexpr int kDxBM = 128, kDxBN = 64;        // dx output tile
-constexpr int kALd = kBK + 8, kBLd = kDxBN + 8, kOLd = kDxBN + 8;
-constexpr int kStageA = kDxBM * kALd, kStageB = kBK * kBLd;  // elements
+constexpr int kBLd = kDxBN + 8, kOLd = kDxBN + 8;
+constexpr int kStageB = kBK * kBLd;           // elements
 constexpr int kDwThreads = 128;               // dW: 4 warps on a 64 x 64 tile
 constexpr int kTLd = 64 + 8;                  // dW staged row stride
+// dx's staged A row stride (16 bytes of pad, or 4 float32: conflict-free
+// 32-bit fragment loads) and stage; dW's ring depth (static shared memory)
+template <typename T>
+__host__ __device__ constexpr int dx_ald() { return kBK + (sizeof(T) == 2 ? 8 : 4); }
+template <typename T>
+__host__ __device__ constexpr int dx_stage_a() { return kDxBM * dx_ald<T>(); }
+template <typename T>
+__host__ __device__ constexpr int dw_stages() { return sizeof(T) == 2 ? kStages : 2; }
 
-// Shared memory of the dx kernel (ops/fused_cheby_train.py bwd_plan).
+// Shared memory of the dx kernel (ops/fused_cheby_train.py dx_smem).
+template <typename T>
 __host__ __device__ constexpr size_t dx_smem(int Fp) {
-  return (size_t)kStages * (kStageA + kStageB) * sizeof(bf16) + 8 * (size_t)Fp * sizeof(float);
+  return (size_t)kStages * (dx_stage_a<T>() + kStageB) * sizeof(T) +
+         8 * (size_t)Fp * sizeof(float);
 }
 
 // dx = [g, g1, h2] @ Wt over M = V*B rows; fold epilogue and ds/dc partials.
 // Warp (wr, wc) = (warp / 2, warp % 2) owns rows 32 wr .. +32 and columns
 // 32 wc .. +32 of the tile.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
-              const bf16* __restrict__ fold_s, const bf16* __restrict__ fold_c,
-              bf16* __restrict__ dx, float* __restrict__ part, int M, int F, int Fo_pad,
+bwd_dx_kernel(Cot<T> cot, const T* __restrict__ Wt, const T* __restrict__ x,
+              const T* __restrict__ fold_s, const T* __restrict__ fold_c,
+              T* __restrict__ dx, float* __restrict__ part, int M, int F, int Fo_pad,
               int Gw, int Fp) {
+  constexpr int kALd = dx_ald<T>(), kStageA = dx_stage_a<T>(), VE = vec_elems<T>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kStages * kStageA;
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + kStages * kStageA;
   float* sds = reinterpret_cast<float*>(Bs + kStages * kStageB);  // (4, Fp)
   float* sdc = sds + 4 * Fp;                                       // (4, Fp)
-  bf16* os = As;  // (kDxBM, kOLd) output tile, over the ring after the k loop
+  T* os = As;  // (kDxBM, kOLd) output tile, over the ring after the k loop
   const bool fold = fold_s != nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, cq = lane & 3, wr = warp >> 1, wc = warp & 1;
@@ -98,17 +114,17 @@ bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
     const int m0 = (w / nn) * kDxBM, n0 = (w % nn) * kDxBN;
     auto load = [&](int buf, int kt) {
-      bf16* a_s = As + buf * kStageA;
-      bf16* b_s = Bs + buf * kStageB;
-      for (int e = threadIdx.x; e < kDxBM * kBK / 8; e += kThreads) {
-        const int r = e / (kBK / 8), c = (e % (kBK / 8)) * 8;
+      T* a_s = As + buf * kStageA;
+      T* b_s = Bs + buf * kStageB;
+      for (int e = threadIdx.x; e < kDxBM * kBK / VE; e += kThreads) {
+        const int r = e / (kBK / VE), c = (e % (kBK / VE)) * VE;
         const int kk = kt * kBK + c, b = kk / Fo_pad, o = kk % Fo_pad;
         const long m = m0 + r;
         const bool ok = m < M && b < 3;
         cp_async16(a_s + r * kALd + c, ok ? operand(cot, b) + m * Fo_pad + o : Wt, ok);
       }
-      for (int e = threadIdx.x; e < kBK * kDxBN / 8; e += kThreads) {
-        const int r = e / (kDxBN / 8), c = (e % (kDxBN / 8)) * 8;
+      for (int e = threadIdx.x; e < kBK * kDxBN / VE; e += kThreads) {
+        const int r = e / (kDxBN / VE), c = (e % (kDxBN / VE)) * VE;
         cp_async16(b_s + r * kBLd + c, Wt + (long)(kt * kBK + r) * Fp + n0 + c, true);
       }
     };
@@ -129,26 +145,30 @@ bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
       __syncthreads();
       if (kt + kStages - 1 < KT) load((kt + kStages - 1) % kStages, kt + kStages - 1);
       cp_async_commit();
-      const bf16* a_s = As + (kt % kStages) * kStageA;
-      const bf16* b_s = Bs + (kt % kStages) * kStageB;
+      const T* a_s = As + (kt % kStages) * kStageA;
+      const T* b_s = Bs + (kt % kStages) * kStageB;
+      if constexpr (sizeof(T) == 2) {
 #pragma unroll
-      for (int k16 = 0; k16 < kBK; k16 += 16) {
-        unsigned af[2][4];
+        for (int k16 = 0; k16 < kBK; k16 += 16) {
+          unsigned af[2][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(af[mi], a_s + (wr * 32 + mi * 16 + lane % 16) * kALd + k16 +
-                                  (lane / 16) * 8);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          unsigned bq[4];
-          ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * kBLd + wc * 32 + p * 16 +
+          for (int mi = 0; mi < 2; ++mi)
+            ldmatrix_x4(af[mi], a_s + (wr * 32 + mi * 16 + lane % 16) * kALd + k16 +
                                     (lane / 16) * 8);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
-            mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
+          for (int p = 0; p < 2; ++p) {
+            unsigned bq[4];
+            ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * kBLd + wc * 32 + p * 16 +
+                                      (lane / 16) * 8);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
+              mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
+            }
           }
         }
+      } else {
+        mma_tile_f32<kBK>(acc, a_s + wr * 32 * kALd, kALd, 1, b_s + wc * 32, kBLd);
       }
     }
     cp_async_wait<0>();
@@ -168,12 +188,9 @@ bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
           const int cl = wc * 32 + ni * 8 + 2 * cq, f = n0 + cl;
           float d0 = acc[mi][ni][2 * h], d1 = acc[mi][ni][2 * h + 1];
           if (fold && m < M && f < F) {
-            const float2 xv =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + m * F + f));
-            const float2 sv =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(fold_s + f));
-            const float2 cv =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(fold_c + f));
+            const float2 xv = load2(x + m * F + f);
+            const float2 sv = load2(fold_s + f);
+            const float2 cv = load2(fold_c + f);
             d0 = __fadd_rn(__fmul_rn(xv.x, sv.x), cv.x) > 0.0f ? d0 : 0.0f;
             d1 = __fadd_rn(__fmul_rn(xv.y, sv.y), cv.y) > 0.0f ? d1 : 0.0f;
             ps[ni][0] += d0 * xv.x;
@@ -183,8 +200,7 @@ bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
             d0 *= sv.x;
             d1 *= sv.y;
           }
-          *reinterpret_cast<__nv_bfloat162*>(os + r * kOLd + cl) =
-              __floats2bfloat162_rn(d0, d1);
+          store2(os + r * kOLd + cl, d0, d1);
         }
       }
     if (fold) {
@@ -212,8 +228,8 @@ bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
           }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < kDxBM * kDxBN / 8; e += kThreads) {
-      const int r = e / (kDxBN / 8), c = (e % (kDxBN / 8)) * 8;
+    for (int e = threadIdx.x; e < kDxBM * kDxBN / VE; e += kThreads) {
+      const int r = e / (kDxBN / VE), c = (e % (kDxBN / VE)) * VE;
       const long m = m0 + r;
       if (m < M && n0 + c < F)
         *reinterpret_cast<uint4*>(dx + m * F + n0 + c) =
@@ -239,13 +255,15 @@ bwd_dx_kernel(Cot cot, const bf16* __restrict__ Wt, const bf16* __restrict__ x,
 // whose columns hold g also write part_db[s][o] = sum of g[:, o] over the
 // slice.  Warp (wf, wn) = (warp / 2, warp % 2) owns f rows 32 wf .. +32 and
 // G columns 32 wn .. +32 of the tile.
+template <typename T>
 __global__ void __launch_bounds__(kDwThreads)
-bwd_dw_kernel(Cot cot, const bf16* __restrict__ x, const bf16* __restrict__ fold_s,
-              const bf16* __restrict__ fold_c, float* __restrict__ part,
+bwd_dw_kernel(Cot<T> cot, const T* __restrict__ x, const T* __restrict__ fold_s,
+              const T* __restrict__ fold_c, float* __restrict__ part,
               float* __restrict__ part_db, int M, int F, int Fout, int Fo_pad, int Fp, int Gw,
               int S, int slice_rows) {
-  __shared__ __align__(128) bf16 us[kStages][kBK * kTLd];  // u rows of the k-tile, f tile
-  __shared__ __align__(128) bf16 gs[kStages][kBK * kTLd];  // G rows of the k-tile, column tile
+  constexpr int NS = dw_stages<T>(), VE = vec_elems<T>(), VPR = 64 / VE;
+  __shared__ __align__(128) T us[NS][kBK * kTLd];  // u rows of the k-tile, f tile
+  __shared__ __align__(128) T gs[NS][kBK * kTLd];  // G rows of the k-tile, column tile
   const int ng = Gw / 64;
   const int s = blockIdx.x % S, nn = (blockIdx.x / S) % ng, fm = blockIdx.x / (S * ng);
   const int f0 = fm * 64, n0 = nn * 64;
@@ -256,11 +274,11 @@ bwd_dw_kernel(Cot cot, const bf16* __restrict__ x, const bf16* __restrict__ fold
   const int KT = r_end > r_begin ? (r_end - r_begin + kBK - 1) / kBK : 0;
   const bool do_db = fm == 0 && n0 < Fo_pad && threadIdx.x < 64;
   float dbs = 0.0f;
-  // the 8 u columns this thread stages in every k-tile, and their fold
-  const int fc0 = (threadIdx.x % 8) * 8;
-  float sf[8], cf[8];
+  // the VE u columns this thread stages in every k-tile, and their fold
+  const int fc0 = (threadIdx.x % VPR) * VE;
+  float sf[VE], cf[VE];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < VE; ++i) {
     const bool ok = fold && f0 + fc0 + i < F;
     sf[i] = ok ? to_f(fold_s[f0 + fc0 + i]) : 0.0f;
     cf[i] = ok ? to_f(fold_c[f0 + fc0 + i]) : 0.0f;
@@ -268,8 +286,8 @@ bwd_dw_kernel(Cot cot, const bf16* __restrict__ x, const bf16* __restrict__ fold
 
   auto load = [&](int buf, int kt) {
     const int mb = r_begin + kt * kBK;
-    for (int e = threadIdx.x; e < kBK * 8; e += kDwThreads) {
-      const int r = e / 8, c = (e % 8) * 8;
+    for (int e = threadIdx.x; e < kBK * VPR; e += kDwThreads) {
+      const int r = e / VPR, c = (e % VPR) * VE;
       const long m = mb + r;
       const bool ok = m < r_end && f0 + c < F;
       cp_async16(&us[buf][r * kTLd + c], ok ? x + m * F + f0 + c : x, ok);
@@ -286,52 +304,63 @@ bwd_dw_kernel(Cot cot, const bf16* __restrict__ x, const bf16* __restrict__ fold
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < NS - 1; ++st) {
     if (st < KT) load(st, st);
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    const int buf = kt % kStages;
-    cp_async_wait<kStages - 2>();
+    const int buf = kt % NS;
+    cp_async_wait<NS - 2>();
     if (fold && f0 + fc0 < F) {  // u = relu(x*s + c) on the vectors this thread copied
       const int mb = r_begin + kt * kBK;
-      for (int e = threadIdx.x; e < kBK * 8; e += kDwThreads) {
-        const int r = e / 8;
+      for (int e = threadIdx.x; e < kBK * VPR; e += kDwThreads) {
+        const int r = e / VPR;
         if (mb + r >= r_end) continue;
         uint4* u = reinterpret_cast<uint4*>(&us[buf][r * kTLd + fc0]);
         uint4 v = *u;
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+        if constexpr (sizeof(T) == 4) {
+          float* h = reinterpret_cast<float*>(&v);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h[i]);
-          h[i] = __floats2bfloat162_rn(
-              fmaxf(__fadd_rn(__fmul_rn(f.x, sf[2 * i]), cf[2 * i]), 0.0f),
-              fmaxf(__fadd_rn(__fmul_rn(f.y, sf[2 * i + 1]), cf[2 * i + 1]), 0.0f));
+          for (int i = 0; i < 4; ++i) h[i] = fmaxf(__fadd_rn(__fmul_rn(h[i], sf[i]), cf[i]), 0.0f);
+        } else {
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 f = __bfloat1622float2(h[i]);
+            h[i] = __floats2bfloat162_rn(
+                fmaxf(__fadd_rn(__fmul_rn(f.x, sf[2 * i]), cf[2 * i]), 0.0f),
+                fmaxf(__fadd_rn(__fmul_rn(f.y, sf[2 * i + 1]), cf[2 * i + 1]), 0.0f));
+          }
         }
         *u = v;
       }
     }
     __syncthreads();
-    if (kt + kStages - 1 < KT) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    if (kt + NS - 1 < KT) load((kt + NS - 1) % NS, kt + NS - 1);
     cp_async_commit();
     if (do_db)
       for (int r = 0; r < kBK; ++r) dbs += to_f(gs[buf][r * kTLd + threadIdx.x]);
+    if constexpr (sizeof(T) == 4) {
+      // A = u^T: element (f, m) at us[m][f], so the fragment's rows step by 1
+      mma_tile_f32<kBK>(acc, &us[buf][wf * 32], 1, kTLd, &gs[buf][wn * 32], kTLd);
+    } else {
 #pragma unroll
-    for (int k16 = 0; k16 < kBK; k16 += 16) {
-      unsigned af[2][4];  // A = u^T: ldmatrix.trans of u's (m, f) rows
+      for (int k16 = 0; k16 < kBK; k16 += 16) {
+        unsigned af[2][4];  // A = u^T: ldmatrix.trans of u's (m, f) rows
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4_trans(af[mi], &us[buf][(k16 + lane % 8 + 8 * (lane / 16)) * kTLd +
-                                           wf * 32 + mi * 16 + 8 * ((lane / 8) % 2)]);
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4_trans(af[mi], &us[buf][(k16 + lane % 8 + 8 * (lane / 16)) * kTLd +
+                                             wf * 32 + mi * 16 + 8 * ((lane / 8) % 2)]);
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        unsigned bq[4];
-        ldmatrix_x4_trans(bq, &gs[buf][(k16 + lane % 16) * kTLd + wn * 32 + p * 16 +
-                                       (lane / 16) * 8]);
+        for (int p = 0; p < 2; ++p) {
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, &gs[buf][(k16 + lane % 16) * kTLd + wn * 32 + p * 16 +
+                                         (lane / 16) * 8]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
-          mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
+          for (int mi = 0; mi < 2; ++mi) {
+            mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
+            mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
+          }
         }
       }
     }
@@ -363,57 +392,41 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part, int S, int F, i
   dW[i] = sum;
 }
 
-}  // namespace
-
-// Pointers: band, g (V, B, Fo_pad), x, Wt, fold_s, fold_c (null without the
-// fold) in; g1, h2 (V, B, Fo_pad) bf16 scratch; dx (V, B, F) bf16, dW (3F,
-// Fout), db (Fout,) and dsdc (2, F) [ds; dc] float32 out; part_db (S, Fout),
-// part_dx (grid_dx, 2F) and part_dw (S, Fp, Gw) float32 scratch.  The launch
-// plan (ops/fused_cheby_train.py bwd_plan): the hop engine's chunk, grid and
-// items per block; grid_dx; S row slices of slice_rows rows (a multiple of
-// 32) for dW.  stages: which launches run, 1 the two hops, 2 dx (and the
-// ds/dc partials), 4 dW, db and every reduction; 7 is the whole backward (the
-// parts alone only time the split).  Returns a cudaError_t.
-extern "C" int p2m_fused_cheby_bwd(const void* band, const void* g, const void* x,
-                                   const void* Wt, const void* fold_s, const void* fold_c,
-                                   void* g1, void* h2, void* dx, void* dW, void* db,
-                                   void* dsdc, void* part_db, void* part_dx, void* part_dw,
-                                   int V, int nt, int k, int B, int F, int Fout, int Fo_pad,
-                                   int Gw, int Fp, int hop_cc, int hop_grid,
-                                   int hop_per_block, int grid_dx, int S, int slice_rows,
-                                   int stages, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+cudaError_t fused_bwd(const void* band, const void* g, const void* x, const void* Wt,
+                      const void* fold_s, const void* fold_c, void* g1, void* h2, void* dx,
+                      void* dW, void* db, void* dsdc, void* part_db, void* part_dx,
+                      void* part_dw, int V, int nt, int k, int B, int F, int Fout, int Fo_pad,
+                      int Gw, int Fp, int hop_cc, int hop_grid, int hop_per_block, int grid_dx,
+                      int S, int slice_rows, int stages, cudaStream_t st) {
   const int M = V * B;
-  if (Fo_pad % 16 || Fout > Fo_pad || F % 16 || Gw % 64 || Gw < 3 * Fo_pad || Fp % 64 ||
-      Fp < F || slice_rows % kBK || (long)S * slice_rows < M || grid_dx <= 0)
-    return cudaErrorInvalidValue;
-  const bf16* gb = static_cast<const bf16*>(g);
-  bf16* g1b = static_cast<bf16*>(g1);
-  bf16* h2b = static_cast<bf16*>(h2);
-  const bf16* bb = static_cast<const bf16*>(band);
+  const T* gb = static_cast<const T*>(g);
+  T* g1b = static_cast<T*>(g1);
+  T* h2b = static_cast<T*>(h2);
+  const T* bb = static_cast<const T*>(band);
   const int C = B * Fo_pad;
   cudaError_t err = cudaSuccess;
   if (stages & 1) {
-    err = launch_band_hop(HopArgs{bb, gb, nullptr, g1b, 1.0f, 0.0f, V, nt, k, C}, hop_cc,
+    err = launch_band_hop(HopArgsT<T>{bb, gb, nullptr, g1b, 1.0f, 0.0f, V, nt, k, C}, hop_cc,
                           hop_grid, hop_per_block, st);
     if (err != cudaSuccess) return err;
-    err = launch_band_hop(HopArgs{bb, g1b, gb, h2b, 2.0f, -1.0f, V, nt, k, C}, hop_cc,
+    err = launch_band_hop(HopArgsT<T>{bb, g1b, gb, h2b, 2.0f, -1.0f, V, nt, k, C}, hop_cc,
                           hop_grid, hop_per_block, st);
     if (err != cudaSuccess) return err;
   }
 
-  const Cot cot{{gb, g1b, h2b}};
-  const auto* fs = static_cast<const bf16*>(fold_s);
-  const auto* fc = static_cast<const bf16*>(fold_c);
-  const auto* xb = static_cast<const bf16*>(x);
+  const Cot<T> cot{{gb, g1b, h2b}};
+  const auto* fs = static_cast<const T*>(fold_s);
+  const auto* fc = static_cast<const T*>(fold_c);
+  const auto* xb = static_cast<const T*>(x);
   if (stages & 2) {
-    const size_t smem_dx = dx_smem(Fp);
+    const size_t smem_dx = dx_smem<T>(Fp);
     if (smem_dx > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_dx);
     if (err != cudaSuccess) return err;
-    bwd_dx_kernel<<<grid_dx, kThreads, smem_dx, st>>>(
-        cot, static_cast<const bf16*>(Wt), xb, fs, fc, static_cast<bf16*>(dx),
+    bwd_dx_kernel<T><<<grid_dx, kThreads, smem_dx, st>>>(
+        cot, static_cast<const T*>(Wt), xb, fs, fc, static_cast<T*>(dx),
         static_cast<float*>(part_dx), M, F, Fo_pad, Gw, Fp);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -421,7 +434,7 @@ extern "C" int p2m_fused_cheby_bwd(const void* band, const void* g, const void* 
 
   float* pw = static_cast<float*>(part_dw);
   float* pdb = static_cast<float*>(part_db);
-  bwd_dw_kernel<<<(Fp / 64) * (Gw / 64) * S, kDwThreads, 0, st>>>(
+  bwd_dw_kernel<T><<<(Fp / 64) * (Gw / 64) * S, kDwThreads, 0, st>>>(
       cot, xb, fs, fc, pw, pdb, M, F, Fout, Fo_pad, Fp, Gw, S, slice_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n = 3 * F * Fout;
@@ -434,6 +447,40 @@ extern "C" int p2m_fused_cheby_bwd(const void* band, const void* g, const void* 
     return launch_reduce(static_cast<const float*>(part_dx), grid_dx, 2 * F,
                          static_cast<float*>(dsdc), st);
   return cudaSuccess;
+}
+
+}  // namespace
+
+// Pointers: band, g (V, B, Fo_pad), x, Wt, fold_s, fold_c (null without the
+// fold) in; g1, h2 (V, B, Fo_pad) scratch; dx (V, B, F) out, all bf16 or
+// all float32 (f32); dW (3F, Fout), db (Fout,) and dsdc (2, F) [ds; dc]
+// float32 out; part_db (S, Fout), part_dx (grid_dx, 2F) and part_dw (S, Fp,
+// Gw) float32 scratch.  The launch plan (ops/fused_cheby_train.py
+// bwd_plan): the hop engine's chunk, grid and items per block; grid_dx; S
+// row slices of slice_rows rows (a multiple of 32) for dW.  stages: which
+// launches run, 1 the two hops, 2 dx (and the ds/dc partials), 4 dW, db and
+// every reduction; 7 is the whole backward (the parts alone only time the
+// split).  Returns a cudaError_t.
+extern "C" int p2m_fused_cheby_bwd(const void* band, const void* g, const void* x,
+                                   const void* Wt, const void* fold_s, const void* fold_c,
+                                   void* g1, void* h2, void* dx, void* dW, void* db,
+                                   void* dsdc, void* part_db, void* part_dx, void* part_dw,
+                                   int V, int nt, int k, int B, int F, int Fout, int Fo_pad,
+                                   int Gw, int Fp, int hop_cc, int hop_grid,
+                                   int hop_per_block, int grid_dx, int S, int slice_rows,
+                                   int stages, int f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = V * B;
+  if (Fo_pad % 16 || Fout > Fo_pad || F % 16 || Gw % 64 || Gw < 3 * Fo_pad || Fp % 64 ||
+      Fp < F || slice_rows % kBK || (long)S * slice_rows < M || grid_dx <= 0)
+    return cudaErrorInvalidValue;
+  auto run = [&](auto zero) {
+    return fused_bwd<decltype(zero)>(band, g, x, Wt, fold_s, fold_c, g1, h2, dx, dW, db, dsdc,
+                                     part_db, part_dx, part_dw, V, nt, k, B, F, Fout, Fo_pad,
+                                     Gw, Fp, hop_cc, hop_grid, hop_per_block, grid_dx, S,
+                                     slice_rows, stages, st);
+  };
+  return f32 ? run(0.0f) : run(bf16{});
 }
 
 extern "C" const char* p2m_fused_cheby_bwd_error_string(int err) {

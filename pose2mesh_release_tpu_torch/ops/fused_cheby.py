@@ -10,17 +10,18 @@ Counterpart of the JAX package's `ops/pallas_cheby.py` deploy kernels:
 
 Band levels keep a vertex-major (Vp, B, F) layout at the pack-time padded
 row count Vp = nt * T; `band_val` is (2k+1, nt, T, T), k in {1, 2}.  Both
-convs use bf16 operands with float32 accumulation and round the hop
-results to the working dtype at the same points as the TPU kernels.
+convs take bf16 or float32 operands, all of one dtype (`KERNEL_DTYPES`),
+accumulate in float32 and round the hop results to the working dtype at the
+same points as the TPU kernels (in float32: nowhere).
 
 `fused_cheby_conv` runs on the card as two launches of the banded hop
 engine (z1 = L x, z2 = 2 L z1 - x, csrc/band_hop.cuh) and one of the
 three-operand projection GEMM (csrc/cheby_proj.cuh); `proj_plan` lays out
 that GEMM's launch in pure Python, `conv_launcher` runs the launches apart.
 `fused_cheby_conv_commuted` runs as one projection GEMM (a = x (W0 - W2) + b
-and p1 = x W1 in float32, p2 = x W2 in bf16; `commuted_plan`) and two engine
-launches (t = bf16(2 L p2 + p1), y = bf16(act(L t + a))); `commuted_launcher`
-runs them apart.
+and p1 = x W1 in float32, p2 = x W2 in x's dtype; `commuted_plan`) and two
+engine launches (t = 2 L p2 + p1, y = act(L t + a), each rounded to x's
+dtype); `commuted_launcher` runs them apart.
 
 Each wrapper runs the plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on the card, counting the call in
@@ -41,16 +42,19 @@ import torch.nn.functional as F
 from ._build import load_library
 from .spmm import band_hop
 
-__all__ = ["COMMUTED_STAGES", "CONV_STAGES", "ProjPlan", "commuted_launcher", "commuted_plan",
-           "conv_launcher", "fused_cheby_conv", "fused_cheby_conv_commuted",
-           "fused_cheby_conv_plain", "fused_cheby_conv_commuted_plain", "launches", "proj_plan",
-           "proj_smem"]
+__all__ = ["COMMUTED_STAGES", "CONV_STAGES", "KERNEL_DTYPES", "ProjPlan", "check_dtypes",
+           "commuted_launcher", "commuted_plan", "conv_launcher", "fused_cheby_conv",
+           "fused_cheby_conv_commuted", "fused_cheby_conv_plain",
+           "fused_cheby_conv_commuted_plain", "launches", "proj_plan", "proj_smem"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0}
 
 _T = 128             # the kernels' band tile height
 _C_INT, _C_PTR = ctypes.c_int, ctypes.c_void_p
+# the operand dtypes of the kernels that have float32 instances (the group
+# and commuted convs, K1, K2); the others take bfloat16 only
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def fused_cheby_conv_plain(band_val, x, W, b, *, relu: bool,
@@ -121,18 +125,31 @@ def _check_skip(x, Fout: int, skip, skip_w) -> int:
     return Fs
 
 
-def _check_cuda(x, T, Fin, **tensors):
+def check_dtypes(dtypes=(torch.bfloat16,), **tensors) -> torch.dtype:
+    """The one dtype of a kernel's operands `tensors` (the first named is the
+    input): every operand in it, and it one of `dtypes`.  Raises TypeError."""
+    name0, t0 = next(iter(tensors.items()))
+    if t0.dtype not in dtypes:
+        takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name0}: the kernel takes {takes}, got {t0.dtype}")
+    for name, t in tensors.items():
+        if t.dtype != t0.dtype:
+            raise TypeError(f"{name} is {t.dtype}, {name0} {t0.dtype}: the kernel takes "
+                            f"every operand in one dtype")
+    return t0.dtype
+
+
+def _check_cuda(x, T, Fin, dtypes=(torch.bfloat16,), **tensors):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if T != _T:
         raise ValueError(f"the kernel takes {_T}-row band tiles, got {T}")
     if Fin % 16:
         raise ValueError(f"the kernel takes F % 16 == 0, got F={Fin}")
+    check_dtypes(dtypes, x=x, **tensors)
     for name, t in dict(x=x, **tensors).items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 32:
@@ -160,7 +177,7 @@ def _ptr(t: Optional[torch.Tensor]):
 @functools.cache
 def _fused_lib():
     lib = load_library("fused_cheby")
-    lib.p2m_fused_cheby_conv.argtypes = [_C_PTR] * 9 + [_C_INT] * 15 + [_C_PTR]
+    lib.p2m_fused_cheby_conv.argtypes = [_C_PTR] * 9 + [_C_INT] * 16 + [_C_PTR]
     lib.p2m_fused_cheby_conv.restype = _C_INT
     lib.p2m_fused_cheby_error_string.argtypes = [_C_INT]
     lib.p2m_fused_cheby_error_string.restype = ctypes.c_char_p
@@ -170,7 +187,7 @@ def _fused_lib():
 @functools.cache
 def _commuted_lib():
     lib = load_library("fused_cheby_commuted")
-    lib.p2m_fused_cheby_conv_commuted.argtypes = [_C_PTR] * 8 + [_C_INT] * 13 + [_C_PTR]
+    lib.p2m_fused_cheby_conv_commuted.argtypes = [_C_PTR] * 8 + [_C_INT] * 14 + [_C_PTR]
     lib.p2m_fused_cheby_conv_commuted.restype = _C_INT
     lib.p2m_fused_cheby_commuted_error_string.argtypes = [_C_INT]
     lib.p2m_fused_cheby_commuted_error_string.restype = ctypes.c_char_p
@@ -187,7 +204,8 @@ class ProjPlan:
     """A launch of the projection GEMM: `bn`-column output tiles of 128 rows
     over W padded to `np` columns (Fout rounded up to 16, then to `bn`), a
     persistent grid of `grid` blocks walking `items` tiles, `smem` bytes of
-    dynamic shared memory per block."""
+    dynamic shared memory per block.  The float32 instances take bn <= 64
+    (registers)."""
     bn: int
     np: int
     items: int
@@ -195,47 +213,62 @@ class ProjPlan:
     smem: int
 
 
-def proj_smem(bn: int, np_: int, stats: bool) -> int:
-    """Dynamic shared memory of the projection (csrc proj_smem): the cp.async
-    ring or the staged output tile, and with the statistics one float32 sum
-    and sum of squares per (warp row group, column)."""
-    ring = _PROJ_STAGES * (_PROJ_BM * (_PROJ_BK + 8) + _PROJ_BK * (bn + 8)) * 2
-    tile = _PROJ_BM * (bn + 8) * 2
+def proj_smem(bn: int, np_: int, stats: bool, esize: int = 2) -> int:
+    """Dynamic shared memory of the projection (csrc proj_smem) for
+    `esize`-byte operands: the cp.async ring (A's row stride 8 elements of
+    pad in bf16, 4 in float32) or the staged output tile, and with the
+    statistics one float32 sum and sum of squares per (warp row group,
+    column)."""
+    ald = _PROJ_BK + (8 if esize == 2 else 4)
+    ring = _PROJ_STAGES * (_PROJ_BM * ald + _PROJ_BK * (bn + 8)) * esize
+    tile = _PROJ_BM * (bn + 8) * esize
     row_groups = 8 // (2 if bn >= 64 else 1)
     return max(ring, tile) + (2 * row_groups * np_ * 4 if stats else 0)
 
 
-def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False) -> ProjPlan:
-    """The projection's launch for M rows, F -> Fout, on a card of `sms` SMs
-    (with `stats`, the statistics epilogue's shared memory)."""
+def _proj_widths(esize: int) -> tuple:
+    """The tile widths of the projection's instances, widest first."""
+    if esize not in (2, 4):
+        raise ValueError(f"the projection takes 2- or 4-byte elements, got {esize}")
+    return (128, 64, 32, 16) if esize == 2 else (64, 32, 16)
+
+
+def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False,
+              esize: int = 2) -> ProjPlan:
+    """The projection's launch for M rows, F -> Fout, of `esize`-byte
+    operands on a card of `sms` SMs (with `stats`, the statistics epilogue's
+    shared memory)."""
     if M <= 0 or F <= 0 or F % 16 or Fout <= 0:
         raise ValueError(f"the projection takes M > 0, F % 16 == 0 and Fout > 0, "
                          f"got M={M}, F={F}, Fout={Fout}")
+    widest = _proj_widths(esize)[0]
     fo_pad = -(-Fout // 16) * 16
     if fo_pad <= 64:
         bn = next(b for b in (16, 32, 64) if fo_pad <= b)
     else:
-        bn = 128 if fo_pad % 128 == 0 else 64
+        bn = 128 if fo_pad % 128 == 0 and widest == 128 else 64
     np_ = -(-fo_pad // bn) * bn
     items = -(-M // _PROJ_BM) * (np_ // bn)
     return ProjPlan(bn, np_, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
-                    proj_smem(bn, np_, stats))
+                    proj_smem(bn, np_, stats, esize))
 
 
-def commuted_plan(M: int, F: int, Fo: int, sms: int, blocks: int = 3) -> ProjPlan:
+def commuted_plan(M: int, F: int, Fo: int, sms: int, blocks: int = 3,
+                  esize: int = 2) -> ProjPlan:
     """The commuted conv's projection (epilogues kEpiCommuted,
     kEpiCommutedBf16) for M rows of x, F -> [a | p1 | p2] or [p | t0 | u]:
     three column blocks of fo_pad (Fo rounded up to 16), `bn` the widest tile
     dividing fo_pad, so a tile lies in one block; np = 3 fo_pad.  With
-    blocks=1 the one-block projection of kEpiF32 (np = fo_pad)."""
+    blocks=1 the one-block projection of kEpiF32 (np = fo_pad).  esize: the
+    operands' element size."""
     if M <= 0 or F <= 0 or F % 16 or Fo <= 0 or blocks not in (1, 3):
         raise ValueError(f"the projection takes M > 0, F % 16 == 0, Fo > 0 and 1 or 3 "
                          f"blocks, got M={M}, F={F}, Fo={Fo}, blocks={blocks}")
     fo_pad = -(-Fo // 16) * 16
-    bn = next(b for b in (128, 64, 32, 16) if fo_pad % b == 0)
+    bn = next(b for b in _proj_widths(esize) if fo_pad % b == 0)
     items = -(-M // _PROJ_BM) * (blocks * fo_pad // bn)
     return ProjPlan(bn, blocks * fo_pad, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
-                    proj_smem(bn, blocks * fo_pad, False))
+                    proj_smem(bn, blocks * fo_pad, False, esize))
 
 
 # the group conv's launches (csrc/fused_cheby.cu `stages`): the two hops,
@@ -256,12 +289,12 @@ def conv_launcher(band_val, x, W, b, relu: bool, skip=None, skip_w=None):
     extra = {} if skip is None else {"skip": skip}
     if skip_w is not None:
         extra["skip_w"] = skip_w
-    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **extra)
+    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, W=W, b=b, **extra)
     if skip_w is not None and Fs % 16:
         raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
-    sms = sm_count(x.device)
-    hp = hop_plan(nt, band_span(k), B * Fin, sms)
-    pp = proj_plan(x.shape[0] * B, Fin, Fout, sms)
+    sms, es = sm_count(x.device), x.element_size()
+    hp = hop_plan(nt, band_span(k), B * Fin, sms, es)
+    pp = proj_plan(x.shape[0] * B, Fin, Fout, sms, esize=es)
     Wp = _pad_cols(W, pp.np)
     swp = None if skip_w is None else _pad_cols(skip_w, pp.np)
     skip_mode = 0 if skip is None else (1 if skip_w is None else 2)
@@ -274,7 +307,8 @@ def conv_launcher(band_val, x, W, b, relu: bool, skip=None, skip_w=None):
             err = lib.p2m_fused_cheby_conv(
                 _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(skip), _ptr(swp),
                 _ptr(z1), _ptr(z2), _ptr(out), nt, k, B, Fin, Fout, pp.np, Fs, int(relu),
-                skip_mode, hp.cc, hp.grid, hp.per_block, pp.bn, pp.grid, stages, _stream(x))
+                skip_mode, hp.cc, hp.grid, hp.per_block, pp.bn, pp.grid, stages, int(es == 4),
+                _stream(x))
         _raise_on(err, lib, "p2m_fused_cheby_error_string")
 
     return run, out
@@ -312,12 +346,12 @@ def commuted_launcher(band_val, x, Wc, b, relu: bool):
     them apart only times the split."""
     from .hop import band_span, hop_plan, sm_count
     k, nt, T, B, Fin, Fo = _check_shapes(band_val, x, Wc, b)
-    _check_cuda(x, T, Fin, band_val=band_val, Wc=Wc, b=b)
-    sms = sm_count(x.device)
+    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, Wc=Wc, b=b)
+    sms, es = sm_count(x.device), x.element_size()
     rows = x.shape[0]
-    pp = commuted_plan(rows * B, Fin, Fo, sms)
+    pp = commuted_plan(rows * B, Fin, Fo, sms, esize=es)
     fo_pad = pp.np // 3
-    hp = hop_plan(nt, band_span(k), B * fo_pad, sms)
+    hp = hop_plan(nt, band_span(k), B * fo_pad, sms, es)
     Wp = _pad_cols(Wc, fo_pad)
     ap1 = torch.empty((2, rows, B, fo_pad), dtype=torch.float32, device=x.device)
     p2, t = (torch.empty((rows, B, fo_pad), dtype=x.dtype, device=x.device) for _ in range(2))
@@ -329,7 +363,7 @@ def commuted_launcher(band_val, x, Wc, b, relu: bool):
             err = lib.p2m_fused_cheby_conv_commuted(
                 _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(ap1), _ptr(p2), _ptr(t),
                 _ptr(out), nt, k, B, Fin, Fo, fo_pad, int(relu), hp.cc, hp.grid,
-                hp.per_block, pp.bn, pp.grid, stages, _stream(x))
+                hp.per_block, pp.bn, pp.grid, stages, int(es == 4), _stream(x))
         _raise_on(err, lib, "p2m_fused_cheby_commuted_error_string")
 
     return run, out

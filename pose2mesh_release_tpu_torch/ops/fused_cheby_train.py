@@ -17,9 +17,10 @@ Counterpart of the training half of the JAX package's `ops/pallas_cheby.py`:
 
 Activations keep the JAX training layout (V, B, F) at the real row count;
 `band_val` is (2k+1, nt, T, T) with nt*T >= V, k in {1, 2}.  Rows >= V are
-zero for the hops and never written.  bf16 operands, float32 accumulation,
-hop results rounded to the working dtype where the Pallas kernels round them;
-the fold's scale and shift are cast to the working dtype before use.
+zero for the hops and never written.  bf16 or float32 operands, all of one
+dtype, float32 accumulation, hop results rounded to the working dtype where
+the Pallas kernels round them; the fold's scale and shift are cast to the
+working dtype before use.
 
 `_FusedChebyConv` is the `torch.autograd.Function` of the four JAX custom
 VJPs `_fused`, `_fused_stats`, `_fused_fold` and `_fused_fold_stats`: its
@@ -47,9 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, \
-    _stream, proj_plan
-from .hop import HopPlan, band_span, banded_hop, hop_plan, sm_count
+from .fused_cheby import KERNEL_DTYPES, _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, \
+    _raise_on, _stream, proj_plan
+from .hop import _BLOCK_SMEM_RESERVED, _SM_SMEM, HopPlan, band_span, banded_hop, hop_plan, \
+    sm_count
 from .spmm import band_hop
 
 __all__ = ["BWD_STAGES", "BwdPlan", "TRAIN_STAGES", "bwd_launcher", "bwd_plan",
@@ -145,24 +147,30 @@ def _check_train(band_val, x, W, b=None):
     return nbd // 2, nt, T, Fin, W.shape[1]
 
 
-def _fold_args(in_fold: Fold, Fin: int, dev):
+def _fold_args(in_fold: Fold, Fin: int, x):
+    """The fold's (s, c) in x's dtype (the conv's working dtype), as the
+    plain version rounds them."""
     if in_fold is None:
         return {}
     s, c = in_fold
     if s.shape != (Fin,) or c.shape != (Fin,):
         raise ValueError(f"in_fold must be two ({Fin},) vectors, got "
                          f"{tuple(s.shape)}, {tuple(c.shape)}")
-    if s.device != dev or c.device != dev:
-        raise ValueError(f"in_fold is on {s.device}/{c.device}, x on {dev}")
-    return {"fold_s": s.to(torch.bfloat16).contiguous(),
-            "fold_c": c.to(torch.bfloat16).contiguous()}
+    if s.device != x.device or c.device != x.device:
+        raise ValueError(f"in_fold is on {s.device}/{c.device}, x on {x.device}")
+    return {"fold_s": s.to(x.dtype).contiguous(), "fold_c": c.to(x.dtype).contiguous()}
 
 
 # the dx and dW kernels' tiles (csrc/fused_cheby_bwd.cu)
 _BK, _STAGES, _DX_BM, _DX_BN = 32, 3, 128, 64
 _DX_BLOCKS_PER_SM = 3
 _DW_BLOCKS_PER_SM = 4
-_DW_SMEM = 2 * _STAGES * _BK * (64 + 8) * 2  # static: u and G rings
+
+
+def dw_smem(esize: int = 2) -> int:
+    """Static shared memory of the dW kernel: its u and G rings, 3 stages of
+    bf16 or 2 of float32 (dw_stages)."""
+    return 2 * (_STAGES if esize == 2 else 2) * _BK * (64 + 8) * esize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,13 +192,18 @@ class BwdPlan:
     dw_smem: int
 
 
-def dx_smem(fp: int) -> int:
-    """Dynamic shared memory of the dx kernel (csrc dx_smem)."""
-    return _STAGES * (_DX_BM * (_BK + 8) + _BK * (_DX_BN + 8)) * 2 + 8 * fp * 4
+def dx_smem(fp: int, esize: int = 2) -> int:
+    """Dynamic shared memory of the dx kernel (csrc dx_smem) for `esize`-byte
+    operands (A's row stride 8 elements of pad in bf16, 4 in float32)."""
+    ald = _BK + (8 if esize == 2 else 4)
+    return _STAGES * (_DX_BM * ald + _BK * (_DX_BN + 8)) * esize + 8 * fp * 4
 
 
-def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int) -> BwdPlan:
-    """K2's launch plan at V rows, batch B, Fin -> Fout on a card of `sms` SMs."""
+def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int,
+             esize: int = 2) -> BwdPlan:
+    """K2's launch plan at V rows, batch B, Fin -> Fout of `esize`-byte
+    operands on a card of `sms` SMs: dx keeps _DX_BLOCKS_PER_SM blocks on an
+    SM where their shared memory fits (float32: two)."""
     M = V * B
     fo_pad = _cdiv(Fout, 16) * 16
     gw = _cdiv(3 * fo_pad, 64) * 64
@@ -201,15 +214,17 @@ def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int) -> 
     slices = min(k_tiles, max(1, _cdiv(_DW_BLOCKS_PER_SM * sms, tiles)))
     slice_rows = _cdiv(k_tiles, slices) * _BK
     slices = _cdiv(M, slice_rows)
-    return BwdPlan(fo_pad, gw, fp, hop_plan(nt, band_span(k), B * fo_pad, sms), dx_items,
-                   min(dx_items, _DX_BLOCKS_PER_SM * sms), dx_smem(fp), slices, slice_rows,
-                   tiles * slices, _DW_SMEM)
+    dxs = dx_smem(fp, esize)
+    dx_blocks = min(_DX_BLOCKS_PER_SM, _SM_SMEM // (dxs + _BLOCK_SMEM_RESERVED))
+    return BwdPlan(fo_pad, gw, fp, hop_plan(nt, band_span(k), B * fo_pad, sms, esize),
+                   dx_items, min(dx_items, dx_blocks * sms), dxs, slices, slice_rows,
+                   tiles * slices, dw_smem(esize))
 
 
 @functools.cache
 def _train_lib():
     lib = load_library("fused_cheby_train")
-    lib.p2m_train_conv.argtypes = [_C_PTR] * 12 + [_C_INT] * 14 + [_C_PTR]
+    lib.p2m_train_conv.argtypes = [_C_PTR] * 12 + [_C_INT] * 15 + [_C_PTR]
     lib.p2m_train_conv.restype = _C_INT
     lib.p2m_train_conv_error_string.argtypes = [_C_INT]
     lib.p2m_train_conv_error_string.restype = ctypes.c_char_p
@@ -219,7 +234,7 @@ def _train_lib():
 @functools.cache
 def _bwd_lib():
     lib = load_library("fused_cheby_bwd")
-    lib.p2m_fused_cheby_bwd.argtypes = [_C_PTR] * 15 + [_C_INT] * 16 + [_C_PTR]
+    lib.p2m_fused_cheby_bwd.argtypes = [_C_PTR] * 15 + [_C_INT] * 17 + [_C_PTR]
     lib.p2m_fused_cheby_bwd.restype = _C_INT
     lib.p2m_fused_cheby_bwd_error_string.argtypes = [_C_INT]
     lib.p2m_fused_cheby_bwd_error_string.restype = ctypes.c_char_p
@@ -260,13 +275,13 @@ def train_launcher(band_val, x, W, b, in_fold: Fold, emit_stats: bool, keep_basi
     outputs, those `fused_cheby_conv_train` returns.  The wrapper runs all of
     them once; running them apart only times the split."""
     k, nt, T, Fin, Fout = _check_train(band_val, x, W, b)
-    fold = _fold_args(in_fold, Fin, x.device)
-    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **fold)
+    fold = _fold_args(in_fold, Fin, x)
+    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, W=W, b=b, **fold)
     V, B = x.shape[:2]
     dev = x.device
-    sms = sm_count(dev)
-    hp = hop_plan(nt, band_span(k), B * Fin, sms)
-    pp = proj_plan(V * B, Fin, Fout, sms, stats=emit_stats)
+    sms, es = sm_count(dev), x.element_size()
+    hp = hop_plan(nt, band_span(k), B * Fin, sms, es)
+    pp = proj_plan(V * B, Fin, Fout, sms, stats=emit_stats, esize=es)
     Wp = _pad_cols(W, pp.np)
     u = torch.empty_like(x) if fold else None
     z1, z2 = torch.empty_like(x), torch.empty_like(x)
@@ -283,7 +298,7 @@ def train_launcher(band_val, x, W, b, in_fold: Fold, emit_stats: bool, keep_basi
                 _ptr(band_val), _ptr(x), _ptr(Wp), _ptr(b), _ptr(fold.get("fold_s")),
                 _ptr(fold.get("fold_c")), _ptr(u), _ptr(z1), _ptr(z2), _ptr(out), _ptr(part),
                 _ptr(stats), V, nt, k, B, Fin, Fout, pp.np, int(emit_stats), hp.cc, hp.grid,
-                hp.per_block, pp.bn, pp.grid, stages, _stream(x))
+                hp.per_block, pp.bn, pp.grid, stages, int(es == 4), _stream(x))
         _raise_on(err, lib, "p2m_train_conv_error_string")
 
     if emit_stats:
@@ -318,11 +333,12 @@ def bwd_launcher(band_val, g, x, W, in_fold: Fold):
     the stages named by the bit mask (BWD_STAGES) into the outputs.  The
     wrapper runs all of them once; running them apart only times the split."""
     k, nt, T, Fin, Fout = _check_train(band_val, x, W)
-    fold = _fold_args(in_fold, Fin, x.device)
-    _check_cuda(x, T, Fin, band_val=band_val, g=g, W=W, **fold)
+    fold = _fold_args(in_fold, Fin, x)
+    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, g=g, W=W, **fold)
     V, B = x.shape[:2]
     dev = x.device
-    p = bwd_plan(V, B, nt, k, Fin, Fout, sm_count(dev))
+    es = x.element_size()
+    p = bwd_plan(V, B, nt, k, Fin, Fout, sm_count(dev), es)
     fo_pad, gw, fp = p.fo_pad, p.gw, p.fp
     # g at fo_pad channels (a copy only where Fout is not a multiple of 16)
     gp = _pad_cols(g, fo_pad).contiguous()
@@ -347,7 +363,8 @@ def bwd_launcher(band_val, g, x, W, in_fold: Fold):
                 _ptr(fold.get("fold_c")), _ptr(g1), _ptr(h2), _ptr(dx), _ptr(dW), _ptr(db),
                 _ptr(dsdc), _ptr(part_db), _ptr(part_dx), _ptr(part_dw),
                 V, nt, k, B, Fin, Fout, fo_pad, gw, fp, p.hop.cc, p.hop.grid,
-                p.hop.per_block, p.grid_dx, p.slices, p.slice_rows, stages, _stream(x))
+                p.hop.per_block, p.grid_dx, p.slices, p.slice_rows, stages, int(es == 4),
+                _stream(x))
         _raise_on(err, lib, "p2m_fused_cheby_bwd_error_string")
 
     return run, ((dx, dW, db, dsdc[0], dsdc[1]) if fold else (dx, dW, db))

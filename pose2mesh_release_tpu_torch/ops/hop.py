@@ -50,7 +50,11 @@ _HOP_BLOCKS_PER_SM = 2  # kHopBlocksPerSm
 HOP_CAP = 12  # nonzero band sub-tiles a warp keeps in registers (kHopCap)
 MAX_SPAN = 64  # staged 16-row groups of a row tile: the bits of the engine's mask
 _SM_SMEM = 233472
+_MAX_BLOCK_SMEM = 232448  # kMaxSmem: the dynamic shared memory one block may use
 _BLOCK_SMEM_RESERVED = 1024 + 128  # the runtime's per-block reserve + static masks
+# the chunk widths the engine's instances take, by operand element size
+# (bf16 2 bytes, float32 4: its 64-column instance would not fit the ring)
+_HOP_CHUNKS = {2: (64, 32, 16), 4: (32, 16)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,29 +77,35 @@ def band_span(k: int) -> int:
     return (2 * k + 1) * _T // 16
 
 
-def hop_smem(cc: int, span: int) -> int:
+def hop_smem(cc: int, span: int, esize: int = 2) -> int:
     """Dynamic shared memory of the engine's x ring for `span` staged 16-row
-    groups (band_hop_smem)."""
-    return _HOP_STAGES * span * 16 * (cc + 8) * 2
+    groups of `esize`-byte elements (band_hop_smem)."""
+    return _HOP_STAGES * span * 16 * (cc + 8) * esize
 
 
-def hop_plan(nt: int, span: int, C: int, sms: int) -> HopPlan:
-    """The engine's launch for C columns over nt row tiles that stage `span`
-    16-row groups each (`band_span(k)` for the block band, `HopLayout.span`
-    for the strip form) on a card of `sms` SMs: the widest chunk dividing C
-    that keeps `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that
-    fits one; a persistent grid of that many blocks per SM walking
-    contiguous runs of items.  A span over MAX_SPAN groups is refused."""
-    if C % 16 or not 0 < span <= MAX_SPAN:
-        raise ValueError(f"the hop engine takes C % 16 == 0 and at most {MAX_SPAN} staged "
-                         f"16-row groups, got C={C}, span={span}")
-    fits = [cc for cc in (64, 32, 16) if C % cc == 0]
-    full = [cc for cc in fits
-            if _HOP_BLOCKS_PER_SM * (hop_smem(cc, span) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
+def hop_plan(nt: int, span: int, C: int, sms: int, esize: int = 2) -> HopPlan:
+    """The engine's launch for C columns of `esize`-byte elements (bf16 2,
+    float32 4) over nt row tiles that stage `span` 16-row groups each
+    (`band_span(k)` for the block band, `HopLayout.span` for the strip form)
+    on a card of `sms` SMs: the widest chunk dividing C that keeps
+    `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that fits one (the
+    float32 engine at band_k 2); a persistent grid of that many blocks per SM
+    walking contiguous runs of items.  A span over MAX_SPAN groups, or one no chunk fits, is refused."""
+    if C % 16 or not 0 < span <= MAX_SPAN or esize not in _HOP_CHUNKS:
+        raise ValueError(f"the hop engine takes C % 16 == 0, at most {MAX_SPAN} staged "
+                         f"16-row groups and 2- or 4-byte elements, got C={C}, span={span}, "
+                         f"esize={esize}")
+    fits = [cc for cc in _HOP_CHUNKS[esize]
+            if C % cc == 0 and hop_smem(cc, span, esize) <= _MAX_BLOCK_SMEM]
+    full = [cc for cc in fits if _HOP_BLOCKS_PER_SM
+            * (hop_smem(cc, span, esize) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
+    if not fits:
+        raise ValueError(f"no chunk of the hop engine fits {span} staged groups of "
+                         f"{esize}-byte elements in one block's shared memory")
     cc = (full or fits)[0]
     items = nt * (C // cc)
-    per_block = -(-items // min(items, sms * _HOP_BLOCKS_PER_SM))
-    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, span), items)
+    per_block = -(-items // min(items, sms * (_HOP_BLOCKS_PER_SM if full else 1)))
+    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, span, esize), items)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,8 +26,14 @@ test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
+The group and commuted deploy convs, K1 (with keep_basis) and K2 also run
+their float32 instances (3xTF32 products, nothing rounded) on the same
+cases.
+
 Tolerance: relative L2 error <= 1e-2 of the bf16 kernel against the plain
-version computed in float32 from the same bf16 inputs.
+version computed in float32 from the same bf16 inputs; <= 1e-5 of the
+float32 instance against the plain version on the same float32 inputs,
+with the plain version's products in full float32 (TF32 off).
 """
 import math
 
@@ -46,6 +52,13 @@ from pose2mesh_release_tpu_torch.ops import window_cheby as wc
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
+F32_TOL = 1e-5  # the float32 instances (chip_smoke's F32_KERNEL_TOL)
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                 ids=["bf16", "f32"])
+
+
+def tol(dtype) -> float:
+    return F32_TOL if dtype == torch.float32 else TOL
 
 
 @pytest.fixture
@@ -77,10 +90,9 @@ def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def inputs(op, B, shapes, dev, seed):
+def inputs(op, B, shapes, dev, seed, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [(torch.randn(*s, generator=g, device=dev) * sc).to(torch.bfloat16)
-            for s, sc in shapes]
+    return [(torch.randn(*s, generator=g, device=dev) * sc).to(dtype) for s, sc in shapes]
 
 
 @pytest.mark.parametrize("k,F,Fout,epilogue", [
@@ -94,20 +106,21 @@ def inputs(op, B, shapes, dev, seed):
     (2, 16, 8, "final"),
     (2, 96, 64, "skip_proj"),
 ])
-def test_fused_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
+@DTYPES
+def test_fused_cheby_conv_kernel(cuda, k, F, Fout, epilogue, dtype):
     op = band_level(k, seed=k)
-    band = op.band_val.to(cuda, torch.bfloat16)
+    band = op.band_val.to(cuda, dtype)
     Vp, V, B = op.padded_vertices, op.num_vertices, 3
     Fs = 2 * Fout if epilogue == "skip_proj" else Fout
     x, W, b, skip = inputs(op, B, [((Vp, B, F), 0.5),
                                    ((3 * F, Fout), 1 / math.sqrt(3 * F)),
-                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 1)
+                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 1, dtype)
     kw = {"relu": epilogue != "final"}
     if epilogue in ("skip_add", "skip_proj"):
         kw["skip"] = skip
     if epilogue == "skip_proj":
         kw["skip_w"] = torch.from_numpy(
-            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, torch.bfloat16)
+            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, dtype)
     before = fc.launches["fused_cheby_conv"]
     y = fc.fused_cheby_conv(band, x, W, b, **kw)
     torch.cuda.synchronize()
@@ -115,44 +128,46 @@ def test_fused_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
     f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
     ref = fc.fused_cheby_conv_plain(band.float(), x.float(), W.float(),
                                     b.float(), **f32)
-    assert y.shape == (Vp, B, Fout) and y.dtype == torch.bfloat16
-    assert y.untyped_storage().nbytes() == y.numel() * 2  # exactly (Vp, B, Fout)
-    assert rel_l2(y[:V], ref[:V]) <= TOL
+    assert y.shape == (Vp, B, Fout) and y.dtype == dtype
+    assert y.untyped_storage().nbytes() == y.nbytes  # exactly (Vp, B, Fout)
+    assert rel_l2(y[:V], ref[:V]) <= tol(dtype)
 
 
 @pytest.mark.parametrize("k,F,Fo", [(1, 64, 32), (1, 48, 3), (2, 256, 128),
                                     (2, 32, 40),
                                     (1, 256, 40),   # Fo_pad 48: 16-column tiles
                                     (2, 64, 3)])    # Fo_pad 16, narrowed to 3
-def test_fused_cheby_conv_commuted_kernel(cuda, k, F, Fo):
+@DTYPES
+def test_fused_cheby_conv_commuted_kernel(cuda, k, F, Fo, dtype):
     op = band_level(k, seed=10 + k)
-    band = op.band_val.to(cuda, torch.bfloat16)
+    band = op.band_val.to(cuda, dtype)
     Vp, V, B = op.padded_vertices, op.num_vertices, 2
     x, Wc, b = inputs(op, B, [((Vp, B, F), 0.5),
                               ((3 * F, Fo), 1 / math.sqrt(3 * F)),
-                              ((Fo,), 0.1)], cuda, 2)
+                              ((Fo,), 0.1)], cuda, 2, dtype)
     before = fc.launches["fused_cheby_conv_commuted"]
     y = fc.fused_cheby_conv_commuted(band, x, Wc, b, relu=True)
     torch.cuda.synchronize()
     assert fc.launches["fused_cheby_conv_commuted"] == before + 1
     ref = fc.fused_cheby_conv_commuted_plain(band.float(), x.float(),
                                              Wc.float(), b.float(), relu=True)
-    assert y.shape == (Vp, B, Fo) and y.dtype == torch.bfloat16
-    assert y.untyped_storage().nbytes() == y.numel() * 2  # exactly (Vp, B, Fo)
-    assert rel_l2(y[:V], ref[:V]) <= TOL
+    assert y.shape == (Vp, B, Fo) and y.dtype == dtype
+    assert y.untyped_storage().nbytes() == y.nbytes  # exactly (Vp, B, Fo)
+    assert rel_l2(y[:V], ref[:V]) <= tol(dtype)
 
 
 @pytest.mark.parametrize("k,F,Fo,relu", [(1, 64, 32, True), (2, 256, 128, False),
                                          (1, 48, 40, True), (2, 32, 3, False)])
-def test_commuted_launches_apart_equal_the_whole_call(cuda, k, F, Fo, relu):
+@DTYPES
+def test_commuted_launches_apart_equal_the_whole_call(cuda, k, F, Fo, relu, dtype):
     """The projection, hop 1 and hop 2 run one by one through
     commuted_launcher give the wrapper's bits (narrowed to Fo), and the pad
     columns of the intermediate output are zero."""
     op = band_level(k, seed=12 + k)
-    band = op.band_val.to(cuda, torch.bfloat16)
+    band = op.band_val.to(cuda, dtype)
     Vp, B = op.padded_vertices, 3
     x, Wc, b = inputs(op, B, [((Vp, B, F), 0.5), ((3 * F, Fo), 1 / math.sqrt(3 * F)),
-                              ((Fo,), 0.1)], cuda, 16)
+                              ((Fo,), 0.1)], cuda, 16, dtype)
     whole = fc.fused_cheby_conv_commuted(band, x, Wc, b, relu=relu)
     before = dict(fc.launches)
     run, out = fc.commuted_launcher(band, x, Wc, b, relu)
@@ -171,8 +186,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     Vp = op.padded_vertices
     x, W, b = inputs(op, 2, [((Vp, 2, 32), 1.0), ((96, 32), 0.1),
                              ((32,), 0.1)], cuda, 3)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):  # mixed dtypes
         fc.fused_cheby_conv(band, x.float(), W, b, relu=True)
+    for dt in (torch.float16, torch.float64):  # no instance
+        with pytest.raises(TypeError):
+            fc.fused_cheby_conv(band.to(dt), x.to(dt), W.to(dt), b.to(dt), relu=True)
+        with pytest.raises(TypeError):
+            fc.fused_cheby_conv_commuted(band.to(dt), x.to(dt), W.to(dt), b.to(dt),
+                                         relu=True)
     with pytest.raises(ValueError):
         fc.fused_cheby_conv(band, x.transpose(1, 2).contiguous().transpose(1, 2),
                             W, b, relu=True)
@@ -224,15 +245,15 @@ def test_small_deploy_meshnet_kernels_vs_plain(cuda, monkeypatch):
 
 # ---- the training step's kernels ---------------------------------------------
 
-def train_inputs(op, B, F, Fout, dev, seed):
+def train_inputs(op, B, F, Fout, dev, seed, dtype=torch.bfloat16):
     """x (V, B, F) at the real row count, W, b, the fold's (s, c) and an
-    output cotangent g, bf16."""
+    output cotangent g, in dtype."""
     V = op.num_vertices
     x, W, b, s, c, g = inputs(op, B, [((V, B, F), 0.5),
                                       ((3 * F, Fout), 1 / math.sqrt(3 * F)),
                                       ((Fout,), 0.1), ((F,), 0.25), ((F,), 0.1),
-                                      ((V, B, Fout), 1.0)], dev, seed)
-    return x, W, b, (s.float() + 1.0).to(torch.bfloat16), c, g
+                                      ((V, B, Fout), 1.0)], dev, seed, dtype)
+    return x, W, b, (s.float() + 1.0).to(dtype), c, g
 
 
 def f32(t):
@@ -248,10 +269,11 @@ def f32(t):
     (2, 64, 8, True, True),
     (2, 16, 3, False, False),
 ])
-def test_train_conv_kernel(cuda, k, F, Fout, fold, stats):
+@DTYPES
+def test_train_conv_kernel(cuda, k, F, Fout, fold, stats, dtype):
     op = band_level(k, seed=20 + k)  # 900 rows: the last tile is ragged
-    band = op.band_val.to(cuda, torch.bfloat16)
-    x, W, b, s, c, _ = train_inputs(op, 3, F, Fout, cuda, 4)
+    band = op.band_val.to(cuda, dtype)
+    x, W, b, s, c, _ = train_inputs(op, 3, F, Fout, cuda, 4, dtype)
     in_fold = (s, c) if fold else None
     before = ft.launches["fused_cheby_conv_train"]
     out = ft.fused_cheby_conv_train(band, x, W, b, in_fold=in_fold, emit_stats=stats)
@@ -261,11 +283,11 @@ def test_train_conv_kernel(cuda, k, F, Fout, fold, stats):
         band.float(), x.float(), W.float(), b.float(),
         in_fold=(s.float(), c.float()) if fold else None, emit_stats=stats)
     out, ref = (out, ref) if stats else ((out,), (ref,))
-    assert out[0].shape == (op.num_vertices, 3, Fout) and out[0].dtype == torch.bfloat16
-    assert out[0].untyped_storage().nbytes() == out[0].numel() * 2  # exactly (V, B, Fout)
+    assert out[0].shape == (op.num_vertices, 3, Fout) and out[0].dtype == dtype
+    assert out[0].untyped_storage().nbytes() == out[0].nbytes  # exactly (V, B, Fout)
     for got, want in zip(out, ref):
         assert torch.isfinite(got.float()).all()
-        assert rel_l2(got, want) <= TOL
+        assert rel_l2(got, want) <= tol(dtype)
 
 
 @pytest.mark.parametrize("k,F,Fout,fold,kind", [
@@ -281,10 +303,11 @@ def test_train_conv_kernel(cuda, k, F, Fout, fold, stats):
     (1, 48, 40, False, "corner"),
     (2, 16, 3, True, "zero_tile"),
 ])
-def test_train_bwd_kernel(cuda, k, F, Fout, fold, kind):
+@DTYPES
+def test_train_bwd_kernel(cuda, k, F, Fout, fold, kind, dtype):
     op = band_level(k, seed=30 + k)
-    band = shaped_band(op, kind).to(cuda, torch.bfloat16)
-    x, W, _, s, c, g = train_inputs(op, 3, F, Fout, cuda, 5)
+    band = shaped_band(op, kind).to(cuda, dtype)
+    x, W, _, s, c, g = train_inputs(op, 3, F, Fout, cuda, 5, dtype)
     in_fold = (s, c) if fold else None
     before = ft.launches["fused_cheby_conv_bwd"]
     got = ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold)
@@ -294,19 +317,20 @@ def test_train_bwd_kernel(cuda, k, F, Fout, fold, kind):
         band.float(), g.float(), x.float(), W.float(),
         in_fold=(s.float(), c.float()) if fold else None)
     assert len(got) == len(want) == (5 if fold else 3)
-    assert got[0].shape == x.shape and got[0].dtype == torch.bfloat16
+    assert got[0].shape == x.shape and got[0].dtype == dtype
     assert got[1].shape == (3 * F, Fout) and got[1].dtype == torch.float32
     for name, t, r in zip(("dx", "dW", "db", "ds", "dc"), got, want):
         assert torch.isfinite(t).all(), name
-        assert rel_l2(t, r) <= TOL, name
+        assert rel_l2(t, r) <= tol(dtype), name
 
 
-def test_train_kernels_are_deterministic(cuda):
+@DTYPES
+def test_train_kernels_are_deterministic(cuda, dtype):
     """Cross-block sums go through per-block partials added in a fixed order:
     two runs give equal bits (stats, dx, dW, db, ds, dc)."""
     op = band_level(1, V=1849, seed=40)
-    band = op.band_val.to(cuda, torch.bfloat16)
-    x, W, b, s, c, g = train_inputs(op, 16, 128, 128, cuda, 6)
+    band = op.band_val.to(cuda, dtype)
+    x, W, b, s, c, g = train_inputs(op, 16, 128, 128, cuda, 6, dtype)
     runs = []
     for _ in range(2):
         y, s1, s2 = ft.fused_cheby_conv_train(band, x, W, b, in_fold=(s, c),
@@ -344,10 +368,15 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
     op = band_level(1)
     band = op.band_val.to(cuda, torch.bfloat16)
     x, W, b, s, c, g = train_inputs(op, 2, 32, 16, cuda, 8)
-    with pytest.raises(TypeError):  # float32 activations
+    with pytest.raises(TypeError):  # float32 activations, bf16 weights
         ft.fused_cheby_conv_train(band, x.float(), W, b)
     with pytest.raises(TypeError):
         ft.fused_cheby_conv_bwd(band, g.float(), x, W)
+    for dt in (torch.float16, torch.float64):  # no instance
+        with pytest.raises(TypeError):
+            ft.fused_cheby_conv_train(band.to(dt), x.to(dt), W.to(dt), b.to(dt))
+        with pytest.raises(TypeError):
+            ft.fused_cheby_conv_bwd(band.to(dt), g.to(dt), x.to(dt), W.to(dt))
     with pytest.raises(ValueError):  # not contiguous
         ft.fused_cheby_conv_train(band, x.transpose(1, 2).contiguous().transpose(1, 2),
                                   W, b)
@@ -595,10 +624,11 @@ def test_window_launches_apart_equal_the_whole_call(cuda, k, V, F, Fout, epilogu
     (2, 16, 3, True),
     (1, 256, 256, True),   # two output slices: the basis is stored once
 ])
-def test_train_conv_keep_basis_kernel(cuda, k, F, Fout, fold):
+@DTYPES
+def test_train_conv_keep_basis_kernel(cuda, k, F, Fout, fold, dtype):
     op = band_level(k, seed=90 + k)  # 900 rows: the last tile is ragged
-    band = op.band_val.to(cuda, torch.bfloat16)
-    x, W, b, s, c, _ = train_inputs(op, 3, F, Fout, cuda, 12)
+    band = op.band_val.to(cuda, dtype)
+    x, W, b, s, c, _ = train_inputs(op, 3, F, Fout, cuda, 12, dtype)
     in_fold = (s, c) if fold else None
     before = ft.launches["fused_cheby_conv_train"]
     got = ft.fused_cheby_conv_train(band, x, W, b, in_fold=in_fold, keep_basis=True)
@@ -608,8 +638,9 @@ def test_train_conv_keep_basis_kernel(cuda, k, F, Fout, fold):
         band.float(), x.float(), W.float(), b.float(),
         in_fold=(s.float(), c.float()) if fold else None, keep_basis=True)
     assert got[1].shape == got[2].shape == x.shape
+    assert got[1].dtype == got[2].dtype == dtype
     for name, t, r in zip(("y", "z1", "z2"), got, want):
-        assert rel_l2(t, r) <= TOL, name
+        assert rel_l2(t, r) <= tol(dtype), name
 
 
 def pad_column_band(op) -> torch.Tensor:
@@ -626,16 +657,17 @@ def pad_column_band(op) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("k,stats", [(1, False), (1, True), (2, False)])
-def test_train_conv_fold_leaves_missing_rows_zero(cuda, k, stats):
+@DTYPES
+def test_train_conv_fold_leaves_missing_rows_zero(cuda, k, stats, dtype):
     """With the fold and c > 0, relu(x*s + c) of a missing row would be
     relu(c) > 0: on a band with nonzero pad columns it would move z1, z2 and
     y on the last real rows.  V = 900 is not a multiple of 128."""
     op = band_level(k, seed=110 + k)
     V = op.num_vertices
     assert V % 128
-    band = pad_column_band(op).to(cuda, torch.bfloat16)
-    x, W, b, s, c, _ = train_inputs(op, 3, 64, 32, cuda, 15)
-    c = (c.float().abs() + 0.5).to(torch.bfloat16)
+    band = pad_column_band(op).to(cuda, dtype)
+    x, W, b, s, c, _ = train_inputs(op, 3, 64, 32, cuda, 15, dtype)
+    c = (c.float().abs() + 0.5).to(dtype)
     kw = {"emit_stats": True} if stats else {"keep_basis": True}
     got = ft.fused_cheby_conv_train(band, x, W, b, in_fold=(s, c), **kw)
     torch.cuda.synchronize()
@@ -644,9 +676,9 @@ def test_train_conv_fold_leaves_missing_rows_zero(cuda, k, stats):
     last = slice((op.band_val.shape[1] - 1 - k) * 128, V)  # the rows the pad columns reach
     names = ("y", "sum_y", "sum_y2") if stats else ("y", "z1", "z2")
     for name, t, r in zip(names, got, want):
-        assert rel_l2(t, r) <= TOL, name
+        assert rel_l2(t, r) <= tol(dtype), name
         if name not in ("sum_y", "sum_y2"):
-            assert rel_l2(t[last], r[last]) <= TOL, name
+            assert rel_l2(t[last], r[last]) <= tol(dtype), name
 
 
 @pytest.mark.parametrize("k", [1, 2])

@@ -368,8 +368,11 @@ def test_lift_trainer_and_tester_match_jax(tmp_path, monkeypatch):
 def test_refusals(tiny, tmp_path, monkeypatch):
     """A JAX .ckpt raises (naming the converter); without CUDA the default
     device raises; on a CUDA request (CUDA reported available) multi-device,
-    use_pallas false and f32 on a graph with band levels raise before any
-    work on the card; on the CPU the last two run."""
+    use_pallas false and f32 on a graph with band levels on the unfused,
+    strip or window path raise before any work on the card, while f32 on the
+    training form (Trainer, training-form Tester) and on the group deploy
+    path (the deploy Tester) gets past the checks to the first tensor sent
+    to the card; on the CPU they all run."""
     art_j, art_t, faces = tiny
     ck = tmp_path / "jaxck"
     jax_save_checkpoint(str(ck), 1, {"params": {"w": np.ones(3, np.float32)}})
@@ -378,10 +381,21 @@ def test_refusals(tiny, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="state_dict_from_flax"):
         load_checkpoint(str(ck), device="cpu")  # the directory's latest
 
-    def build(cfg, device):
+    def build(cfg, device, **path):
+        model = _port_cascade(art_t)
+        if path:  # the same weights on another path
+            model = Pose2Mesh(J, art_t.mesh_ops[-1].num_vertices, posenet_hidden=32,
+                              blocks=TEST_BLOCKS, device="cpu", **path)
         return engine.Trainer(cfg, datasets=[TinyDataset(8, art_t, faces)],
                               test_dataset=TinyDataset(4, art_t, faces, seed=1),
-                              model=_port_cascade(art_t), device=device)
+                              model=model, device=device)
+
+    def tester(cfg, device, **path):
+        model = None if not path else Pose2Mesh(
+            J, art_t.mesh_ops[-1].num_vertices, posenet_hidden=32, blocks=TEST_BLOCKS,
+            device="cpu", **path)
+        return engine.Tester(cfg, dataset=TinyDataset(4, art_t, faces), model=model,
+                             device=device)
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         engine.Trainer(_cfg(tmp_path), datasets=[TinyDataset(8, art_t, faces)])
@@ -389,6 +403,13 @@ def test_refusals(tiny, tmp_path, monkeypatch):
     cfg.TPU.use_pallas = False
     build(cfg, "cpu")
     build(_cfg(tmp_path), "cpu")  # f32
+    # the paths whose band kernels take bfloat16 only: the unfused training
+    # form (Trainer, Tester), the unfused, strip and window deploy paths (Tester)
+    unfused_train = {"fused": False, "inference_fused": False}
+    others = ((build, unfused_train), (tester, unfused_train), (tester, {"fused": False}),
+              (tester, {"flat_impl": "strip"}), (tester, {"flat_impl": "window"}))
+    for make, path in others:
+        make(_cfg(tmp_path), "cpu", **path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cfg = _cfg(tmp_path)
     cfg.TPU.data_axis = 2
@@ -398,11 +419,17 @@ def test_refusals(tiny, tmp_path, monkeypatch):
     cfg.TPU.use_pallas = False
     with pytest.raises(ValueError, match="use_pallas"):
         build(cfg, "cuda")
-    for make in (lambda cfg: build(cfg, "cuda"),
-                 lambda cfg: engine.Tester(cfg, dataset=TinyDataset(4, art_t, faces),
-                                           device="cuda")):
-        with pytest.raises(ValueError, match="f32 on CUDA"):
-            make(_cfg(tmp_path))
+    for make, path in others:
+        with pytest.raises(ValueError, match="f32 on CUDA.*Queue 2 K.4"):
+            make(_cfg(tmp_path), "cuda", **path)
+    train_form = _cfg(tmp_path)
+    train_form.TEST.deploy = False
+    for make in (lambda: build(_cfg(tmp_path), "cuda"),  # the training form
+                 lambda: tester(_cfg(tmp_path), "cuda"),  # the group deploy path
+                 lambda: tester(train_form, "cuda")):
+        # this torch has no CUDA: the first tensor sent to the card raises
+        with pytest.raises(AssertionError, match="not compiled with CUDA"):
+            make()
 
 
 def test_cli_flags_match_jax():
