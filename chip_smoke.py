@@ -111,24 +111,36 @@ Phases (any failure exits non-zero):
      its keypoints and leave the L1 fit's optimum flat), then the fit on
      the stand-in body's own joints under a known camera (parameters
      within 1e-3 of the CPU's);
-  14. the float32 instances (the `f32` argument of csrc's group, commuted,
-     K1 and K2 entry points) and the float32 paths at full SMPL width: each
-     instance against its plain version on the same float32 inputs at the
-     shapes of phases 2 and 4 (the group and commuted convs, K1 with its
-     fold and statistics, K2, K1 with keep_basis; the band_k = 2 level),
-     relative L2 <= 1e-5, K1 and K2 run twice to equal bits, and its ms,
+  14. the float32 instances (the `f32` argument of every csrc entry point)
+     and the float32 paths at full SMPL width: each instance against its
+     plain version on the same float32 inputs at the shapes of phases 2 and
+     4 (the group and commuted convs, K1 with its fold and statistics, K2,
+     K1 with keep_basis, the hop K4, the strip conv K5 in both orders with
+     every epilogue, the window conv K6; the band_k = 2 level, K5 also at
+     64-row strip tiles) and K4, K5, K6 at MANO's band level, relative L2
+     <= 1e-5, K1, K2, K4, K5 and K6 run twice to equal bits, and its ms,
      plain ms and bound; smpl_deploy_forward(dtype=float32), 4 requests of
      batch 64, exactly 8 group + 2 commuted convs each, within 1e-4 of the
-     plain float32 forward; smpl_train_setup(dtype=float32), the step from
-     the fresh state against the plain-K1/K2 float32 step (loss 1e-5,
-     gradients 1e-3), then 1 + 4 steps of exactly 10 K1 + 10 K2; over phase
-     12's stand-in files, cli.train with TPU.compute_dtype f32 for one epoch (8
-     K1 + 8 K2 a step, 8 K1 an in-epoch eval forward), cli.test of its
-     checkpoint, deploy (6 + 2 group convs a forward) against the training
-     form (every metric within 1e-4), and cli.demo on the card with
-     --input_img a PNG written with PIL (decoded by PIL where matplotlib is
-     missing; 8 float32 K1 a person) against the same demo on the CPU (mesh
-     and joints within 1e-4);
+     plain float32 forward, then the strip, window and unfused paths as in
+     phase 3 (the same calls and CUDA launches a forward as bf16, within
+     1e-4 of the path's plain float32 forward and of the group forward),
+     and MANO's forward, one request on each path, likewise;
+     smpl_train_setup(dtype=float32), the step from the fresh state against
+     the plain-K1/K2 float32 step (loss 1e-5, gradients 1e-3), then 1 + 4
+     steps of exactly 10 K1 + 10 K2; the unfused training form (fused=False)
+     with those weights, one step against its plain step (loss 1e-5,
+     gradients 1e-3; every training conv carries statistics or a fold, so
+     10 K1 + 10 K2 and no hop) and its eval forward (10 hops + 5 K1) within
+     1e-4 of its plain forward; over phase 12's stand-in files, cli.train
+     with TPU.compute_dtype f32 for one epoch (8 K1 + 8 K2 a step, 8 K1 an
+     in-epoch eval forward), cli.test of its checkpoint, deploy (6 + 2
+     group convs a forward) against the training form (every metric within
+     1e-4), a float32 deploy Tester (Tester(cfg, model=...)) with the same
+     folded weights on the strip, window and unfused paths (8 strip, 8
+     window or 16 hop calls a forward), each within 1e-4 of the training
+     form, and cli.demo on the card with --input_img a PNG written with PIL
+     (decoded by PIL where matplotlib is missing; 8 float32 K1 a person)
+     against the same demo on the CPU (mesh and joints within 1e-4);
   then print the MANO kernels' numbers per pass, the data layer's numbers,
   the engine's numbers, the float32 paths' numbers and the kernel table
   (the bf16 kernels and, named `...[f32]`, their float32 instances) as one
@@ -195,6 +207,14 @@ F32_STEP_LOSS_TOL = 1e-5
 F32_STEP_GRAD_TOL = 1e-3
 F32_DEPLOY_VS_TRAIN_TOL = 1e-4
 F32_DEMO_MESH_TOL = 1e-4
+# the strip conv's float32 checks at the band_k = 2 level (fin, fout,
+# epilogue): basis with the skip projection; commuted plain, with the skip
+# projection and with the skip add
+F32_K2_STRIP_CONVS = [(128, 128, "skip_proj"), (256, 128, "relu"), (256, 128, "skip_proj"),
+                      (256, 128, "skip_add")]
+# the SMPL unfused training form's eval forward: each band block's first
+# conv unfused (2 hops), its second K1 with the fold
+UNFUSED_EVAL_LAUNCHES = {"banded_hop": 10, "fused_cheby_conv_train": 5}
 REPLACES = {
     "fused_cheby_conv": "pose2mesh_release_tpu/ops/pallas_cheby.py:713",
     "fused_cheby_conv_commuted": "pose2mesh_release_tpu/ops/pallas_cheby.py:421",
@@ -657,14 +677,15 @@ def subtile_occupancy(op) -> dict:
             "over_cap": float((per_group > HOP_CAP).float().mean())}
 
 
-def check_hop(op, fin, gen, tag):
+def check_hop(op, fin, gen, tag, dtype=None):
     """K4 at one conv of the unfused path: the hop forward and backward
-    through its autograd Function vs the plain version; timed as the conv's
-    two hops (x and a cotangent of its shape), beside two torch.sparse.mm
-    calls on the level's CSR Laplacian."""
+    through its autograd Function vs the plain version, bf16 (or its `dtype`
+    instance, then also run twice to equal bits); timed as the conv's two
+    hops (x and a cotangent of its shape), beside two torch.sparse.mm calls
+    on the level's CSR Laplacian."""
     import torch
     from pose2mesh_release_tpu_torch.ops import hop as hp
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     band = op.band_val.to(dev, bf)
     V, Vp = op.num_vertices, op.padded_vertices
     x = (torch.randn(Vp, BATCH, fin, generator=gen, device=dev) * 0.5).to(bf)
@@ -683,27 +704,41 @@ def check_hop(op, fin, gen, tag):
     L = sparse_csr(op.to(dev), bf)
     x2 = x.reshape(Vp, -1).to(L.dtype)
     nnz = int(torch.count_nonzero(op.band_val))
-    return measure(
+    row = measure(
         tag, "banded_hop", {"V": V, "Vp": Vp, "band_k": op.band_k, "F": fin,
                             "library": f"torch.sparse.mm {L.dtype}"},
         lambda: fwd_bwd(hp.hop, band, x, g), lambda: fwd_bwd(hp.hop_plain, band, x, g),
         lambda: fwd_bwd(hp.hop_plain, band.float(), x.float(), g.float()),
         ("y", "dx"), V, 2 * 2 * nnz * BATCH * fin,
         # x and g read, y and dx written (real rows), the operator's nonzeros
-        4 * nbytes(x[:V]) + nnz * 2,
+        4 * nbytes(x[:V]) + nnz * band.element_size(),
         library=lambda: (torch.sparse.mm(L, x2), torch.sparse.mm(L, x2)),
         timed=lambda: (hp.hop(band, x), hp.hop(band, g)),
-        timed_plain=lambda: (hp.hop_plain(band, x), hp.hop_plain(band, g)))
+        timed_plain=lambda: (hp.hop_plain(band, x), hp.hop_plain(band, g)), dtype=dtype)
+    if dtype is not None:
+        bits_twice(row, tag, lambda: hp.hop(band, x))
+    return row
 
 
-def check_strip(op, fin, fout, epilogue, gen, tag):
-    """K5: the strip conv in the mode of the JAX rule vs its plain version."""
+def bits_twice(row, tag, fn):
+    """A float32 instance run twice on the same inputs: equal bits, or the
+    row fails."""
+    import torch
+    row["bits_equal"] = torch.equal(fn(), fn())
+    row["ok"] = row["ok"] and row["bits_equal"]
+    log(f"  {tag:10s} two runs, equal bits: {row['bits_equal']}")
+
+
+def check_strip(op, fin, fout, epilogue, gen, tag, dtype=None):
+    """K5: the strip conv in the mode of the JAX rule vs its plain version,
+    bf16 (or its `dtype` instance, then also run twice to equal bits)."""
     import torch
     from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
     dev = "cuda"
     V, Vp, h = op.num_vertices, op.padded_vertices, op.strip_h
-    S, off = op.strip_val.to(dev, torch.bfloat16), op.strip_off.to(dev)
-    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen)
+    S, off = op.strip_val.to(dev, dtype or torch.bfloat16), op.strip_off.to(dev)
+    es = S.element_size()
+    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen, dtype)
     mode = sc.strip_mode(fin, fout)
     if mode == "commuted":
         W3 = W.view(3, fin, fout)
@@ -714,9 +749,9 @@ def check_strip(op, fin, fout, epilogue, gen, tag):
     flops = (2 * 2 * nnz * BATCH * (fin if mode == "basis" else fout)
              + 2 * V * BATCH * 3 * fin * fout
              + (0 if skip_w is None else 2 * V * BATCH * skip.shape[-1] * fout))
-    y_bytes = V * BATCH * fout * 2
+    y_bytes = V * BATCH * fout * es
     bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w, off)
-              + y_bytes + nnz * 2)
+              + y_bytes + nnz * es)
     row = measure(
         tag, "strip_cheby_conv", {"V": V, "band_k": op.band_k, "strip_h": h,
                                   "W": S.shape[1], "mode": mode, "fin": fin,
@@ -725,27 +760,31 @@ def check_strip(op, fin, fout, epilogue, gen, tag):
         lambda: sc.strip_cheby_conv_plain(S, off, h, x, W, b, **kw),
         lambda: sc.strip_cheby_conv_plain(S.float(), off, h, x.float(), W.float(),
                                           b.float(), **f32),
-        ("y",), V, flops, bytes_)
+        ("y",), V, flops, bytes_, dtype=dtype)
     # its launches apart (not counted as launches)
     run, _ = sc.strip_launcher(S, off, h, x, W, b, mode, kw["relu"], skip, skip_w)
     row["split_ms"] = split_ms(tag, f"strip {mode}", run, sc.STRIP_STAGES[mode], row["ms"])
+    if dtype is not None:
+        bits_twice(row, tag, lambda: sc.strip_cheby_conv(S, off, h, x, W, b, **kw))
     return row
 
 
-def check_window(op, fin, fout, epilogue, gen, tag):
-    """K6: the window conv (basis order) vs its plain version."""
+def check_window(op, fin, fout, epilogue, gen, tag, dtype=None):
+    """K6: the window conv (basis order) vs its plain version, bf16 (or its
+    `dtype` instance, then also run twice to equal bits)."""
     import torch
     from pose2mesh_release_tpu_torch.ops import window_cheby as wc
     V = op.num_vertices
-    win, woff = wc.window_cat(op.band_val.to("cuda", torch.bfloat16))
-    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen)
+    win, woff = wc.window_cat(op.band_val.to("cuda", dtype or torch.bfloat16))
+    es = win.element_size()
+    x, W, b, skip, skip_w = conv_case(op, fin, fout, epilogue, gen, dtype)
     kw = dict(relu=epilogue != "final", skip=skip, skip_w=skip_w)
     f32 = {k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()}
     nnz = int(torch.count_nonzero(op.band_val))
     flops = (2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout
              + (0 if skip_w is None else 2 * V * BATCH * skip.shape[-1] * fout))
     bytes_ = (nbytes(x[:V], None if skip is None else skip[:V], W, b, skip_w, woff)
-              + V * BATCH * fout * 2 + nnz * 2)
+              + V * BATCH * fout * es + nnz * es)
     row = measure(
         tag, "window_cheby_conv", {"V": V, "band_k": op.band_k, "fin": fin,
                                    "fout": fout, "epilogue": epilogue},
@@ -753,10 +792,12 @@ def check_window(op, fin, fout, epilogue, gen, tag):
         lambda: wc.window_cheby_conv_plain(win, woff, x, W, b, **kw),
         lambda: wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(),
                                            b.float(), **f32),
-        ("y",), V, flops, bytes_)
+        ("y",), V, flops, bytes_, dtype=dtype)
     # its launches apart (not counted as launches)
     run, _ = wc.window_launcher(win, woff, x, W, b, kw["relu"], skip, skip_w)
     row["split_ms"] = split_ms(tag, "window", run, wc.WINDOW_STAGES, row["ms"])
+    if dtype is not None:
+        bits_twice(row, tag, lambda: wc.window_cheby_conv(win, woff, x, W, b, **kw))
     return row
 
 
@@ -830,12 +871,12 @@ def plain_forward(path, step, art, pose2d):
 
 
 def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=None,
-               shapes=None):
+               shapes=None, tol=FORWARD_TOL):
     """Phase 3 for a further path: a model built for the path with the group
     model's weights, warm-up, the counted requests (one per batch), the plain
-    forward of the same path and the group forward's outputs.  paths,
-    cuda_counts, shapes: the model's PATHS, PATH_CUDA_LAUNCHES and output
-    shapes (default: SMPL's)."""
+    forward of the same path and the group forward's outputs, within `tol`.
+    paths, cuda_counts, shapes: the model's PATHS, PATH_CUDA_LAUNCHES and
+    output shapes (default: SMPL's)."""
     import torch
     from pose2mesh_release_tpu_torch.deploy import on_path
     paths, cuda_counts = paths or PATHS, cuda_counts or PATH_CUDA_LAUNCHES
@@ -875,8 +916,8 @@ def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=N
             "mesh_vs_group": rel_l2(outs[0][0], group_out[0]),
             "reg_pose_vs_group": rel_l2(outs[0][1], group_out[1])}
     log(f"  {path}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-        + f" (tolerance {FORWARD_TOL}); plain forward {plain_ms:.3f} ms")
-    if max(errs.values()) > FORWARD_TOL:
+        + f" (tolerance {tol}); plain forward {plain_ms:.3f} ms")
+    if max(errs.values()) > tol:
         raise SystemExit(f"{path}: forward disagrees: {errs}")
     return {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
             "cuda_launches_per_forward": cuda_launches, "engine_launches_per_forward": engine,
@@ -900,15 +941,16 @@ def kernel_launches(fn) -> dict:
 
 def train_step_vs_plain(setup, state):
     """One train step's loss and gradients from the model's current state,
-    through the kernels and through the plain versions of K1 and K2 on the
-    card (lr 0; the same dropout draws; the parameters, BatchNorm statistics
-    and optimizer state are put back after each step).  Returns (loss with
-    kernels, loss plain, {param: rel L2 of its gradient}, the biases left
-    out, ms of the plain step)."""
+    through the kernels and through the plain versions of K1, K2 and the hop
+    K4 on the card (lr 0; the same dropout draws; the parameters, BatchNorm
+    statistics and optimizer state are put back after each step).  Returns
+    (loss with kernels, loss plain, {param: rel L2 of its gradient}, the
+    biases left out, ms of the plain step)."""
     import copy
 
     import torch
     from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
+    from pose2mesh_release_tpu_torch.ops import hop as hp
 
     model, opt = state.model, state.optimizer
     snapshot = copy.deepcopy(model.state_dict())
@@ -931,13 +973,14 @@ def train_step_vs_plain(setup, state):
         return float(losses["total"]), grads, ms
 
     loss_k, grads_k, _ = one_step()
-    kernels = ft.fused_cheby_conv_train, ft.fused_cheby_conv_bwd
+    kernels = ft.fused_cheby_conv_train, ft.fused_cheby_conv_bwd, hp.hop
     ft.fused_cheby_conv_train = ft.fused_cheby_conv_train_plain
     ft.fused_cheby_conv_bwd = ft.fused_cheby_conv_bwd_plain
+    hp.hop = hp.hop_plain
     try:
         loss_p, grads_p, plain_ms = one_step()
     finally:
-        ft.fused_cheby_conv_train, ft.fused_cheby_conv_bwd = kernels
+        ft.fused_cheby_conv_train, ft.fused_cheby_conv_bwd, hp.hop = kernels
     model.load_state_dict(snapshot)
     opt.load_state_dict(opt_snapshot)
     errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in grads_p if n not in zero_grad_biases}
@@ -1178,6 +1221,8 @@ def mano_table(rows) -> list:
     out = []
     for name, launches in MANO_LAUNCHES.items():
         mine = [r for r in rows if r["name"] == name]
+        if not mine:
+            continue
         out.append({"name": name, "launches": launches,
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": sum(r["ms"] for r in mine),
@@ -2005,22 +2050,39 @@ def engine_layer(root: str, card, device: str = "cuda") -> dict:
     return report
 
 
-def f32_kernels(by_v, gen) -> tuple:
+def f32_kernels(by_v, mano_op, gen) -> tuple:
     """Phase 14.1: the float32 instances of the group and commuted convs, K1
-    (with the statistics and the fold, and keep_basis) and K2 against their
-    plain versions on the same float32 inputs, at the main path's shapes and
-    the band_k = 2 level; K1 and K2 run twice to equal bits.  Returns
-    (deploy rows, train rows)."""
+    (with the statistics and the fold, and keep_basis), K2, the hop K4, the
+    strip conv K5 (both orders, every epilogue) and the window conv K6
+    against their plain versions on the same float32 inputs, at the main
+    path's shapes, the band_k = 2 level (K5 also at 64-row strip tiles) and
+    MANO's band level (K4, K5, K6); K1, K2, K4, K5 and K6 run twice to equal
+    bits.  Returns (deploy rows, train rows, MANO rows)."""
     import torch
     f32 = torch.float32
     log(f"phase 14: the float32 instances vs plain (the same float32 inputs), batch "
         f"{BATCH}, tolerance rel_l2 <= {F32_KERNEL_TOL}; bound at {PEAK_3XTF32_FLOPS / 1e12:.0f} "
         f"TFLOP/s (3xTF32)")
+    convs = list(enumerate(MAIN_PATH_CONVS))
     rows = [check_conv(by_v[V], name, fin, fout, ep, gen, f"f32main{i}", f32)
-            for i, (V, name, fin, fout, ep) in enumerate(MAIN_PATH_CONVS)]
+            for i, (V, name, fin, fout, ep) in convs]
     op2 = k2_level(3475)
     rows += [check_conv(op2, name, fin, fout, ep, gen, f"f32k2_{i}", f32)
              for i, (name, fin, fout, ep) in enumerate(K2_CONVS)]
+    rows += [check_hop(by_v[V], fin, gen, f"f32hop{i}", f32) for i, (V, _, fin, _, _) in convs]
+    rows.append(check_hop(op2, 128, gen, "f32k2_hop", f32))
+    rows += [check_strip(by_v[V], fin, fout, ep, gen, f"f32strip{i}", f32)
+             for i, (V, _, fin, fout, ep) in convs]
+    # band_k 2 in both orders, commuted with the skip add and the skip
+    # projection; 64-row strip tiles
+    rows += [check_strip(op2, fin, fout, ep, gen, f"f32k2_strip{i}", f32)
+             for i, (fin, fout, ep) in enumerate(F32_K2_STRIP_CONVS)]
+    rows.append(check_strip(restrip(by_v[3475], 64), 128, 128, "skip_add", gen, "f32h64_strip",
+                            f32))
+    rows += [check_window(by_v[V], fin, fout, ep, gen, f"f32window{i}", f32)
+             for i, (V, _, fin, fout, ep) in convs]
+    rows += [check_window(op2, fin, fout, ep, gen, f"f32k2_window{i}", f32)
+             for i, (_, fin, fout, ep) in enumerate(K2_CONVS)]
     train_rows = []
     for i, (V, fin, fout, fold, stats) in enumerate(TRAIN_CONVS):
         train_rows += check_train_conv(by_v[V], fin, fout, fold, stats, gen, f"f32train{i}",
@@ -2028,16 +2090,26 @@ def f32_kernels(by_v, gen) -> tuple:
     train_rows += check_train_conv(op2, *K2_TRAIN_CONV, gen, "f32k2_train", f32)
     V, fin, fout = KEEP_BASIS_CONV
     train_rows.append(check_keep_basis(by_v[V], fin, fout, gen, "f32keep_basis", f32))
-    bad = [(r["tag"], r["name"]) for r in rows + train_rows if not r["ok"]]
+    mano_rows = [check_hop(mano_op, fin, gen, f"f32mano_hop{i}", f32)
+                 for i, (_, fin, _, _) in enumerate(MANO_DEPLOY_CONVS)]
+    mano_rows += [check_strip(mano_op, fin, fout, ep, gen, f"f32mano_strip{i}", f32)
+                  for i, (_, fin, fout, ep) in enumerate(MANO_DEPLOY_CONVS)]
+    mano_rows += [check_window(mano_op, fin, fout, ep, gen, f"f32mano_window{i}", f32)
+                  for i, (_, fin, fout, ep) in enumerate(MANO_DEPLOY_CONVS)]
+    bad = [(r["tag"], r["name"]) for r in rows + train_rows + mano_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"float32 kernel check failed: {bad}")
-    return rows, train_rows
+    return rows, train_rows, mano_rows
 
 
-def f32_forward(deploy, card) -> dict:
-    """Phase 14.2: the float32 deploy forward (group path), REQUESTS
-    requests of batch BATCH: exactly 8 group + 2 commuted convs each, the
-    mesh and joints within F32_FORWARD_TOL of the plain float32 forward."""
+def f32_forward(deploy, mano_deploy, card) -> dict:
+    """Phase 14.2: the float32 deploy forward, REQUESTS requests of batch
+    BATCH on the group path (exactly 8 group + 2 commuted convs each, the
+    mesh and joints within F32_FORWARD_TOL of the plain float32 forward),
+    then on the strip, window and unfused paths (PATHS' calls and
+    PATH_CUDA_LAUNCHES' engine and projection launches a forward, within
+    F32_FORWARD_TOL of the path's plain float32 forward and of the group
+    forward); MANO's forward, one request on each path, likewise."""
     import torch
     step, art = deploy.eval_step, deploy.art_compute
     g = torch.Generator().manual_seed(1)
@@ -2069,16 +2141,27 @@ def f32_forward(deploy, card) -> dict:
         + f" (tolerance {F32_FORWARD_TOL}); plain forward {plain_ms:.3f} ms")
     if max(errs.values()) > F32_FORWARD_TOL:
         raise SystemExit(f"float32 forward disagrees with the plain forward: {errs}")
-    return {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
-            "plain_forward_ms": plain_ms, **errs}
+    report = {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
+              "plain_forward_ms": plain_ms, **errs}
+    log("phase 14: float32 forward on the further paths")
+    report["paths"] = {path: drive_path(path, deploy, batches, outs[0], card,
+                                        tol=F32_FORWARD_TOL) for path in PATHS}
+    mano_batch = torch.randn(BATCH, 21, 2, generator=g).cuda()
+    mano_out = mano_deploy.eval_step(mano_deploy.art_compute, mano_batch)
+    log("phase 14: float32 MANO forward on the further paths")
+    report["mano_paths"] = {
+        path: drive_path(path, mano_deploy, [mano_batch], mano_out, card, MANO_PATHS,
+                         MANO_PATH_CUDA_LAUNCHES, MANO_SHAPES, tol=F32_FORWARD_TOL)
+        for path in MANO_PATHS}
+    return report
 
 
-def f32_train(card) -> dict:
+def f32_train(card) -> tuple:
     """Phase 14.3: the float32 train step (smpl_train_setup, float32
     compute): from the fresh state against the plain-K1/K2 float32 step
     (loss within F32_STEP_LOSS_TOL, gradients within F32_STEP_GRAD_TOL),
     then 1 warm-up and TRAIN_STEPS counted steps, exactly 10 K1 + 10 K2
-    each."""
+    each.  Returns (setup, report)."""
     import torch
     from pose2mesh_release_tpu_torch.train_setup import smpl_train_setup
     t0 = time.time()
@@ -2110,8 +2193,79 @@ def f32_train(card) -> dict:
     if not all(math.isfinite(v) for l in losses for v in l.values()) or \
             not losses[-1]["total"] < losses[0]["total"]:
         raise SystemExit(f"float32 step: losses {losses}")
-    return {"card": card, "batch": BATCH, "ms_per_step": step_ms, "losses": losses,
-            "launches": launches, "fresh_state": fresh}
+    return setup, {"card": card, "batch": BATCH, "ms_per_step": step_ms, "losses": losses,
+                   "launches": launches, "fresh_state": fresh}
+
+
+def f32_unfused_train(setup, card) -> dict:
+    """Phase 14.3, the unfused training form (fused=False, inference_fused
+    False; JAX P2M_FUSED=0) with setup's float32 weights: one step against
+    the same step through the plain versions (loss within
+    F32_STEP_LOSS_TOL, gradients within F32_STEP_GRAD_TOL) and its launches
+    (every training conv carries the batch statistics or the previous
+    conv's fold, so the step runs 10 K1 + 10 K2 and no hop); then its eval
+    forward, where each band block's first conv is unfused: exactly
+    UNFUSED_EVAL_LAUNCHES a forward, within F32_FORWARD_TOL of the same
+    forward through the plain versions."""
+    import dataclasses
+
+    import torch
+    from pose2mesh_release_tpu_torch.core.optim import make_preconditioner
+    from pose2mesh_release_tpu_torch.core.train import TrainState, make_eval_step, \
+        make_train_step
+    from pose2mesh_release_tpu_torch.models.pose2mesh import Pose2Mesh
+    from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
+    from pose2mesh_release_tpu_torch.ops import hop as hp
+    base = setup.state.model
+    model = Pose2Mesh(base.num_joint, setup.art_compute.mesh_ops[-1].num_vertices,
+                      blocks=base.pose2mesh.blocks,
+                      posenet_hidden=base.pose_lifter.w1.out_features, dtype=torch.float32,
+                      inference_fused=False, fused=False, device="cuda")
+    model.load_state_dict(base.state_dict())
+    opt = make_preconditioner("rmsprop", model.parameters())
+    unfused = dataclasses.replace(setup, state=TrainState(model, opt),
+                                  train_step=make_train_step(model, opt, setup.j_regressor,
+                                                             device="cuda"))
+    log(f"phase 14: the float32 unfused training form (fused=False), batch {BATCH}")
+    fresh = step_check("float32 unfused training form", *train_step_vs_plain(
+        unfused, unfused.state), loss_tol=F32_STEP_LOSS_TOL, grad_tol=F32_STEP_GRAD_TOL)
+    reset_launches()
+    t0 = time.perf_counter()
+    unfused.train_step(unfused.state, unfused.art_compute, unfused.batch, 0.0, True,
+                       unfused.generator)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = read_launches()
+    if step_launches != expect(fused_cheby_conv_train=10, fused_cheby_conv_bwd=10):
+        raise SystemExit(f"float32 unfused step: launches {step_launches}")
+    ev = make_eval_step(model, setup.j_regressor, device="cuda")
+    pose2d = setup.batch["pose2d"]
+    ev(setup.art_compute, pose2d)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = ev(setup.art_compute, pose2d)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = read_launches()
+    if eval_launches != expect(**UNFUSED_EVAL_LAUNCHES):
+        raise SystemExit(f"float32 unfused eval forward: launches {eval_launches}")
+    kernels = hp.hop, ft.fused_cheby_conv_train
+    hp.hop, ft.fused_cheby_conv_train = hp.hop_plain, ft.fused_cheby_conv_train_plain
+    try:
+        ref = ev(setup.art_compute, pose2d)
+    finally:
+        hp.hop, ft.fused_cheby_conv_train = kernels
+    errs = {"mesh_vs_plain": rel_l2(out[0], ref[0]), "reg_pose_vs_plain": rel_l2(out[1], ref[1])}
+    log(f"  unfused training form: step {step_ms:.3f} ms, launches {step_launches}; eval "
+        f"forward {eval_ms:.3f} ms, launches {eval_launches}, "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tolerance {F32_FORWARD_TOL}) ({card})")
+    if max(errs.values()) > F32_FORWARD_TOL:
+        raise SystemExit(f"float32 unfused eval forward disagrees with its plain forward: "
+                         f"{errs}")
+    return {"card": card, "step_ms": step_ms, "step_launches": step_launches,
+            "fresh_state": fresh, "eval_ms": eval_ms, "eval_launches": eval_launches, **errs}
 
 
 def f32_engine(root: str, card) -> dict:
@@ -2187,6 +2341,7 @@ def f32_engine(root: str, card) -> dict:
         f"({card})")
     if not all(v <= F32_DEPLOY_VS_TRAIN_TOL for v in rel.values()):
         raise SystemExit(f"float32 deploy Tester disagrees with the training-form eval: {rel}")
+    runs["paths"] = f32_path_testers(root, out, best, tf, keys, card)
 
     # the demo: the stand-in body's COCO keypoints, a PNG written with PIL
     smpl = SMPL(data_dir=root)
@@ -2240,12 +2395,59 @@ def f32_engine(root: str, card) -> dict:
     return {"train": train, "test": {"runs": runs, "rel_diff": rel}, "demo": demo_out}
 
 
+# the deploy Tester's band-conv calls a forward on the datasets' graph (6
+# basis-order + 2 narrowing convs): each further path's
+DATA_PATH_LAUNCHES = {"strip": {"strip_cheby_conv": 8}, "window": {"window_cheby_conv": 8},
+                      "unfused": {"banded_hop": 16}}
+
+
+def f32_path_testers(root, out, best, train_form, keys, card) -> dict:
+    """Phase 14.4 on the further paths: a float32 deploy Tester (Tester(cfg,
+    model=...)) with best.pth.tar's folded weights on the strip, window and
+    unfused paths, every metric within F32_DEPLOY_VS_TRAIN_TOL of the
+    training-form eval `train_form`, DATA_PATH_LAUNCHES a forward."""
+    from pose2mesh_release_tpu_torch.config import load_config
+    from pose2mesh_release_tpu_torch.core import engine
+    from pose2mesh_release_tpu_torch.models.pose2mesh import Pose2Mesh
+    cfg = load_config(engine_cfg(os.path.join(root, "test_f32_paths.json"), root, out,
+                                 TEST={"deploy": True}, TPU={"compute_dtype": "f32"}))
+    group = engine.Tester(cfg, load_path=best, debug=True, device="cuda")  # folded weights
+    net = group.model
+    runs = {}
+    for path, (kw, _, _) in PATHS.items():
+        model = Pose2Mesh(net.num_joint, group.dataset.graph.mesh_ops[-1].num_vertices,
+                          blocks=net.pose2mesh.blocks,
+                          posenet_hidden=net.pose_lifter.w1.out_features,
+                          dtype=net.pose2mesh.dtype, device="cuda", **kw)
+        model.load_state_dict(net.state_dict())
+        reset_launches()
+        with EngineProbe() as probe:  # wraps the step maker the Tester calls
+            res = engine.Tester(cfg, dataset=group.dataset, model=model,
+                                device="cuda").test(0)
+        want = DATA_PATH_LAUNCHES[path]
+        _check_steps(f"float32 Tester ({path}) forwards", probe.eval, want, len(probe.eval))
+        if read_launches() != expect(**{k: v * len(probe.eval) for k, v in want.items()}) \
+                or not probe.eval:
+            raise SystemExit(f"float32 Tester ({path}): launches {read_launches()}")
+        rel = {k: abs(res[k] - train_form[k]) / abs(train_form[k]) for k in keys}
+        log(f"phase 14: float32 deploy Tester on the {path} path: eval-step ms per batch "
+            f"{[round(t, 3) for t in probe.eval_ms]}, launches per forward {probe.eval[0]}; "
+            f"vs training form { {k: f'{v:.2e}' for k, v in rel.items()} } (tolerance "
+            f"{F32_DEPLOY_VS_TRAIN_TOL}) ({card})")
+        if not all(v <= F32_DEPLOY_VS_TRAIN_TOL for v in rel.values()):
+            raise SystemExit(f"float32 Tester ({path}) disagrees with the training-form eval: "
+                             f"{rel}")
+        runs[path] = {"result": res, "eval_ms": probe.eval_ms,
+                      "launches_per_forward": probe.eval[0], "rel_diff": rel}
+    return runs
+
+
 def f32_layer(root: str, card) -> dict:
     """Phase 14: the float32 instances and the float32 paths at full SMPL
-    width (14.1 kernels, 14.2 deploy forward, 14.3 train step, 14.4 the
+    width (14.1 kernels, 14.2 deploy forwards, 14.3 train steps, 14.4 the
     entry points over phase 12's stand-in files under `root`)."""
     import torch
-    from pose2mesh_release_tpu_torch.deploy import smpl_deploy_forward
+    from pose2mesh_release_tpu_torch.deploy import mano_deploy_forward, smpl_deploy_forward
     precision = getattr(torch.backends.cuda.matmul, "fp32_precision", "ieee")
     log(f"phase 14: float32; matmul allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
         f"fp32_precision {precision}, cudnn allow_tf32 {torch.backends.cudnn.allow_tf32} "
@@ -2253,13 +2455,17 @@ def f32_layer(root: str, card) -> dict:
     if torch.backends.cuda.matmul.allow_tf32 or precision != "ieee":
         raise SystemExit("phase 14: the plain float32 versions need full float32 matmuls")
     deploy = smpl_deploy_forward(dtype=torch.float32, device="cuda", seed=0)
+    mano = mano_deploy_forward(dtype=torch.float32, device="cuda", seed=0)
     by_v = {op.num_vertices: op for op in deploy.art.mesh_ops}
     gen = torch.Generator(device="cuda").manual_seed(14)
-    rows, train_rows = f32_kernels(by_v, gen)
-    report = {"convs": rows, "train_convs": train_rows, "forward": f32_forward(deploy, card)}
-    del deploy
+    rows, train_rows, mano_rows = f32_kernels(by_v, mano.art.mesh_ops[0], gen)
+    report = {"convs": rows, "train_convs": train_rows, "mano_convs": mano_rows,
+              "mano_kernels": mano_table(mano_rows), "forward": f32_forward(deploy, mano, card)}
+    del deploy, mano
     torch.cuda.empty_cache()
-    report["train"] = f32_train(card)
+    setup, report["train"] = f32_train(card)
+    report["unfused_train"] = f32_unfused_train(setup, card)
+    del setup
     torch.cuda.empty_cache()
     report["engine"] = f32_engine(root, card)
     return report
@@ -2543,9 +2749,12 @@ def main() -> int:
                     "fused_cheby_conv_commuted":
                         f32["forward"]["launches"]["fused_cheby_conv_commuted"],
                     **{n: f32["train"]["launches"][n] for n in TRAIN_KERNELS},
+                    **{PATHS[p][1]: f32["forward"]["paths"][p]["launches"][PATHS[p][1]]
+                       for p in PATHS},
                     "fused_cheby_conv_train(keep_basis)": f32["train_convs"][-1]["launches"]}
     kernels += kernel_table(f32["convs"] + f32["train_convs"], f32_launches,
-                            ("f32main", "f32train", "f32keep_basis"), "[f32]")
+                            ("f32main", "f32train", "f32keep_basis", "f32hop", "f32strip",
+                             "f32window"), "[f32]")
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2584,11 +2793,25 @@ def main() -> int:
         "camera_well_posed_vs_cpu": eng["demo"]["camera_well_posed"]}}),
         flush=True)
     f32_eng = f32["engine"]
+    errs = ("mesh_vs_plain", "reg_pose_vs_plain", "mesh_vs_group", "reg_pose_vs_group")
     print(json.dumps({"f32": {
         "card": card, "forward_ms_per_batch": f32["forward"]["ms_per_batch"],
         "forward_launches": f32["forward"]["launches"],
         "forward_vs_plain": {k: f32["forward"][k] for k in ("mesh_vs_plain",
                                                              "reg_pose_vs_plain")},
+        "paths": {model: {p: {"ms_per_batch": r["ms_per_batch"], "launches": r["launches"],
+                              "engine_launches_per_forward": r["engine_launches_per_forward"],
+                              "plain_forward_ms": r["plain_forward_ms"],
+                              **{k: r[k] for k in errs}}
+                          for p, r in f32["forward"][key].items()}
+                  for model, key in (("smpl", "paths"), ("mano", "mano_paths"))},
+        "mano_kernels": f32["mano_kernels"],
+        "unfused_train": {k: v for k, v in f32["unfused_train"].items() if k != "fresh_state"},
+        "unfused_step_loss_rel_err": f32["unfused_train"]["fresh_state"]["loss_rel_err"],
+        "unfused_step_worst_grad_rel_l2": f32["unfused_train"]["fresh_state"]["worst"][0],
+        "test_paths": {p: {"eval_ms": r["eval_ms"], "launches_per_forward":
+                           r["launches_per_forward"], "rel_diff": r["rel_diff"]}
+                       for p, r in f32_eng["test"]["runs"]["paths"].items()},
         "step_ms": f32["train"]["ms_per_step"], "step_launches": f32["train"]["launches"],
         "step_loss_rel_err": f32["train"]["fresh_state"]["loss_rel_err"],
         "step_worst_grad_rel_l2": f32["train"]["fresh_state"]["worst"][0],

@@ -14,9 +14,9 @@ package's `core/engine.py`:
 
 Every engine takes `device=` (default "cuda") and passes it to the datasets,
 the loader and the model.  On the card the band convs run on the port's
-CUDA kernels, which take bfloat16: the engines refuse `TPU.use_pallas:
-false` and, where the graph has a band level, `TPU.compute_dtype: "f32"`
-there; on the CPU every setting runs through the kernels' plain versions.
+CUDA kernels, in `TPU.compute_dtype` (bf16 or f32) on every path: the
+engines refuse `TPU.use_pallas: false` there; on the CPU every setting runs
+through the kernels' plain versions.
 Multi-device meshes (`TPU.data_axis * TPU.graph_axis > 1`) are not ported.
 Weights are drawn from a CPU `torch.Generator` seeded with `cfg.seed or 0`;
 training dropout from one device generator per epoch, seeded from
@@ -110,22 +110,6 @@ class _Base:
             raise ValueError(f"cfg.TPU.compute_dtype {cfg.TPU.compute_dtype!r}: bf16 or f32")
         self.dtype = torch.bfloat16 if cfg.TPU.compute_dtype == "bf16" else torch.float32
 
-    def _check_graph(self, art, model: Optional[Pose2Mesh]) -> None:
-        """float32 on CUDA runs the band convs of the training form and of the
-        group deploy path (the cascade `_build_cascade` builds, model None):
-        the kernels of the strip, window and unfused paths take bfloat16 only
-        (ROADMAP Queue 2 K.4).  Checked before any work on the card."""
-        net = None if model is None else model.pose2mesh
-        other_path = net is not None and (
-            not net.fused or (net.inference_fused and net.flat_impl != "group"))
-        if (self.device.type == "cuda" and self.dtype != torch.bfloat16 and other_path
-                and any(op.kind == "band" for op in art.mesh_ops)):
-            path = "unfused" if not net.fused else net.flat_impl
-            raise ValueError(f"cfg.TPU.compute_dtype: f32 on CUDA on the {path} path: its "
-                             f"band-level kernels take bfloat16 (their float32 instances "
-                             f"are ROADMAP Queue 2 K.4); use bf16, the group path, or "
-                             f"device='cpu'")
-
     def _build_cascade(self, joint_num: int, art, mano: bool, deploy: bool = False):
         return Pose2Mesh(joint_num, art.mesh_ops[-1].num_vertices, mano=mano,
                          posenet_hidden=self.cfg.MODEL.posenet_hidden, dtype=self.dtype,
@@ -154,7 +138,6 @@ class Trainer(_Base):
             cfg, "train", mesh_model, model_name="pose2mesh_net", debug=debug,
             device=self.device)
         main = self.datasets[0]
-        self._check_graph(main.graph, model)
         self.art = main.graph
         # the operators in the compute dtype on the device, once per engine
         # (the in-epoch eval shares them)
@@ -323,7 +306,6 @@ class Tester(_Base):
         self._art = None
         if dataset is None:
             return
-        self._check_graph(dataset.graph, self.model)
         if self.model is None:
             self.model = self._build_cascade(dataset.joint_num, dataset.graph,
                                              mano=cfg.DATASET.input_joint_set == "mano",

@@ -39,7 +39,7 @@
 //               with h = T, Wd = (2k+1) T and off = its window offsets.
 // ops/hop.py hop_layout mirrors this addressing.
 // L, x, add, post, y (V, C) of the operand type T (bf16, or float32: the
-// float32 instances, block band only) row-major, C a multiple of 16, V <=
+// float32 instances, both layouts) row-major, C a multiple of 16, V <=
 // nt*T.  Rows >= V read as zero and are never written.  The epilogue (the
 // template parameter EPI): kHopAdd an add operand of type T (or none), then
 // the ReLU where `relu` is set; kHopF32Add a float32 add operand (read as
@@ -87,10 +87,12 @@ namespace p2m {
 
 // nonzero 16 x 16 band sub-tiles whose A fragments a warp keeps in registers
 constexpr int kHopCap = 12;
-// ... at float32, by chunk width (each fragment takes 8 registers)
-template <typename T, int CC>
+// ... at float32, by chunk width (each fragment takes 8 registers; the
+// strip layout's run-time row stride costs the 16-column chunk one slot:
+// with six it spills)
+template <typename T, int CC, bool STRIP = false>
 __host__ __device__ constexpr int hop_cap() {
-  return sizeof(T) == 2 ? kHopCap : (CC <= 16 ? 6 : 3);
+  return sizeof(T) == 2 ? kHopCap : (CC <= 16 ? (STRIP ? 5 : 6) : 3);
 }
 // registers of one sub-tile's A fragment
 template <typename T>
@@ -312,7 +314,7 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
   constexpr int NQ = CC / 8;  // n8 tiles of a chunk
   constexpr int VE = vec_elems<T>();
   constexpr int VPR = CC / VE;  // 16-byte vectors of a staged row
-  constexpr int CAP = hop_cap<T, CC>();
+  constexpr int CAP = hop_cap<T, CC, STRIP>();
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ unsigned long long wmask[kWarps];
   __shared__ int wshift[kWarps];  // STRIP: each warp's staged-row offset into the ring
@@ -350,9 +352,11 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
       for (int cg = 0; cg < 8; ++cg) {
         v[cg] = !STRIP || 8 * d + cg < nsub ? *reinterpret_cast<const uint4*>(bb + cg * 16)
                                             : make_uint4(0u, 0u, 0u, 0u);
-        if constexpr (VE == 4) {
-          const uint4 w = *reinterpret_cast<const uint4*>(bb + cg * 16 + 4);
-          v[cg].x |= w.x, v[cg].y |= w.y, v[cg].z |= w.z, v[cg].w |= w.w;
+        if constexpr (VE == 4) {  // the sub-tile row's second half, in range as the first
+          if (!STRIP || 8 * d + cg < nsub) {
+            const uint4 w = *reinterpret_cast<const uint4*>(bb + cg * 16 + 4);
+            v[cg].x |= w.x, v[cg].y |= w.y, v[cg].z |= w.z, v[cg].w |= w.w;
+          }
         }
       }
 #pragma unroll
@@ -484,13 +488,12 @@ inline cudaError_t launch_band_hop_cc(const HopArgsT<T>& a, int grid, int per_bl
 // One engine launch over the plan's grid (ops/hop.py hop_plan): cc columns
 // per chunk (16, 32 or 64, dividing C; at float32 16 or 32), grid blocks of
 // per_block items each.  STRIP: L in its strip form (a.wrow, a.ld and
-// a.span set; a.k is not read; bf16 only); otherwise the block band at
+// a.span set; a.k is not read); otherwise the block band at
 // band_k a.k in {1, 2}, which stages band_span(a.k) groups.  EPI: the
 // epilogue and the operands it reads.
 template <bool STRIP = false, int EPI = kHopAdd, typename T>
 inline cudaError_t launch_band_hop(const HopArgsT<T>& a0, int cc, int grid, int per_block,
                                    cudaStream_t stream) {
-  static_assert(sizeof(T) == 2 || !STRIP, "the strip form has bf16 instances only");
   HopArgsT<T> a = a0;
   if (!STRIP) a.span = band_span(a.k);
   const long items = (long)a.nt * (a.C / (cc > 0 ? cc : 1));

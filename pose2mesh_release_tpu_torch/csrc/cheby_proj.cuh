@@ -33,9 +33,9 @@
 //              fo) in float32, unrounded as the TPU kernel adds them; block 2
 //              writes p2 = x W2 to y (M, fo) in T.  Packed pairs straight
 //              from registers (float2 / bf16x2), no staging.
-//   kEpiCommutedBf16 the same three blocks, all stored to y (3, M, fo) in
-//              bf16: [p | t0 | u] = bf16([x (W0 - W2) + b | x W1 | x W2]),
-//              the strip kernel's rounding points.
+//   kEpiCommutedT the same three blocks, all stored to y (3, M, fo) in T:
+//              [p | t0 | u] = T([x (W0 - W2) + b | x W1 | x W2]), the strip
+//              kernel's rounding points (in float32 none).
 //   kEpiF32    one operand, one block: yf (M, Np) = A0 W in float32, no
 //              bias (the strip conv's skip projection skip @ skip_w, added
 //              after the activation by its last hop).
@@ -65,7 +65,7 @@
 namespace p2m {
 
 constexpr int kEpiBias = 0, kEpiStats = 1, kEpiDeploy = 2, kEpiCommuted = 3,
-              kEpiCommutedBf16 = 4, kEpiF32 = 5;
+              kEpiCommutedT = 4, kEpiF32 = 5;
 constexpr int kProjBM = 128;           // output tile rows
 constexpr int kProjBK = 32;            // k-tile rows
 constexpr int kProjStages = 3;         // cp.async ring depth
@@ -90,7 +90,7 @@ using ProjArgs = ProjArgsT<bf16>;
 
 // the epilogues of one operand x against column blocks of W (commuted_tile)
 __host__ __device__ constexpr bool proj_blocks(int epi) {
-  return epi == kEpiCommuted || epi == kEpiCommutedBf16 || epi == kEpiF32;
+  return epi == kEpiCommuted || epi == kEpiCommutedT || epi == kEpiF32;
 }
 
 // warps across the tile's columns: 2 for BN >= 64, else 1
@@ -187,7 +187,7 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
 }
 
 // The epilogues of proj_blocks: the tile (m0, n0) of [a | p1 | p2]
-// (kEpiCommuted), of [p | t0 | u] (kEpiCommutedBf16) or of the one block
+// (kEpiCommuted), of [p | t0 | u] (kEpiCommutedT) or of the one block
 // (kEpiF32), stored from registers.
 template <int BN, int EPI, typename T, int MI, int NI>
 __device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const ProjArgsT<T>& p,
@@ -209,7 +209,7 @@ __device__ __forceinline__ void commuted_tile(float (&acc)[MI][NI][4], const Pro
         const long m = m0 + wr * WM + mi * 16 + gq + 8 * h;
         if (m >= p.M) continue;
         const float v0 = acc[mi][ni][2 * h] + b0, v1 = acc[mi][ni][2 * h + 1] + b1;
-        if (EPI == kEpiCommutedBf16)
+        if (EPI == kEpiCommutedT)
           store2(p.y + ((long)s * p.M + m) * fo + f, v0, v1);
         else if (EPI == kEpiCommuted && s == 2)
           store2(p.y + m * fo + f, v0, v1);
@@ -380,7 +380,7 @@ inline cudaError_t launch_proj_bn(const ProjArgsT<T>& p, int grid, cudaStream_t 
 
 // One projection launch over the plan's grid (ops/fused_cheby.py proj_plan,
 // commuted_plan): bn columns per tile (16, 32, 64 or 128, at float32 at
-// most 64, dividing Np, and with kEpiCommuted or kEpiCommutedBf16 dividing
+// most 64, dividing Np, and with kEpiCommuted or kEpiCommutedT dividing
 // Np / 3); with kEpiStats also the ordered reduction of the blocks' partials
 // into stats (2, Fout).
 template <int EPI, typename T>
@@ -392,7 +392,7 @@ inline cudaError_t launch_proj(const ProjArgsT<T>& p, int bn, int grid, float* s
   const int fo = EPI == kEpiF32 ? p.Np : p.Np / 3;  // a column block of proj_blocks
   if (proj_blocks(EPI) &&
       ((EPI != kEpiF32 && p.Np % 3) || fo % bn || fo % 16 || p.Fout > fo || p.skip ||
-       (EPI != kEpiCommutedBf16) != (p.yf != nullptr) || (EPI == kEpiF32) == (p.y != nullptr) ||
+       (EPI != kEpiCommutedT) != (p.yf != nullptr) || (EPI == kEpiF32) == (p.y != nullptr) ||
        reinterpret_cast<uintptr_t>(p.yf) % 8))
     return cudaErrorInvalidValue;
   uintptr_t al = reinterpret_cast<uintptr_t>(p.a[0]) | reinterpret_cast<uintptr_t>(p.a[1]) |

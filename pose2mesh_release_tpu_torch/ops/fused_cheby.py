@@ -10,9 +10,10 @@ Counterpart of the JAX package's `ops/pallas_cheby.py` deploy kernels:
 
 Band levels keep a vertex-major (Vp, B, F) layout at the pack-time padded
 row count Vp = nt * T; `band_val` is (2k+1, nt, T, T), k in {1, 2}.  Both
-convs take bf16 or float32 operands, all of one dtype (`KERNEL_DTYPES`),
-accumulate in float32 and round the hop results to the working dtype at the
-same points as the TPU kernels (in float32: nowhere).
+convs take bf16 or float32 operands, all of one dtype (`KERNEL_DTYPES`, the
+rule of every kernel of the port), accumulate in float32 and round the hop
+results to the working dtype at the same points as the TPU kernels (in
+float32: nowhere).
 
 `fused_cheby_conv` runs on the card as two launches of the banded hop
 engine (z1 = L x, z2 = 2 L z1 - x, csrc/band_hop.cuh) and one of the
@@ -52,8 +53,7 @@ launches = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0}
 
 _T = 128             # the kernels' band tile height
 _C_INT, _C_PTR = ctypes.c_int, ctypes.c_void_p
-# the operand dtypes of the kernels that have float32 instances (the group
-# and commuted convs, K1, K2); the others take bfloat16 only
+# the operand dtypes of every kernel (each has a bf16 and a float32 instance)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -125,12 +125,13 @@ def _check_skip(x, Fout: int, skip, skip_w) -> int:
     return Fs
 
 
-def check_dtypes(dtypes=(torch.bfloat16,), **tensors) -> torch.dtype:
+def check_dtypes(**tensors) -> torch.dtype:
     """The one dtype of a kernel's operands `tensors` (the first named is the
-    input): every operand in it, and it one of `dtypes`.  Raises TypeError."""
+    input): every operand in it, and it one of KERNEL_DTYPES.  Raises
+    TypeError."""
     name0, t0 = next(iter(tensors.items()))
-    if t0.dtype not in dtypes:
-        takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+    if t0.dtype not in KERNEL_DTYPES:
+        takes = " or ".join(str(d).replace("torch.", "") for d in KERNEL_DTYPES)
         raise TypeError(f"{name0}: the kernel takes {takes}, got {t0.dtype}")
     for name, t in tensors.items():
         if t.dtype != t0.dtype:
@@ -139,14 +140,14 @@ def check_dtypes(dtypes=(torch.bfloat16,), **tensors) -> torch.dtype:
     return t0.dtype
 
 
-def _check_cuda(x, T, Fin, dtypes=(torch.bfloat16,), **tensors):
+def _check_cuda(x, T, Fin, **tensors):
+    check_dtypes(x=x, **tensors)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if T != _T:
         raise ValueError(f"the kernel takes {_T}-row band tiles, got {T}")
     if Fin % 16:
         raise ValueError(f"the kernel takes F % 16 == 0, got F={Fin}")
-    check_dtypes(dtypes, x=x, **tensors)
     for name, t in dict(x=x, **tensors).items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -256,7 +257,7 @@ def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False,
 def commuted_plan(M: int, F: int, Fo: int, sms: int, blocks: int = 3,
                   esize: int = 2) -> ProjPlan:
     """The commuted conv's projection (epilogues kEpiCommuted,
-    kEpiCommutedBf16) for M rows of x, F -> [a | p1 | p2] or [p | t0 | u]:
+    kEpiCommutedT) for M rows of x, F -> [a | p1 | p2] or [p | t0 | u]:
     three column blocks of fo_pad (Fo rounded up to 16), `bn` the widest tile
     dividing fo_pad, so a tile lies in one block; np = 3 fo_pad.  With
     blocks=1 the one-block projection of kEpiF32 (np = fo_pad).  esize: the
@@ -289,7 +290,7 @@ def conv_launcher(band_val, x, W, b, relu: bool, skip=None, skip_w=None):
     extra = {} if skip is None else {"skip": skip}
     if skip_w is not None:
         extra["skip_w"] = skip_w
-    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, W=W, b=b, **extra)
+    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **extra)
     if skip_w is not None and Fs % 16:
         raise ValueError(f"the skip projection takes Fs % 16 == 0, got Fs={Fs}")
     sms, es = sm_count(x.device), x.element_size()
@@ -346,7 +347,7 @@ def commuted_launcher(band_val, x, Wc, b, relu: bool):
     them apart only times the split."""
     from .hop import band_span, hop_plan, sm_count
     k, nt, T, B, Fin, Fo = _check_shapes(band_val, x, Wc, b)
-    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, Wc=Wc, b=b)
+    _check_cuda(x, T, Fin, band_val=band_val, Wc=Wc, b=b)
     sms, es = sm_count(x.device), x.element_size()
     rows = x.shape[0]
     pp = commuted_plan(rows * B, Fin, Fo, sms, esize=es)

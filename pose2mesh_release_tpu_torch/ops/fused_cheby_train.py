@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .fused_cheby import KERNEL_DTYPES, _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, \
-    _raise_on, _stream, proj_plan
+from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, _stream, \
+    proj_plan
 from .hop import _BLOCK_SMEM_RESERVED, _SM_SMEM, HopPlan, band_span, banded_hop, hop_plan, \
     sm_count
 from .spmm import band_hop
@@ -276,7 +276,7 @@ def train_launcher(band_val, x, W, b, in_fold: Fold, emit_stats: bool, keep_basi
     them once; running them apart only times the split."""
     k, nt, T, Fin, Fout = _check_train(band_val, x, W, b)
     fold = _fold_args(in_fold, Fin, x)
-    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, W=W, b=b, **fold)
+    _check_cuda(x, T, Fin, band_val=band_val, W=W, b=b, **fold)
     V, B = x.shape[:2]
     dev = x.device
     sms, es = sm_count(dev), x.element_size()
@@ -334,7 +334,7 @@ def bwd_launcher(band_val, g, x, W, in_fold: Fold):
     wrapper runs all of them once; running them apart only times the split."""
     k, nt, T, Fin, Fout = _check_train(band_val, x, W)
     fold = _fold_args(in_fold, Fin, x)
-    _check_cuda(x, T, Fin, KERNEL_DTYPES, band_val=band_val, g=g, W=W, **fold)
+    _check_cuda(x, T, Fin, band_val=band_val, g=g, W=W, **fold)
     V, B = x.shape[:2]
     dev = x.device
     es = x.element_size()

@@ -4,7 +4,8 @@ Counterpart of the JAX package's `banded_hop` (ops/pallas_cheby.py; Pallas
 `_hop_call`, CUDA csrc/banded_hop.cu).  x is vertex-major (V, ...) with
 V <= nt*T rows: the training layout at the real row count (missing rows
 read as zero) or the deploy layout at the padded count.  The product
-accumulates in float32 and rounds once to x's dtype.
+accumulates in float32 and rounds once to x's dtype (bf16, or float32: the
+float32 instance, no rounding; `fused_cheby.KERNEL_DTYPES`).
 
 `hop` is the kernel wrapper: the plain PyTorch version for a tensor on the
 CPU, the CUDA kernel (the banded hop engine, csrc/band_hop.cuh, one launch
@@ -179,7 +180,7 @@ def hop_layout(nt: int, k: int = 1, off=None, h: int = _T, wd: Optional[int] = N
 @functools.cache
 def _hop_lib():
     lib = load_library("banded_hop")
-    lib.p2m_banded_hop.argtypes = [_C_PTR] * 3 + [_C_INT] * 7 + [_C_PTR]
+    lib.p2m_banded_hop.argtypes = [_C_PTR] * 3 + [_C_INT] * 8 + [_C_PTR]
     lib.p2m_banded_hop.restype = _C_INT
     lib.p2m_banded_hop_error_string.argtypes = [_C_INT]
     lib.p2m_banded_hop_error_string.restype = ctypes.c_char_p
@@ -203,14 +204,15 @@ def hop(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be (V, ...) with V <= {nt * T}, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return hop_plain(band_val, x)
-    V, C = x.shape[0], x[0].numel()
+    V, C, es = x.shape[0], x[0].numel(), x.element_size()
     _check_cuda(x, T, C, band_val=band_val)
-    plan = hop_plan(nt, band_span(nbd // 2), C, sm_count(x.device))
+    plan = hop_plan(nt, band_span(nbd // 2), C, sm_count(x.device), es)
     out = torch.empty_like(x)
     lib = _hop_lib()
     with torch.cuda.device(x.device):
         err = lib.p2m_banded_hop(_ptr(band_val), _ptr(x), _ptr(out), V, nt, nbd // 2, C,
-                                 plan.cc, plan.grid, plan.per_block, _stream(x))
+                                 plan.cc, plan.grid, plan.per_block, int(es == 4),
+                                 _stream(x))
     _raise_on(err, lib, "p2m_banded_hop_error_string")
     launches["banded_hop"] += 1
     return out

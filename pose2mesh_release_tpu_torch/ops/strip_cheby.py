@@ -13,8 +13,9 @@ each followed by the block's skip (+ skip, or + skip @ skip_w).  The mode
 follows the JAX rule: commuted when the conv narrows its channels (Fout <
 Fin), basis otherwise.  Rounding points are the TPU kernel's: z1, z2 in
 basis order; u, x W1, t and the bias-carrying x (W0 - W2) + b in commuted
-order, all to the working dtype.  The commuted weights are passed formed,
-W = [W0 - W2; W1; W2] in the working dtype.
+order, all to the working dtype (bf16, or float32: nothing rounded; the
+kernels take either, `fused_cheby.KERNEL_DTYPES`).  The commuted weights
+are passed formed, W = [W0 - W2; W1; W2] in the working dtype.
 
 `strip_cheby_conv` runs the plain PyTorch version for a tensor on the CPU and
 the CUDA kernels for a tensor on the card, counting one launch per conv in
@@ -100,7 +101,7 @@ def strip_cheby_conv_plain(strip_val, strip_off, h: int, x, W, b, *, mode: str,
 @functools.cache
 def _strip_lib():
     lib = load_library("strip_cheby")
-    lib.p2m_strip_cheby_conv.argtypes = [_C_PTR] * 11 + [_C_INT] * 19 + [_C_PTR]
+    lib.p2m_strip_cheby_conv.argtypes = [_C_PTR] * 11 + [_C_INT] * 20 + [_C_PTR]
     lib.p2m_strip_cheby_conv.restype = _C_INT
     lib.p2m_strip_cheby_error_string.argtypes = [_C_INT]
     lib.p2m_strip_cheby_error_string.restype = ctypes.c_char_p
@@ -183,28 +184,28 @@ def strip_launcher(strip_val, strip_off, h: int, x, W, b, mode: str, relu: bool,
     if h % 16 or Wd % 16 or Vp % _T or (skip_w is not None and Fs % 16):
         raise ValueError(f"the kernel takes h, W, Fs multiples of 16 and Vp of {_T}, "
                          f"got h={h}, W={Wd}, Vp={Vp}, Fs={Fs}")
-    sms = sm_count(x.device)
+    sms, es = sm_count(x.device), x.element_size()
     wrow, span = _strip_tables(strip_off, h, Wd)
     M, nt = Vp * B, Vp // _T
     skip_mode = 0 if skip is None else (1 if skip_w is None else 2)
     sp, skip_bn, skip_grid = None, 0, 0  # the skip projection's (commuted order)
     if mode == "basis":
-        hp = hop_plan(nt, span, B * Fin, sms)
-        pp = proj_plan(M, Fin, Fout, sms)
+        hp = hop_plan(nt, span, B * Fin, sms, es)
+        pp = proj_plan(M, Fin, Fout, sms, esize=es)
         Wp = _pad_cols(W, pp.np)
         swp = None if skip_w is None else _pad_cols(skip_w, pp.np)
         s0, s1 = torch.empty_like(x), torch.empty_like(x)
         out = torch.empty((Vp, B, Fout), dtype=x.dtype, device=x.device)
     else:
-        pp = commuted_plan(M, Fin, Fout, sms)
+        pp = commuted_plan(M, Fin, Fout, sms, esize=es)
         fo_pad = pp.np // 3
-        hp = hop_plan(nt, span, B * fo_pad, sms)
+        hp = hop_plan(nt, span, B * fo_pad, sms, es)
         Wp = _pad_cols(W, fo_pad)
         swp = None if skip_w is None else _pad_cols(skip_w, fo_pad)
         if skip_mode == 1:  # the last hop adds it in the (Vp, B, fo_pad) layout
             skip = _pad_cols(skip, fo_pad)
         if skip_mode == 2:
-            sk = commuted_plan(M, Fs, Fout, sms, blocks=1)
+            sk = commuted_plan(M, Fs, Fout, sms, blocks=1, esize=es)
             skip_bn, skip_grid = sk.bn, sk.grid
             sp = torch.empty((Vp, B, fo_pad), dtype=torch.float32, device=x.device)
         s0 = torch.empty((3, Vp, B, fo_pad), dtype=x.dtype, device=x.device)
@@ -218,7 +219,8 @@ def strip_launcher(strip_val, strip_off, h: int, x, W, b, mode: str, relu: bool,
                 _ptr(strip_val), _ptr(wrow), _ptr(x), _ptr(Wp), _ptr(b), _ptr(skip),
                 _ptr(swp), _ptr(s0), _ptr(s1), _ptr(sp), _ptr(out), Vp, Wd, span, B, Fin,
                 Fout, pp.np, Fs, int(mode == "commuted"), int(relu), skip_mode, hp.cc, hp.grid,
-                hp.per_block, pp.bn, pp.grid, skip_bn, skip_grid, stages, _stream(x))
+                hp.per_block, pp.bn, pp.grid, skip_bn, skip_grid, stages, int(es == 4),
+                _stream(x))
         _raise_on(err, lib, "p2m_strip_cheby_error_string")
 
     return run, out

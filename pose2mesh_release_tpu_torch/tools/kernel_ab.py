@@ -10,8 +10,9 @@ its own directory, building its kernels into its own `build/`.  Each run
 times the kernel rows of chip_smoke's phases 2 and 4 at the SMPL main
 path's shapes (batch 64, bf16: the group and commuted deploy convs, the
 hop K4, the strip and window convs, K1, K2, K1 with keep_basis), and with
-`--f32` also the rows of the float32 instances (phase 14), with that
-checkout's own code.  Prints the card's name, power limit, SM clock, power
+`--f32` also the rows of the float32 instances (phase 14: each kernel's
+that the checkout has; K4, K5 and K6 only where its chip_smoke checks them
+in float32), with that checkout's own code.  Prints the card's name, power limit, SM clock, power
 draw and temperature before and after each run, then one line
 `AB {"tree", "ok", "ms": {kernel: ms summed over one pass}}`.  A run that
 fails a kernel check exits non-zero.  Needs the card.
@@ -52,9 +53,18 @@ for i, (V, fi, fo, fold, stats) in enumerate(cs.TRAIN_CONVS):
 V, fi, fo = cs.KEEP_BASIS_CONV
 rows.append(cs.check_keep_basis(by_v[V], fi, fo, gen, "keep_basis"))
 if F32:
+    import inspect
     f32 = torch.float32
     extra = [cs.check_conv(by_v[V], n, fi, fo, ep, gen, f"f32main{i}", f32)
              for i, (V, n, fi, fo, ep) in convs]
+    # K4, K5 and K6 where the checkout has their float32 instances
+    if "dtype" in inspect.signature(cs.check_hop).parameters:
+        extra += [cs.check_hop(by_v[V], fi, gen, f"f32hop{i}", f32)
+                  for i, (V, _, fi, _, _) in convs]
+        extra += [cs.check_strip(by_v[V], fi, fo, ep, gen, f"f32strip{i}", f32)
+                  for i, (V, _, fi, fo, ep) in convs]
+        extra += [cs.check_window(by_v[V], fi, fo, ep, gen, f"f32window{i}", f32)
+                  for i, (V, _, fi, fo, ep) in convs]
     for i, (V, fi, fo, fold, stats) in enumerate(cs.TRAIN_CONVS):
         extra += cs.check_train_conv(by_v[V], fi, fo, fold, stats, gen, f"f32train{i}", f32)
     V, fi, fo = cs.KEEP_BASIS_CONV

@@ -26,9 +26,10 @@ test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-The group and commuted deploy convs, K1 (with keep_basis) and K2 also run
-their float32 instances (3xTF32 products, nothing rounded) on the same
-cases.
+Every kernel also runs its float32 instance (3xTF32 products, nothing
+rounded) on the same cases: the group and commuted deploy convs, K1 (with
+keep_basis), K2, the hop K4, the strip conv (both orders, every epilogue,
+its launches apart) and the window conv (at nt = 2k+1 too).
 
 Tolerance: relative L2 error <= 1e-2 of the bf16 kernel against the plain
 version computed in float32 from the same bf16 inputs; <= 1e-5 of the
@@ -427,21 +428,22 @@ def shaped_band(op, kind: str, seed: int = 0) -> torch.Tensor:
     (1, 900, 3, 16, False, "zero_tile"),  # C = 48
     (2, 1849, 4, 48, True, "zero_tile"),  # C = 192
 ])
-def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind):
+@DTYPES
+def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind, dtype):
     op = band_level(k, V=V, seed=60 + k)
-    band = shaped_band(op, kind).to(cuda, torch.bfloat16)
+    band = shaped_band(op, kind).to(cuda, dtype)
     rows = op.padded_vertices if deploy else V
-    x, g = inputs(op, B, [((rows, B, F), 0.5), ((rows, B, F), 1.0)], cuda, 9)
+    x, g = inputs(op, B, [((rows, B, F), 0.5), ((rows, B, F), 1.0)], cuda, 9, dtype)
     xr = x.clone().requires_grad_()
     before = hp.launches["banded_hop"]
     y = hp.banded_hop(band, xr)
     y.backward(g)
     torch.cuda.synchronize()
     assert hp.launches["banded_hop"] == before + 2
-    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    assert y.shape == x.shape and y.dtype == dtype
     ref = hp.hop_plain(band.float(), x.float())
-    assert rel_l2(y.detach()[:V], ref[:V]) <= TOL
-    assert rel_l2(xr.grad[:V], hp.hop_plain(band.float(), g.float())[:V]) <= TOL
+    assert rel_l2(y.detach()[:V], ref[:V]) <= tol(dtype)
+    assert rel_l2(xr.grad[:V], hp.hop_plain(band.float(), g.float())[:V]) <= tol(dtype)
     if kind == "zero_tile":  # the all-zero row tile gives exact zeros
         assert not y.detach()[128:256].any()
     if kind == "corner":  # row tile 1 holds three products, each exact to bf16
@@ -462,15 +464,17 @@ def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind):
     (2, 256, "commuted", 128, 64, "relu"),
     (2, 64, "commuted", 64, 3, "final"),        # fo_pad 16 computed, 3 stored
 ])
-def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue):
+@DTYPES
+def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue, dtype):
     op = band_level(k, seed=70 + k, strip_h=h)
-    S, off = op.strip_val.to(cuda, torch.bfloat16), op.strip_off.to(cuda)
+    S, off = op.strip_val.to(cuda, dtype), op.strip_off.to(cuda)
     Vp, V, B = op.padded_vertices, op.num_vertices, 3
     Fs = 80 if epilogue == "skip_proj" else Fout
     x, W, b, skip, skip_w = inputs(op, B, [((Vp, B, F), 0.5),
                                            ((3 * F, Fout), 1 / math.sqrt(3 * F)),
                                            ((Fout,), 0.1), ((Vp, B, Fs), 0.5),
-                                           ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 10)
+                                           ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 10,
+                                     dtype)
     kw = {"mode": mode, "relu": epilogue != "final"}
     if epilogue in ("skip_add", "skip_proj"):
         kw["skip"] = skip
@@ -483,9 +487,9 @@ def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue):
     f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
     ref = sc.strip_cheby_conv_plain(S.float(), off, h, x.float(), W.float(), b.float(),
                                     **f32)
-    assert y.shape == (Vp, B, Fout) and y.dtype == torch.bfloat16
-    assert y.untyped_storage().nbytes() == y.numel() * 2  # exactly (Vp, B, Fout)
-    assert rel_l2(y[:V], ref[:V]) <= TOL
+    assert y.shape == (Vp, B, Fout) and y.dtype == dtype
+    assert y.untyped_storage().nbytes() == y.nbytes  # exactly (Vp, B, Fout)
+    assert rel_l2(y[:V], ref[:V]) <= tol(dtype)
 
 
 @pytest.mark.parametrize("k,h,mode,F,Fout,epilogue", [
@@ -495,19 +499,22 @@ def test_strip_cheby_conv_kernel(cuda, k, h, mode, F, Fout, epilogue):
     (2, 64, "commuted", 128, 40, "skip_proj"),  # four launches: the skip projection first
     (1, 256, "commuted", 48, 8, "skip_add"),
 ])
-def test_strip_launches_apart_equal_the_whole_call(cuda, k, h, mode, F, Fout, epilogue):
+@DTYPES
+def test_strip_launches_apart_equal_the_whole_call(cuda, k, h, mode, F, Fout, epilogue,
+                                                   dtype):
     """The launches run one by one through strip_launcher (basis: the two
     hops, the projection; commuted: the projection(s), hop 1, hop 2) give the
     wrapper's bits (narrowed to Fout in commuted order), and the pad columns
     of the commuted order's output are zero."""
     op = band_level(k, seed=140 + k, strip_h=h)
-    S, off = op.strip_val.to(cuda, torch.bfloat16), op.strip_off.to(cuda)
+    S, off = op.strip_val.to(cuda, dtype), op.strip_off.to(cuda)
     Vp, B = op.padded_vertices, 2
     Fs = 80 if epilogue == "skip_proj" else Fout
     x, W, b, skip, skip_w = inputs(op, B, [((Vp, B, F), 0.5),
                                            ((3 * F, Fout), 1 / math.sqrt(3 * F)),
                                            ((Fout,), 0.1), ((Vp, B, Fs), 0.5),
-                                           ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 19)
+                                           ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 19,
+                                     dtype)
     skip = skip if epilogue in ("skip_add", "skip_proj") else None
     skip_w = skip_w if epilogue == "skip_proj" else None
     relu = epilogue != "final"
@@ -532,20 +539,21 @@ def test_strip_launches_apart_equal_the_whole_call(cuda, k, h, mode, F, Fout, ep
     (2, 256, 128, "relu"),      # band_k 2 at F=256: chunk 32
     (2, 96, 64, "skip_proj"),
 ])
-def test_window_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
+@DTYPES
+def test_window_cheby_conv_kernel(cuda, k, F, Fout, epilogue, dtype):
     op = band_level(k, seed=80 + k)
-    win, woff = wc.window_cat(op.band_val.to(cuda, torch.bfloat16))
+    win, woff = wc.window_cat(op.band_val.to(cuda, dtype))
     Vp, V, B = op.padded_vertices, op.num_vertices, 3
     Fs = 2 * Fout if epilogue == "skip_proj" else Fout
     x, W, b, skip = inputs(op, B, [((Vp, B, F), 0.5),
                                    ((3 * F, Fout), 1 / math.sqrt(3 * F)),
-                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 11)
+                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 11, dtype)
     kw = {"relu": epilogue != "final"}
     if epilogue in ("skip_add", "skip_proj"):
         kw["skip"] = skip
     if epilogue == "skip_proj":
         kw["skip_w"] = torch.from_numpy(
-            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, torch.bfloat16)
+            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, dtype)
     before = wc.launches["window_cheby_conv"]
     y = wc.window_cheby_conv(win, woff, x, W, b, **kw)
     torch.cuda.synchronize()
@@ -553,8 +561,8 @@ def test_window_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
     f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
     ref = wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(), b.float(),
                                      **f32)
-    assert y.shape == (Vp, B, Fout)
-    assert rel_l2(y[:V], ref[:V]) <= TOL
+    assert y.shape == (Vp, B, Fout) and y.dtype == dtype
+    assert rel_l2(y[:V], ref[:V]) <= tol(dtype)
 
 
 @pytest.mark.parametrize("k,V,F,Fout,epilogue", [
@@ -563,33 +571,34 @@ def test_window_cheby_conv_kernel(cuda, k, F, Fout, epilogue):
     (2, 600, 48, 40, "skip_add"),
     (1, 300, 64, 3, "final"),         # nt = 3 = 2k+1
 ])
-def test_window_cheby_conv_kernel_at_nt_2k_plus_1(cuda, k, V, F, Fout, epilogue):
+@DTYPES
+def test_window_cheby_conv_kernel_at_nt_2k_plus_1(cuda, k, V, F, Fout, epilogue, dtype):
     """The smallest window form: nt = 2k+1, so s_t is clamped for every tile
     and one sub-tile column maps to other x rows than on the block band."""
     op = band_level(k, V=V, seed=120 + V)
     assert op.band_val.shape[1] == 2 * k + 1
-    win, woff = wc.window_cat(op.band_val.to(cuda, torch.bfloat16))
+    win, woff = wc.window_cat(op.band_val.to(cuda, dtype))
     Vp, B = op.padded_vertices, 3
     Fs = 2 * Fout if epilogue == "skip_proj" else Fout
     x, W, b, skip = inputs(op, B, [((Vp, B, F), 0.5),
                                    ((3 * F, Fout), 1 / math.sqrt(3 * F)),
-                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 17)
+                                   ((Fout,), 0.1), ((Vp, B, Fs), 0.5)], cuda, 17, dtype)
     kw = {"relu": epilogue != "final"}
     if epilogue in ("skip_add", "skip_proj"):
         kw["skip"] = skip
     if epilogue == "skip_proj":
         kw["skip_w"] = torch.from_numpy(
-            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, torch.bfloat16)
+            channel_interp_matrix(Fs, Fout).T.copy()).to(cuda, dtype)
     y = wc.window_cheby_conv(win, woff, x, W, b, **kw)
     torch.cuda.synchronize()
     f32 = {n: (v.float() if torch.is_tensor(v) else v) for n, v in kw.items()}
     ref = wc.window_cheby_conv_plain(win.float(), woff, x.float(), W.float(), b.float(),
                                      **f32)
-    assert y.shape == (Vp, B, Fout)
-    assert rel_l2(y[:V], ref[:V]) <= TOL
+    assert y.shape == (Vp, B, Fout) and y.dtype == dtype
+    assert rel_l2(y[:V], ref[:V]) <= tol(dtype)
     # and the group conv on the block band computes the same conv
-    group = fc.fused_cheby_conv(op.band_val.to(cuda, torch.bfloat16), x, W, b, **kw)
-    assert rel_l2(y[:V], group[:V]) <= TOL
+    group = fc.fused_cheby_conv(op.band_val.to(cuda, dtype), x, W, b, **kw)
+    assert rel_l2(y[:V], group[:V]) <= tol(dtype)
 
 
 @pytest.mark.parametrize("k,V,F,Fout,epilogue", [(1, 900, 64, 24, "skip_proj"),
@@ -737,7 +746,7 @@ def test_strip_window_hop_wrappers_reject_what_the_kernels_do_not_take(cuda):
     band = op.band_val.to(cuda, torch.bfloat16)
     Vp = op.padded_vertices
     x, W, b = inputs(op, 2, [((Vp, 2, 32), 1.0), ((96, 32), 0.1), ((32,), 0.1)], cuda, 13)
-    with pytest.raises(TypeError):  # float32 activations
+    with pytest.raises(TypeError):  # float32 activations, bf16 operator and weights
         sc.strip_cheby_conv(S, off, 128, x.float(), W, b, mode="basis", relu=True)
     with pytest.raises(ValueError):  # offsets not int32
         sc.strip_cheby_conv(S, off.long(), 128, x, W, b, mode="basis", relu=True)

@@ -30,6 +30,7 @@ from pose2mesh_release_tpu.models.pose2mesh import Pose2Mesh as JaxPose2Mesh
 from pose2mesh_release_tpu_torch.body.mano import MANO
 from pose2mesh_release_tpu_torch.config import default_config
 from pose2mesh_release_tpu_torch.core import engine
+from pose2mesh_release_tpu_torch.core import train as core_train
 from pose2mesh_release_tpu_torch.core.checkpoint import load_checkpoint, model_family
 from pose2mesh_release_tpu_torch.data.joint_sets import MANO_SET
 from pose2mesh_release_tpu_torch.graphs.artifact import pack_pyramid
@@ -367,12 +368,13 @@ def test_lift_trainer_and_tester_match_jax(tmp_path, monkeypatch):
 
 def test_refusals(tiny, tmp_path, monkeypatch):
     """A JAX .ckpt raises (naming the converter); without CUDA the default
-    device raises; on a CUDA request (CUDA reported available) multi-device,
-    use_pallas false and f32 on a graph with band levels on the unfused,
-    strip or window path raise before any work on the card, while f32 on the
-    training form (Trainer, training-form Tester) and on the group deploy
-    path (the deploy Tester) gets past the checks to the first tensor sent
-    to the card; on the CPU they all run."""
+    device raises; on a CUDA request (CUDA reported available) multi-device
+    and use_pallas false raise before any work on the card, while f32 on a
+    graph with band levels gets past the checks to the first tensor sent to
+    the card on every path: the training form (Trainer, training-form
+    Tester), the group deploy path (the deploy Tester), the unfused training
+    form and the unfused, strip and window deploy paths; on the CPU they all
+    run."""
     art_j, art_t, faces = tiny
     ck = tmp_path / "jaxck"
     jax_save_checkpoint(str(ck), 1, {"params": {"w": np.ones(3, np.float32)}})
@@ -403,8 +405,8 @@ def test_refusals(tiny, tmp_path, monkeypatch):
     cfg.TPU.use_pallas = False
     build(cfg, "cpu")
     build(_cfg(tmp_path), "cpu")  # f32
-    # the paths whose band kernels take bfloat16 only: the unfused training
-    # form (Trainer, Tester), the unfused, strip and window deploy paths (Tester)
+    # the further paths: the unfused training form (Trainer, Tester), the
+    # unfused, strip and window deploy paths (Tester)
     unfused_train = {"fused": False, "inference_fused": False}
     others = ((build, unfused_train), (tester, unfused_train), (tester, {"fused": False}),
               (tester, {"flat_impl": "strip"}), (tester, {"flat_impl": "window"}))
@@ -419,14 +421,17 @@ def test_refusals(tiny, tmp_path, monkeypatch):
     cfg.TPU.use_pallas = False
     with pytest.raises(ValueError, match="use_pallas"):
         build(cfg, "cuda")
-    for make, path in others:
-        with pytest.raises(ValueError, match="f32 on CUDA.*Queue 2 K.4"):
-            make(_cfg(tmp_path), "cuda", **path)
     train_form = _cfg(tmp_path)
     train_form.TEST.deploy = False
+    # a caller model on the card cannot be built without CUDA: its device
+    # check is taken as passed, so those cases also run to the first tensor
+    # sent to the card
+    monkeypatch.setattr(core_train, "_model_device",
+                        lambda model, device: torch.device(device))
     for make in (lambda: build(_cfg(tmp_path), "cuda"),  # the training form
                  lambda: tester(_cfg(tmp_path), "cuda"),  # the group deploy path
-                 lambda: tester(train_form, "cuda")):
+                 lambda: tester(train_form, "cuda"),
+                 *(lambda m=m, p=p: m(_cfg(tmp_path), "cuda", **p) for m, p in others)):
         # this torch has no CUDA: the first tensor sent to the card raises
         with pytest.raises(AssertionError, match="not compiled with CUDA"):
             make()

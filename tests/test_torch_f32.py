@@ -1,5 +1,6 @@
-"""PyTorch port: the CPU side of the float32 instances of the group and
-commuted deploy convs, K1 and K2 (csrc/, `f32` argument).
+"""PyTorch port: the CPU side of the float32 instances of every kernel: the
+group and commuted deploy convs, K1, K2, the hop K4, the strip conv K5 and
+the window conv K6 (csrc/, `f32` argument).
 
 - The launch plans at 4-byte operands: the hop engine's x ring, the
   projection's and dx's tiles fit a block's 227 KB of shared memory, the
@@ -7,10 +8,13 @@ commuted deploy convs, K1 and K2 (csrc/, `f32` argument).
   band_k 2 takes one), the projection tiles at most 64 columns wide.  The
   bf16 plans stay value for value what they were before the float32
   instances (the table below, taken from the bf16-only plans at the SMPL
-  train and deploy shapes).
+  train and deploy shapes, and at the strip and window forms' spans of
+  SMPL's and MANO's band levels).  The float32 plans of the hop engine at
+  those spans (K4 and the window form on the block band, the strip form at
+  each level's span) fit a block too.
 - The wrappers' dtype rule (`fused_cheby.check_dtypes`): bfloat16 and
-  float32 taken by these four kernels, the others bfloat16 only; float16,
-  float64 and mixed dtypes refused.
+  float32 taken by every kernel; float16, float64 and mixed dtypes refused,
+  also by the K4, strip and window wrappers themselves.
 - The demo computes in float32 whatever the device, as the JAX demo does,
   and decodes --input_img with PIL where matplotlib is missing, to
   matplotlib's pixels.
@@ -31,6 +35,8 @@ from pose2mesh_release_tpu_torch.cli import demo
 from pose2mesh_release_tpu_torch.ops import fused_cheby as fc
 from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
 from pose2mesh_release_tpu_torch.ops import hop as hp
+from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
+from pose2mesh_release_tpu_torch.ops import window_cheby as wc
 
 SMS = 132  # the H100's SMs
 B = 64
@@ -41,6 +47,18 @@ RESERVED = 1024 + 128
 NT = {6890: 56, 3475: 28, 1849: 15, 981: 8}
 CONVS = [(981, 256, 256), (1849, 256, 128), (1849, 128, 128), (3475, 128, 128),
          (6890, 128, 128), (6890, 128, 64), (6890, 64, 3)]
+# SMPL's and MANO's band levels in the deploy layout, V: (nt, the strip
+# form's span at 128-row strip tiles, the columns B * fin of the block-band
+# hops (K4 on the unfused path, the window form), the columns of the strip
+# convs (B * fin in basis order, B * fo_pad in commuted order))
+PATH_LEVELS = {6890: (56, 20, (8192, 4096), (8192, 4096, 1024)),
+               3475: (28, 21, (8192,), (8192,)),
+               1849: (16, 24, (16384, 8192), (8192,)),
+               981: (8, 20, (16384,), (16384,)),
+               778: (8, 30, (16384, 8192, 4096), (8192, 4096, 1024))}
+# the strip convs of both deploy forwards (fin, fout, skip width or 0)
+STRIP_CONVS = [(256, 256, 0), (256, 256, 256), (256, 128, 0), (128, 128, 256),
+               (128, 128, 128), (128, 64, 0), (64, 3, 0)]
 
 # the bf16 plans at the SMPL shapes: hop (nt, k, C) -> (cc, grid, per_block,
 # smem, items); proj (M, F, Fout) and projstats (M at the real rows) -> (bn,
@@ -95,6 +113,32 @@ BF16_PLANS = {
     'comm 458752 64 3': [16,  48,  10752,  264,  35328],
     'bwd 6890 56 1 64 3': [16,  64,  64,  [64,  224,  4,  110592,  896],  3445,  396,  46592,  511,  864,  511,  27648],
     'bwd 6890 56 2 64 3': [16,  64,  64,  [32,  256,  7,  102400,  1792],  3445,  396,  46592,  511,  864,  511,  27648],
+    # the strip form (nt, span, C) at the levels' spans, the window form's
+    # 24 (band_k 1) and 40 (band_k 2)
+    'strip 56 20 8192': [64, 256, 28, 92160, 7168],
+    'strip 56 20 4096': [64, 256, 14, 92160, 3584],
+    'strip 56 20 1024': [64, 224, 4, 92160, 896],
+    'strip 56 24 8192': [64, 256, 28, 110592, 7168],
+    'strip 56 24 4096': [64, 256, 14, 110592, 3584],
+    'strip 56 40 8192': [32, 261, 55, 102400, 14336],
+    'strip 56 40 4096': [32, 256, 28, 102400, 7168],
+    'strip 28 21 8192': [64, 256, 14, 96768, 3584],
+    'strip 28 24 8192': [64, 256, 14, 110592, 3584],
+    'strip 28 40 8192': [32, 256, 28, 102400, 7168],
+    'strip 16 24 8192': [64, 256, 8, 110592, 2048],
+    'strip 16 24 16384': [64, 256, 16, 110592, 4096],
+    'strip 16 40 16384': [32, 256, 32, 102400, 8192],
+    'strip 16 40 8192': [32, 256, 16, 102400, 4096],
+    'strip 8 20 16384': [64, 256, 8, 92160, 2048],
+    'strip 8 24 16384': [64, 256, 8, 110592, 2048],
+    'strip 8 40 16384': [32, 256, 16, 102400, 4096],
+    'strip 8 30 8192': [32, 256, 8, 76800, 2048],
+    'strip 8 30 4096': [32, 256, 4, 76800, 1024],
+    'strip 8 30 1024': [32, 256, 1, 76800, 256],
+    'strip 8 24 8192': [64, 256, 4, 110592, 1024],
+    'strip 8 24 4096': [64, 256, 2, 110592, 512],
+    'strip 8 40 8192': [32, 256, 8, 102400, 2048],
+    'strip 8 40 4096': [32, 256, 4, 102400, 1024],
 }
 
 
@@ -104,6 +148,8 @@ def _plan(key: str, esize: int = 2):
     if kind == "hop":
         return list(dataclasses.astuple(hp.hop_plan(a[0], hp.band_span(a[1]), a[2], SMS,
                                                     esize)))
+    if kind == "strip":
+        return list(dataclasses.astuple(hp.hop_plan(a[0], a[1], a[2], SMS, esize)))
     if kind in ("proj", "projstats"):
         return list(dataclasses.astuple(fc.proj_plan(a[0], a[1], a[2], SMS,
                                                      stats=kind == "projstats",
@@ -116,7 +162,7 @@ def _plan(key: str, esize: int = 2):
             p.dx_smem, p.slices, p.slice_rows, p.dw_grid, p.dw_smem]
 
 
-@pytest.mark.parametrize("kind", ["hop", "proj", "projstats", "comm", "bwd"])
+@pytest.mark.parametrize("kind", ["hop", "proj", "projstats", "comm", "bwd", "strip"])
 def test_bf16_plans_unchanged(kind):
     """Giving the plans an element size leaves every bf16 plan as it was."""
     keys = [k for k in BF16_PLANS if k.split()[0] == kind]
@@ -160,15 +206,58 @@ def test_f32_plans_fit_shared_memory(V, fin, fout, k):
     assert bp.slices * bp.slice_rows >= V * B and bp.slice_rows % 32 == 0
 
 
+@pytest.mark.parametrize("V", list(PATH_LEVELS))
+@pytest.mark.parametrize("form", ["band_k1", "band_k2", "strip"])
+def test_f32_engine_plans_at_the_path_spans(V, form):
+    """The float32 plans of the hop engine at one level of SMPL or MANO: K4
+    and the window form on the block band (24 staged groups at band_k 1, 40
+    at band_k 2) and the strip form at the level's span: every launch fits a
+    block's shared memory in 16- or 32-column chunks, never wider than the
+    bf16 plan's; two blocks an SM up to the strip form's 30 groups, one at
+    40."""
+    nt, strip_span, block_cols, strip_cols = PATH_LEVELS[V]
+    span, cols = {"band_k1": (hp.band_span(1), block_cols),
+                  "band_k2": (hp.band_span(2), block_cols),
+                  "strip": (strip_span, strip_cols)}[form]
+    for C in cols:
+        p32, p16 = hp.hop_plan(nt, span, C, SMS, 4), hp.hop_plan(nt, span, C, SMS)
+        assert p32.smem == hp.hop_smem(p32.cc, span, 4) <= BLOCK_SMEM
+        assert p32.cc in (16, 32) and p32.cc <= p16.cc and C % p32.cc == 0
+        blocks = SM_SMEM // (p32.smem + RESERVED)
+        assert blocks >= (hp._HOP_BLOCKS_PER_SM if span <= 30 else 1)
+        assert p32.grid <= SMS * min(blocks, hp._HOP_BLOCKS_PER_SM)
+        assert p32.grid * p32.per_block >= p32.items == nt * (C // p32.cc)
+
+
+@pytest.mark.parametrize("fin,fout,fs", STRIP_CONVS)
+def test_f32_strip_projection_plans(fin, fout, fs):
+    """The strip conv's float32 projections at the SMPL 6890 level's rows:
+    basis order's (proj_plan), commuted order's [p | t0 | u] and its skip
+    projection (commuted_plan, 3 blocks and 1): tiles at most 64 wide, two
+    blocks an SM."""
+    M = 7168 * B
+    plans = [fc.proj_plan(M, fin, fout, SMS, esize=4)]
+    if sc.strip_mode(fin, fout) == "commuted":
+        plans.append(fc.commuted_plan(M, fin, fout, SMS, esize=4))
+        if fs:
+            plans.append(fc.commuted_plan(M, fs, fout, SMS, blocks=1, esize=4))
+    for pp in plans:
+        assert pp.bn <= 64 and pp.np % pp.bn == 0 and pp.np >= fout
+        assert fc._PROJ_BLOCKS_PER_SM * (pp.smem + RESERVED) <= SM_SMEM
+
+
 def test_f32_smem_formulas():
     """The shared-memory formulas at 4-byte elements, as csrc computes them
-    (band_hop_smem, proj_smem<float>, dx_smem<float>, the dW rings)."""
+    (band_hop_smem, proj_smem<float>, dx_smem<float>, the dW rings); the
+    engine's widest span, 64 groups, fits one block at 16-column chunks."""
     assert hp.hop_smem(16, 24, 4) == 2 * 24 * 16 * 24 * 4
     assert hp.hop_smem(32, 40, 4) == 2 * 40 * 16 * 40 * 4
     assert fc.proj_smem(64, 128, False, 4) == 3 * (128 * 36 + 32 * 72) * 4
     assert fc.proj_smem(16, 16, True, 4) == 3 * (128 * 36 + 32 * 24) * 4 + 2 * 8 * 16 * 4
     assert ft.dx_smem(128, 4) == 3 * (128 * 36 + 32 * 72) * 4 + 8 * 128 * 4
     assert ft.dw_smem(4) == 2 * 2 * 32 * 72 * 4 and ft.dw_smem() == 2 * 3 * 32 * 72 * 2
+    widest = hp.hop_plan(8, hp.MAX_SPAN, 1024, SMS, 4)
+    assert (widest.cc, widest.smem) == (16, hp.hop_smem(16, 64, 4)) and widest.smem <= BLOCK_SMEM
     with pytest.raises(ValueError):
         hp.hop_plan(8, 24, 64, SMS, esize=8)
     with pytest.raises(ValueError):
@@ -183,7 +272,7 @@ def _t(dtype, n=4):
 def test_kernel_dtype_rule_takes_bf16_and_f32(dtype):
     """The four kernels with float32 instances take either dtype, every
     operand in it; the result is that dtype."""
-    got = fc.check_dtypes(fc.KERNEL_DTYPES, x=_t(dtype), band_val=_t(dtype), W=_t(dtype),
+    got = fc.check_dtypes(x=_t(dtype), band_val=_t(dtype), W=_t(dtype),
                           b=_t(dtype), fold_s=_t(dtype))
     assert got == dtype
 
@@ -191,7 +280,7 @@ def test_kernel_dtype_rule_takes_bf16_and_f32(dtype):
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_kernel_dtype_rule_refuses_other_dtypes(dtype):
     with pytest.raises(TypeError, match="bfloat16 or float32"):
-        fc.check_dtypes(fc.KERNEL_DTYPES, x=_t(dtype), W=_t(dtype))
+        fc.check_dtypes(x=_t(dtype), W=_t(dtype))
 
 
 @pytest.mark.parametrize("x_dt,w_dt", [(torch.float32, torch.bfloat16),
@@ -199,15 +288,42 @@ def test_kernel_dtype_rule_refuses_other_dtypes(dtype):
                                        (torch.float32, torch.float64)])
 def test_kernel_dtype_rule_refuses_mixed_dtypes(x_dt, w_dt):
     with pytest.raises(TypeError, match="one dtype"):
-        fc.check_dtypes(fc.KERNEL_DTYPES, x=_t(x_dt), band_val=_t(x_dt), W=_t(w_dt))
+        fc.check_dtypes(x=_t(x_dt), band_val=_t(x_dt), W=_t(w_dt))
 
 
-def test_bf16_only_kernels_refuse_f32():
-    """The hop K4 and the strip and window convs have no float32 instance yet
-    (ROADMAP Queue 2 K.4): their rule, the default, takes bfloat16 only."""
-    assert fc.check_dtypes(x=_t(torch.bfloat16), W=_t(torch.bfloat16)) == torch.bfloat16
-    with pytest.raises(TypeError, match="takes bfloat16, got torch.float32"):
-        fc.check_dtypes(x=_t(torch.float32), W=_t(torch.float32))
+def _meta(dtype, *shape):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# K4, the strip conv and the window conv on meta tensors (neither the CPU,
+# whose tensors take the plain versions, nor the card): x's dtype, the other
+# operands' dtype
+HOP_STRIP_WINDOW = {
+    "hop": lambda dx, dw: hp.hop(_meta(dw, 3, 2, 128, 128), _meta(dx, 256, 2, 16)),
+    "strip": lambda dx, dw: sc.strip_cheby_conv(
+        _meta(dw, 256, 128), _meta(torch.int32, 2), 128, _meta(dx, 256, 2, 16),
+        _meta(dw, 48, 16), _meta(dw, 16), mode="basis", relu=True),
+    "window": lambda dx, dw: wc.window_cheby_conv(
+        _meta(dw, 384, 384), _meta(torch.int32, 3), _meta(dx, 384, 2, 16),
+        _meta(dw, 48, 16), _meta(dw, 16), relu=True),
+}
+
+
+@pytest.mark.parametrize("wrapper", list(HOP_STRIP_WINDOW))
+@pytest.mark.parametrize("dx,dw,error", [
+    (torch.bfloat16, torch.bfloat16, "no kernel for device meta"),
+    (torch.float32, torch.float32, "no kernel for device meta"),
+    (torch.float16, torch.float16, "takes bfloat16 or float32, got torch.float16"),
+    (torch.float32, torch.bfloat16, "one dtype"),
+    (torch.bfloat16, torch.float32, "one dtype"),
+], ids=["bf16", "f32", "f16", "f32-bf16", "bf16-f32"])
+def test_hop_strip_window_dtype_rule(wrapper, dx, dw, error):
+    """K4 and the strip and window convs take bfloat16 and float32 (the
+    dtype rule passes and only the device is refused) and refuse float16
+    and mixed dtypes (TypeError), as the other kernels' wrappers do."""
+    with pytest.raises(ValueError if error.startswith("no kernel") else TypeError,
+                       match=error):
+        HOP_STRIP_WINDOW[wrapper](dx, dw)
 
 
 class _Stop(Exception):

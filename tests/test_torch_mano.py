@@ -7,7 +7,8 @@ padded to 1024): its four convs run the band kernels' plain versions.
   * The deploy forward (BatchNorm folded) against the JAX eval step at
     rtol 1e-4 (atol 1e-2 mm), as the SMPL full-width test, with the route
     of each band conv counted: 2 basis + 2 commuted per forward, 4 strip,
-    4 window, 8 hops on the further paths.
+    4 window, 8 hops on the further paths; each further path also against
+    the JAX eval step under its switch (P2M_FLAT_IMPL, P2M_FUSED).
   * The train step's batch (LBS GT synthesised from seeded numpy inputs)
     against the same recipe through the JAX package's LBS, then one train
     step (SGD, dropout off, edge loss on, both on the banded face-corner
@@ -112,6 +113,53 @@ def test_mano_deploy_forward_matches_jax(mano_arts, monkeypatch):
     model.load_state_dict(fold_bn_variables(state_dict_from_flax(v)))
     got = make_eval_step(model, jreg, device="cpu")(art_t, torch.from_numpy(pose2d))
     assert calls == {"fused_cheby_conv": 2, "fused_cheby_conv_commuted": 2}
+    shapes = ((2, 778, 3), (2, 21, 3), (2, 21, 3))
+    for name, shape, g, r in zip(("mesh_mm", "reg_pose", "pose3d"), shapes, got, ref):
+        assert g.shape == shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-2,
+                                   err_msg=name)
+
+
+# the further deploy paths: the JAX switch, the port's Pose2Mesh arguments,
+# the band-conv calls of one forward
+MANO_PATHS = {
+    "strip": ({"P2M_FLAT_IMPL": "strip"}, {"flat_impl": "strip"}, {"strip_cheby_conv": 4}),
+    "window": ({"P2M_FLAT_IMPL": "window"}, {"flat_impl": "window"},
+               {"window_cheby_conv": 4}),
+    "unfused": ({"P2M_FUSED": "0"}, {"fused": False}, {"banded_hop": 8}),
+}
+
+
+@pytest.mark.parametrize("path", sorted(MANO_PATHS))
+def test_mano_deploy_path_matches_jax(path, mano_arts, monkeypatch):
+    """The float32 deploy forward on the strip, window or unfused path against
+    the JAX eval step under the same switch (P2M_FLAT_IMPL, P2M_FUSED; its
+    Pallas kernels in interpret mode) at rtol 1e-4, with the path's calls of
+    one forward counted."""
+    art_j, art_t = mano_arts
+    env, kw, counts = MANO_PATHS[path]
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    jax.clear_caches()  # the switches are read when the forward is traced
+    jreg = MANO().joint_regressor_mano
+    pose2d = np.random.default_rng(4).standard_normal((2, 21, 2)).astype(np.float32)
+    v = _jax_unfolded_cascade(art_j, MANO_BLOCKS, 4096, pose2d, seed=4)
+    fv = to_numpy(jax_fold(v))
+    jmodel = JaxPose2Mesh(num_joint=21, mano=True, inference_fused=True)
+    state = JaxTrainState(params=fv["params"], batch_stats=fv["batch_stats"],
+                          opt_state=None, step=jnp.zeros((), jnp.int32))
+    ref = jax.jit(jax_make_eval_step(jmodel, jnp.asarray(jreg)))(
+        state, art_j, jnp.asarray(pose2d))
+
+    calls = {}
+    for name in COUNTED:
+        monkeypatch.setattr(port_meshnet, name,
+                            _counter(calls, name, getattr(port_meshnet, name)))
+    monkeypatch.setattr(port_hop, "hop", _counter(calls, "banded_hop", port_hop.hop))
+    model = Pose2Mesh(21, art_t.mesh_ops[-1].num_vertices, mano=True, device="cpu", **kw)
+    model.load_state_dict(fold_bn_variables(state_dict_from_flax(v)))
+    got = make_eval_step(model, jreg, device="cpu")(art_t, torch.from_numpy(pose2d))
+    assert calls == counts
     shapes = ((2, 778, 3), (2, 21, 3), (2, 21, 3))
     for name, shape, g, r in zip(("mesh_mm", "reg_pose", "pose3d"), shapes, got, ref):
         assert g.shape == shape and g.dtype == torch.float32, name

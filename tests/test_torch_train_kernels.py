@@ -183,20 +183,26 @@ class _FakeLib:
         return self.fns.setdefault(name, type("Fn", (), {})())
 
 
+def _c_parameters():
+    """{name: [parameter declaration]} of every extern "C" int function in the
+    port's CUDA sources."""
+    import re
+    from pathlib import Path
+    csrc = Path(ft.__file__).resolve().parents[1] / "csrc"
+    params = {}
+    for src in csrc.glob("*.cu"):
+        for name, decl in re.findall(r'extern "C" int (p2m_\w+)\((.*?)\)\s*\{',
+                                     src.read_text(), re.S):
+            params[name] = [" ".join(p.split()) for p in decl.split(",")]
+    return params
+
+
 def _c_entry_points():
     """{name: [ctypes type per parameter]} of every extern "C" int function in
     the port's CUDA sources."""
     import ctypes
-    import re
-    from pathlib import Path
-    csrc = Path(ft.__file__).resolve().parents[1] / "csrc"
-    sigs = {}
-    for src in csrc.glob("*.cu"):
-        for name, params in re.findall(r'extern "C" int (p2m_\w+)\((.*?)\)\s*\{',
-                                       src.read_text(), re.S):
-            sigs[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
-                          for p in params.split(",")]
-    return sigs
+    return {name: [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+            for name, params in _c_parameters().items()}
 
 
 LOADERS = [
@@ -232,3 +238,17 @@ def test_every_cuda_entry_point_has_a_loader(monkeypatch):
         getattr(mod, loader).__wrapped__()
         declared |= {n for n in fake.fns if not n.endswith("_error_string")}
     assert declared == set(_c_entry_points())
+
+
+ENTRY_POINTS = ["p2m_fused_cheby_conv", "p2m_fused_cheby_conv_commuted", "p2m_train_conv",
+                "p2m_fused_cheby_bwd", "p2m_banded_hop", "p2m_strip_cheby_conv"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_every_entry_point_takes_f32_before_the_stream(entry):
+    """Every kernel has a float32 instance: each launch function ends with
+    `int f32, void* stream`, and its loader declares one more int than a
+    bf16-only signature would (the ctypes test above holds the count)."""
+    params = _c_parameters()
+    assert set(params) == set(ENTRY_POINTS)
+    assert params[entry][-2:] == ["int f32", "void* stream"], params[entry][-2:]
