@@ -141,10 +141,39 @@ Phases (any failure exits non-zero):
      form, and cli.demo on the card with --input_img a PNG written with PIL
      (decoded by PIL where matplotlib is missing; 8 float32 K1 a person)
      against the same demo on the CPU (mesh and joints within 1e-4);
+  15. multi-device, in spawned processes joined into a gloo group (file
+     rendezvous, a join deadline), every rank on cuda:0 (NCCL puts one rank
+     on a card; gloo stages each collective through host memory, so its
+     times are not a scaling number), after the parent built the kernels
+     (phase 1) and wrote the SMPL artifact as npz: (a) the halo hop on 2
+     and 4 graph ranks at each SMPL band level (6890 / 3475 / 1849 / 981)
+     and the band_k = 2 level, batch 32, 128 channels, bf16 and float32: K4
+     on each rank's halo-extended slab, forward and VJP against the
+     one-device K4 on the whole tensor (float32 rel_l2 <= 1e-6, bf16 <=
+     1e-2), two runs to equal bits, 3 launches; (b) the full-width SMPL
+     train step (global batch 64, PoseNet 4096, SMPL_BLOCKS, SGD, dropout
+     0) on a (2, 1) mesh in float32 and bf16 and on a (2, 2) mesh in
+     float32, each rank against the one-device step of the same weights and
+     batch and dtype, leaving out the biases that feed a training
+     BatchNorm, whose gradient cancels (float32: loss 1e-5, the gradients as
+     one vector 1e-3, each gradient 1e-3 and each parameter after the step
+     rel_l2 1e-4, or 4x the one-device step's own spread when the batch's
+     halves are swapped, whichever is larger; bf16: loss 2e-2, the
+     gradients as one vector 0.15, each gradient and each parameter after
+     the step 0.2), the ranks' parameters equal, each rank's launches per
+     step ((2, 1): 10 K1 + 10 K2; (2, 2): 40 halo hops on K4 and nothing
+     fused), ms per step and the gradient sync's ms; (c) the census of
+     those steps (count and bytes of every collective; no band-sized
+     all-gather but one out of and one into each graph-split level); (d) the float32
+     deploy Tester of phase 14's checkpoint over phase 12's files on (2, 1)
+     (6 group + 2 commuted a forward a rank) and (2, 2) (16 halo hops)
+     against phase 14's 1 x 1 deploy Tester (every metric 1e-4); (e) NCCL at
+     world size 1 (all_reduce_sum, the gradient sync), and the (2, 1) step
+     across two cards where the machine has them;
   then print the MANO kernels' numbers per pass, the data layer's numbers,
-  the engine's numbers, the float32 paths' numbers and the kernel table
-  (the bf16 kernels and, named `...[f32]`, their float32 instances) as one
-  JSON line each, then the result line.
+  the engine's numbers, the float32 paths' numbers, the multi-device
+  numbers and the kernel table (the bf16 kernels and, named `...[f32]`,
+  their float32 instances) as one JSON line each, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
@@ -2471,6 +2500,504 @@ def f32_layer(root: str, card) -> dict:
     return report
 
 
+# ---- phase 15: multi-device ------------------------------------------------
+# gloo ranks, every one on cuda:0 (NCCL puts one rank on a card): the halo
+# hop at each SMPL band level and the band_k = 2 level on 2 and 4 graph
+# ranks against the one-device K4 (forward and VJP, float32 rel_l2 1e-6,
+# bf16 1e-2, two runs equal bits); the full-width SMPL train step (batch 64
+# global, 32 a data rank, PoseNet 4096, SGD, dropout 0) on (2, 1) in float32
+# and bf16 and on (2, 2) in float32 against the one-device step of the same
+# weights, batch and dtype (MESH_STEP_TOLS), with each rank's launches and the
+# census of its collectives; the float32 deploy Tester over phase 12's files
+# on (2, 1) and (2, 2) against phase 14's 1 x 1 deploy Tester (every metric
+# 1e-4); NCCL at world size 1.
+MESH_SHAPES = {2: (2, 1), 4: (2, 2)}  # ranks a spawn -> the (data, graph) mesh
+MESH_DTYPES = {2: ("float32", "bfloat16"), 4: ("float32",)}
+# The mesh step against the one-device step: the loss (relative), and but
+# for the cancelling biases (`cancelling_biases`, reported) the gradients as
+# one vector, each gradient and each parameter after the step, all rel_l2.  float32: a
+# fixed floor or MESH_F32_SCALE times the one-device step's own spread when
+# only the batch's halves are swapped, whichever is larger (the mesh reorders
+# the same float32 sums; that spread reaches 2.4e-2 for one gradient at full
+# SMPL width on an H100, and the plain float32 step on the CPU shows the same,
+# tools/step_spread.py).  bf16: fixed limits, set above what an H100 reads
+# (6.6e-2 as one vector, at most 0.10 for a gradient or parameter): each data
+# rank rounds its partial batch sums to bf16, which the one-device step does
+# once.  A missing 1/D in the gradient sync reads 1.0 for every gradient.
+MESH_STEP_TOLS = {
+    "float32": {"loss": F32_STEP_LOSS_TOL, "whole": 1e-3, "grad": F32_STEP_GRAD_TOL,
+                "param": 1e-4},
+    "bfloat16": {"loss": STEP_LOSS_TOL, "whole": 0.15, "grad": 0.2, "param": 0.2}}
+MESH_F32_SCALE = 4.0
+HALO_TOLS = {"float32": 1e-6, "bfloat16": KERNEL_TOL}
+HALO_F = 128
+MESH_TIMED_STEPS = 2
+MESH_JOIN_S = 480
+MESH_LABEL = "gloo, {n} ranks on one card: not a scaling number"
+# a rank's launches per step: (2, 1) K1 and K2 on the 10 band convs; (2, 2)
+# two halo hops forward and two backward per band conv, nothing fused
+MESH_STEP_LAUNCHES = {(2, 1): {"fused_cheby_conv_train": 10, "fused_cheby_conv_bwd": 10},
+                      (2, 2): {"banded_hop": 40}}
+# a rank's launches per deploy forward on the datasets' graph (3 band
+# levels, 8 band convs): (2, 1) the group kernels, (2, 2) two halo hops a conv
+MESH_DEPLOY_LAUNCHES = {(2, 1): DATA_DEPLOY_LAUNCHES, (2, 2): {"banded_hop": 16}}
+MESH_METRICS = ("joint_err", "mesh_err", "mpjpe", "pa_mpjpe", "mpvpe")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_halo(mesh, levels, dev) -> list:
+    """Phase 15a on one rank: each level's halo hop and its VJP, in bf16 and
+    float32, against the one-device K4 on the whole tensor (this rank's
+    rows); its launches, equal bits, bytes a side, ms, and the ms of its
+    exchange (gloo-staged) and of K4 on the slab apart (not counted)."""
+    import torch
+    from pose2mesh_release_tpu_torch.graphs.artifact import LevelOperator
+    from pose2mesh_release_tpu_torch.ops import hop as hp
+    from pose2mesh_release_tpu_torch.parallel.collectives import exchange_halo
+    from pose2mesh_release_tpu_torch.parallel.halo import global_rows, halo_banded_hop
+    from pose2mesh_release_tpu_torch.parallel.sharding import shard_level
+    B_l, rows_out = BATCH // 2, []
+    for name, band_np, V in levels:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            band = torch.from_numpy(band_np).to(dev, dtype)
+            op = shard_level(LevelOperator(kind="band", band_val=band, num_vertices=V,
+                                           block_size=128, band_k=band.shape[0] // 2), mesh)
+            g = torch.Generator(device=dev).manual_seed(V)
+            x = torch.randn(V, B_l, HALO_F, generator=g, device=dev).to(dtype)
+            gy = torch.randn(V, B_l, HALO_F, generator=g, device=dev).to(dtype)
+            want, want_dx = hp.hop(band, x), hp.hop(band, gy)
+            rows, j = op.padded_vertices, mesh.graph_rank
+            lo, hi = j * rows, min((j + 1) * rows, V)
+
+            def local(t):
+                t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, global_rows(op, mesh.graph) - V))
+                return t[j * rows:(j + 1) * rows].contiguous()
+            xl = local(x).requires_grad_()
+            reset_launches()
+            y = halo_banded_hop(op, xl, mesh)
+            y.backward(local(gy))
+            again = halo_banded_hop(op, xl.detach(), mesh)
+            _sync(dev)
+            launches = read_launches()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                halo_banded_hop(op, xl.detach(), mesh)
+            _sync(dev)
+            hop_ms = (time.perf_counter() - t0) * 1e3 / 3
+            # the hop's two parts apart: the exchange (gloo-staged) and K4
+            t0 = time.perf_counter()
+            for _ in range(3):
+                exchange_halo(xl.detach().reshape(rows // 128, 128, -1), op.band_k, mesh,
+                              site="timing")
+            _sync(dev)
+            exchange_ms = (time.perf_counter() - t0) * 1e3 / 3
+            k4_ms = None
+            if dev.type == "cuda":
+                ext = torch.zeros(op.band_val.shape[1] * 128, *x.shape[1:], device=dev,
+                                  dtype=dtype)
+                k4_ms = cuda_ms(lambda: hp.hop(op.band_val, ext), 5)
+            n = hi - lo
+            row = {"level": name, "dtype": dt, "ranks": mesh.graph,
+                   "err": rel_l2(y.detach()[:n], want[lo:hi]),
+                   "vjp_err": rel_l2(xl.grad[:n], want_dx[lo:hi]),
+                   "equal_bits": bool(torch.equal(again, y.detach())),
+                   "pad_rows_zero": not bool(y.detach()[n:].any()),
+                   "launches": launches, "ms": hop_ms, "exchange_ms": exchange_ms,
+                   "k4_ms": k4_ms,
+                   "bytes_a_side": op.band_k * 128 * B_l * HALO_F * band.element_size()}
+            row["ok"] = (row["err"] <= HALO_TOLS[dt] and row["vjp_err"] <= HALO_TOLS[dt]
+                         and row["equal_bits"] and row["pad_rows_zero"]
+                         and launches == expect(banded_hop=3 if dev.type == "cuda" else 0))
+            rows_out.append(row)
+    return rows_out
+
+
+def cancelling_biases(model) -> set:
+    """The biases whose output enters a training BatchNorm: MeshNet's convs
+    but the last, PoseNet's first layer, each stage's w1 and the first
+    stage's w2.  The BatchNorm removes any constant over the rows, so their
+    gradient is zero up to the rounding of its sums or, where a residual
+    bypasses the BatchNorm, what that path carries: a sum that cancels, whose
+    rel_l2 measures rounding.  Phase 15b leaves them out of the per-parameter
+    checks and from the gradients as one vector, and reports them."""
+    stages = len(model.pose_lifter.linear_stages)
+    return ({f"pose2mesh.cl.{i}.bias" for i in range(len(model.pose2mesh.cl) - 1)}
+            | {"pose_lifter.w1.bias"}
+            | {f"pose_lifter.linear_stages.{j}.w1.bias" for j in range(stages)}
+            | {f"pose_lifter.linear_stages.{j}.w2.bias" for j in range(stages - 1)})
+
+
+def _mesh_step(spec, graph_axis, dt, dev) -> dict:
+    """Phase 15b on one rank: the one-device SGD step of the global batch in
+    `dt` (float32: also the spread of its own rounding, the same step with
+    the batch's halves swapped), then from the same state the step on the
+    mesh (this rank's rows), held against it; the census of the mesh step;
+    MESH_TIMED_STEPS more steps, each timed and its launches counted; the
+    gradient sync alone, timed."""
+    import copy
+
+    import torch
+    from pose2mesh_release_tpu_torch.core.optim import make_preconditioner
+    from pose2mesh_release_tpu_torch.core.train import TrainState, make_train_step
+    from pose2mesh_release_tpu_torch.graphs.artifact import load_artifact
+    from pose2mesh_release_tpu_torch.models.pose2mesh import Pose2Mesh
+    from pose2mesh_release_tpu_torch.parallel.audit import (
+        band_threshold, boundary_gathers, census,
+    )
+    from pose2mesh_release_tpu_torch.parallel.mesh import make_mesh
+    from pose2mesh_release_tpu_torch.parallel.sharding import (
+        shard_artifact, shard_batch, shard_state, sync_grads,
+    )
+    mesh = make_mesh(graph_axis)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in spec["batch"].items()}
+
+    def cascade(dtype):
+        art = load_artifact(spec["art"], device=dev).to(dev, dtype)
+        return art, Pose2Mesh(art.joint_num, art.mesh_ops[-1].num_vertices, dtype=dtype,
+                              posenet_hidden=spec["hidden"], blocks=spec["blocks"],
+                              inference_fused=False, dropout=0.0, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+
+    def one_device(model, art, b):
+        """(loss, gradients, parameters after) of the one-device step."""
+        model.load_state_dict(snapshot)
+        opt = make_preconditioner("sgd", model.parameters())
+        _, losses = make_train_step(model, opt, spec["jreg"], device=dev)(
+            TrainState(model, opt), art, b, LR, True, None)
+        return (float(losses["total"]),
+                {n: p.grad.detach().float().clone() for n, p in model.named_parameters()},
+                {n: p.detach().float().clone() for n, p in model.named_parameters()})
+    art, model = cascade(getattr(torch, dt))
+    snapshot = copy.deepcopy(model.state_dict())
+    ref_loss, ref_grads, ref_params = one_device(model, art, batch)
+    grad_scale = param_scale = dict.fromkeys(ref_grads)
+    if dt == "float32":
+        B = batch["pose2d"].shape[0]
+        swap = torch.cat([torch.arange(B // 2, B), torch.arange(B // 2)]).to(dev)
+        _, swap_grads, swap_params = one_device(model, art,
+                                                {k: v[swap] for k, v in batch.items()})
+        grad_scale = {n: rel_l2(ref_grads[n], swap_grads[n]) for n in ref_grads}
+        param_scale = {n: rel_l2(ref_params[n], swap_params[n]) for n in ref_params}
+    model.load_state_dict(snapshot)
+    opt = make_preconditioner("sgd", model.parameters())
+    state = TrainState(model, opt)
+    shard_state(model.use_mesh(mesh), mesh)
+    step = make_train_step(model, opt, spec["jreg"], device=dev, mesh=mesh)
+    art_s, local = shard_artifact(art, mesh), shard_batch(batch, mesh)
+    reset_launches()
+    with census(mesh) as c:
+        _, losses = step(state, art_s, local, LR, True, None)
+        _sync(dev)
+    first = read_launches()
+    named = dict(model.named_parameters())
+    cancelling = cancelling_biases(model)
+    held = [n for n in named if n not in cancelling]
+    grads = {n: (rel_l2(named[n].grad, ref_grads[n]), grad_scale[n]) for n in held}
+    params = {n: (rel_l2(named[n].detach(), ref_params[n]), param_scale[n]) for n in held}
+    cancelling_grads = {n: rel_l2(named[n].grad, ref_grads[n]) for n in sorted(cancelling)}
+
+    def whole(a, b) -> float:
+        """rel_l2 of the held gradients as one vector."""
+        return math.sqrt(sum(float((a[n].float() - b[n]).square().sum()) for n in held)
+                         / sum(float(b[n].square().sum()) for n in held))
+    whole_grad = whole({n: named[n].grad for n in held}, ref_grads)
+    whole_scale = whole(ref_grads, swap_grads) if dt == "float32" else None
+    ms, per_step = [], []
+    for _ in range(MESH_TIMED_STEPS):
+        reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        step(state, art_s, local, LR, True, None)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_launches())
+    split = model.pose2mesh.graph_split_parameters(art_s)
+    _sync(dev)
+    t0 = time.perf_counter()
+    sync_grads(model.parameters(), mesh, split)
+    _sync(dev)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    return {"loss": float(losses["total"]), "one_device_loss": ref_loss,
+            "loss_rel_err": abs(float(losses["total"]) - ref_loss) / abs(ref_loss),
+            "grads": grads, "whole_grad_rel_l2": whole_grad,
+            "whole_scale_rel_l2": whole_scale, "params": params,
+            "cancelling_grads": cancelling_grads,
+            "first_step_launches": first, "launches_per_step": per_step,
+            "ms_per_step": ms, "grad_sync_ms": sync_ms,
+            "census": c.summary(), "records": list(c.records),
+            "checksum": float(sum(float(p.detach().double().sum()) for p in named.values())),
+            "threshold": band_threshold(art, batch["pose2d"].shape[0] // mesh.data, 64),
+            "allowed_gathers": boundary_gathers(art_s)}
+
+
+def _mesh_tester(spec, shape, dev) -> dict:
+    """Phase 15d on one rank: the float32 deploy Tester of best.pth.tar over
+    phase 12's files on the mesh, its launches a forward and eval-step ms."""
+    from pose2mesh_release_tpu_torch.config import load_config
+    from pose2mesh_release_tpu_torch.core import engine
+    cfg = load_config(spec["tester_cfg"])
+    reset_launches()
+    with EngineProbe() as probe:
+        res = engine.Tester(cfg, load_path=spec["best"], debug=True, device=dev).test(0)
+    return {"result": {k: res[k] for k in MESH_METRICS}, "forward_launches": probe.eval,
+            "eval_ms": probe.eval_ms, "total_launches": read_launches()}
+
+
+def mesh_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of phase 15 (a spawned process in a gloo group, on
+    spec["device"]): the halo checks on a (1, world) mesh, the steps, the
+    Tester.  spec: the SMPL artifact's npz, the global batch and regressor,
+    the halo levels, the dtypes, the Tester's experiment file and checkpoint,
+    PoseNet's width and MeshNet's blocks (None: SMPL_BLOCKS).  On the CPU
+    (a rehearsal at small shapes) the kernels' plain versions run."""
+    import torch
+    from pose2mesh_release_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"].format(rank=rank))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {"halo": _mesh_halo(make_mesh(world), spec["halo"], dev) if spec["halo"] else []}
+    shape = MESH_SHAPES[world]
+    out["steps"] = {dt: _mesh_step(spec, shape[1], dt, dev) for dt in spec["dtypes"]}
+    torch.cuda.empty_cache()
+    out["tester"] = _mesh_tester(spec, shape, dev) if spec["tester_cfg"] else None
+    return out
+
+
+def _nccl_world_one(card) -> dict:
+    """Phase 15e: NCCL at world size 1 on cuda:0: all_reduce_sum and the
+    gradient sync leave their inputs as they are."""
+    import torch
+    import torch.distributed as dist
+    from pose2mesh_release_tpu_torch.parallel.collectives import all_reduce_sum
+    from pose2mesh_release_tpu_torch.parallel.distributed import init_distributed
+    from pose2mesh_release_tpu_torch.parallel.mesh import make_mesh
+    from pose2mesh_release_tpu_torch.parallel.sharding import sync_grads
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", "cuda", init_method=f"file://{tmp}/rendezvous", rank=0,
+                         world_size=1)
+        try:
+            mesh = make_mesh(1)
+            x = torch.randn(4096, device="cuda", requires_grad=True)
+            y = all_reduce_sum(x, mesh, "data", site="check")
+            y.backward(torch.ones_like(y))
+            lin = torch.nn.Linear(256, 128).cuda()
+            lin(torch.randn(8, 256, device="cuda")).square().sum().backward()
+            want = [p.grad.clone() for p in lin.parameters()]
+            sync_grads(lin.parameters(), mesh)
+            torch.cuda.synchronize()
+            ok = (torch.equal(y, x.detach()) and bool((x.grad == 1).all())
+                  and all(torch.equal(p.grad, w) for p, w in zip(lin.parameters(), want)))
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    log(f"phase 15e: NCCL at world size 1 ({backend}): all_reduce_sum and the gradient "
+        f"sync {'ok' if ok else 'FAILED'} ({card})")
+    if not ok:
+        raise SystemExit("phase 15e: NCCL at world size 1 changed its inputs")
+    return {"backend": backend, "ok": ok}
+
+
+def mesh_world(world: int, spec: dict, report: dict, deploy_result, card) -> None:
+    """Phase 15a-d on `world` spawned ranks (the mesh MESH_SHAPES[world]):
+    run mesh_rank, hold its results, add them to `report`.  deploy_result:
+    the 1 x 1 deploy Tester's metrics (None when spec has no Tester)."""
+    from pose2mesh_release_tpu_torch.parallel.audit import (
+        Census, TRANSITION_SITES, assert_no_large_gather,
+    )
+    from pose2mesh_release_tpu_torch.parallel.distributed import spawn_ranks
+    shape = MESH_SHAPES[world]
+    batch = spec["batch"]["pose2d"].shape[0]
+    tag = f"{shape[0]}x{shape[1]}"
+    t0 = time.time()
+    ranks = spawn_ranks(mesh_rank, world, (spec,), timeout=MESH_JOIN_S)
+    wall = time.time() - t0
+    label = MESH_LABEL.format(n=world)
+    # (a) the halo hop on `world` graph ranks
+    for rank, r in enumerate(ranks if spec["halo"] else []):
+        for row in r["halo"]:
+            report["halo"].append({**row, "rank": rank})
+    bad = [(x["level"], x["dtype"], x["rank"]) for x in report["halo"]
+           if x["ranks"] == world and not x["ok"]]
+    worst = {dt: max((max(x["err"], x["vjp_err"]) for x in report["halo"]
+                      if x["ranks"] == world and x["dtype"] == dt), default=0.0)
+             for dt in HALO_TOLS}
+    first = spec["halo"][0][0] if spec["halo"] else None
+    ms6890 = [tuple(round(x[k], 3) for k in ("ms", "exchange_ms", "k4_ms") if x[k] is not None)
+              for x in report["halo"] if x["ranks"] == world
+              and x["level"] == first and x["dtype"] == "bfloat16"]
+    if spec["halo"]:
+        log(f"phase 15a: halo hop on {world} graph ranks at {[lv[0] for lv in spec['halo']]}: "
+            f"worst rel_l2 (forward, VJP) bf16 {worst['bfloat16']:.2e}, float32 "
+            f"{worst['float32']:.2e} (tolerances {HALO_TOLS}); first level's bf16 ms a hop "
+            f"(the hop, its exchange, K4) by rank {ms6890} ({label}); "
+            f"{ranks[0]['halo'][0]['bytes_a_side']} bytes a "
+            f"side there ({card})")
+    if bad:
+        raise SystemExit(f"phase 15a: halo hop disagrees with K4 or launched wrong: {bad}")
+    # (b) the train steps and (c) their census
+    for dt in spec["dtypes"]:
+        tol = MESH_STEP_TOLS[dt]
+        steps = [r["steps"][dt] for r in ranks]
+        key = f"{tag} {dt}"
+        want = expect(**MESH_STEP_LAUNCHES[shape])
+
+        def limit(kind: str, scale) -> float:
+            """A float32 scale widens the fixed limit to MESH_F32_SCALE x it."""
+            return tol[kind] if scale is None else max(tol[kind], MESH_F32_SCALE * scale)
+        for rank, s in enumerate(steps):
+            # (name, error, its float32 spread) nearest its limit
+            s["worst_grad"] = max(((n, e, sp) for n, (e, sp) in s["grads"].items()),
+                                  key=lambda x: x[1] / limit("grad", x[2]))
+            s["worst_param"] = max(((n, e, sp) for n, (e, sp) in s["params"].items()),
+                                   key=lambda x: x[1] / limit("param", x[2]))
+            (_, e, sp), (_, pe, psp) = s["worst_grad"], s["worst_param"]
+            ok = (s["loss_rel_err"] <= tol["loss"]
+                  and s["whole_grad_rel_l2"] <= limit("whole", s["whole_scale_rel_l2"])
+                  and e <= limit("grad", sp) and pe <= limit("param", psp)
+                  and s["first_step_launches"] == want
+                  and all(count == want for count in s["launches_per_step"]))
+            if not ok:
+                raise SystemExit(f"phase 15b: {key} rank {rank}: loss {s['loss_rel_err']}, "
+                                 f"whole gradient {s['whole_grad_rel_l2']}, "
+                                 f"grad {s['worst_grad']}, param {s['worst_param']}, "
+                                 f"launches {s['first_step_launches']} != {want} "
+                                 f"(limits {tol}, float32 scale x{MESH_F32_SCALE})")
+        if len({s["checksum"] for s in steps}) != 1:
+            raise SystemExit(f"phase 15b: {key}: the ranks' parameters differ after the "
+                             f"step ({[s['checksum'] for s in steps]})")
+        c = Census()
+        c.records = [tuple(x) for x in steps[0]["records"]]
+        allow = steps[0]["allowed_gathers"]
+        assert_no_large_gather(c, steps[0]["threshold"], allow, context=key)
+        gathers = [x for x in c.records if x[0] == "all_gather"
+                   and x[3] >= steps[0]["threshold"]]
+        report["steps"][key] = {
+            "ms_per_step": [s["ms_per_step"] for s in steps],
+            "grad_sync_ms": [s["grad_sync_ms"] for s in steps],
+            "loss_rel_err": max(s["loss_rel_err"] for s in steps),
+            "worst_grad_rel_l2": max((s["worst_grad"] for s in steps), key=lambda x: x[1]),
+            "largest_grad_rel_l2": max(((n, e, sp) for s in steps
+                                        for n, (e, sp) in s["grads"].items()),
+                                       key=lambda x: x[1]),
+            "whole_grad_rel_l2": max(s["whole_grad_rel_l2"] for s in steps),
+            "whole_scale_rel_l2": steps[0]["whole_scale_rel_l2"],
+            "worst_param_rel_l2": max((s["worst_param"] for s in steps),
+                                      key=lambda x: x[1]),
+            "cancelling_grad_rel_l2": {n: max(s["cancelling_grads"][n] for s in steps)
+                                       for n in steps[0]["cancelling_grads"]},
+            "limits": tol,
+            "launches_per_step": steps[0]["launches_per_step"][0],
+            "census": steps[0]["census"], "band_sized_gathers": len(gathers),
+            "allowed_gathers": allow, "label": label}
+        log(f"phase 15b: {key} step, global batch {batch} ({batch // shape[0]} a data "
+            f"rank): ms per step by rank "
+            f"{[[round(t, 1) for t in s['ms_per_step']] for s in steps]} "
+            f"({label}; the gradient sync alone "
+            f"{[round(s['grad_sync_ms'], 1) for s in steps]} ms); "
+            f"loss {steps[0]['loss']:.6f} vs one device "
+            f"{steps[0]['one_device_loss']:.6f} (rel {report['steps'][key]['loss_rel_err']:.2e}); "
+            f"gradient (name, rel_l2, its float32 half-swap spread) nearest its limit "
+            f"{report['steps'][key]['worst_grad_rel_l2']}, largest "
+            f"{report['steps'][key]['largest_grad_rel_l2']}, all as one vector "
+            f"{report['steps'][key]['whole_grad_rel_l2']:.2e} (spread "
+            f"{report['steps'][key]['whole_scale_rel_l2']}); parameter "
+            f"{report['steps'][key]['worst_param_rel_l2']} (limits {tol}); the cancelling "
+            f"biases' largest "
+            f"{max(report['steps'][key]['cancelling_grad_rel_l2'].items(), key=lambda x: x[1])}"
+            f"; launches a step "
+            f"{steps[0]['launches_per_step'][0]} ({card})")
+        log(f"phase 15c: {key} census (rank 0): {steps[0]['census']['by_kind']}; "
+            f"band-sized gathers {len(gathers)} at {sorted({x[1] for x in gathers})} "
+            f"(allowed {allow}: sites {TRANSITION_SITES})")
+    # (d) the float32 deploy Tester
+    if spec["tester_cfg"] is None:
+        return
+    results = [r["tester"] for r in ranks]
+    want_fwd = MESH_DEPLOY_LAUNCHES[shape]
+    rel = {k: max(abs(t["result"][k] - deploy_result[k]) / abs(deploy_result[k])
+                  for t in results) for k in MESH_METRICS}
+    for rank, t in enumerate(results):
+        if not t["forward_launches"] or any(
+                f != {k: v for k, v in want_fwd.items()} for f in t["forward_launches"]):
+            raise SystemExit(f"phase 15d: {tag} Tester rank {rank}: launches a forward "
+                             f"{t['forward_launches']} != {want_fwd}")
+    if not all(v <= F32_DEPLOY_VS_TRAIN_TOL for v in rel.values()):
+        raise SystemExit(f"phase 15d: {tag} Tester disagrees with 1 x 1: {rel}")
+    report["tester"][tag] = {"rel_diff": rel, "eval_ms": [t["eval_ms"] for t in results],
+                             "launches_per_forward": results[0]["forward_launches"][0],
+                             "label": label}
+    log(f"phase 15d: float32 deploy Tester on {tag}: vs 1 x 1 "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tolerance "
+        f"{F32_DEPLOY_VS_TRAIN_TOL}); launches a forward {results[0]['forward_launches'][0]}; "
+        f"eval-step ms by rank {[[round(x, 1) for x in t['eval_ms']] for t in results]} "
+        f"({label}); spawn wall {wall:.1f} s ({card})")
+
+
+def mesh_layer(root: str, card, deploy_result: dict) -> dict:
+    """Phase 15: multi-device (see MESH_SHAPES), in spawned gloo ranks on
+    cuda:0; deploy_result: phase 14's 1 x 1 float32 deploy Tester metrics."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.data.joint_sets import HUMAN36
+    from pose2mesh_release_tpu_torch.deploy import build_artifact
+    from pose2mesh_release_tpu_torch.graphs.artifact import save_artifact
+    from pose2mesh_release_tpu_torch.parallel.distributed import spawn_ranks
+    from pose2mesh_release_tpu_torch.train_setup import synthetic_batch
+    t_start = time.time()
+    torch.cuda.empty_cache()
+    smpl = SMPL()
+    art = build_artifact(smpl.face, HUMAN36, 9, torch.device("cpu"))
+    art_path = os.path.join(root, "smpl_artifact.npz")
+    save_artifact(art_path, art)
+    rng = np.random.default_rng(0)
+    jreg = rng.random((17, art.num_vertices)).astype(np.float32)
+    jreg /= jreg.sum(axis=1, keepdims=True)
+    batch = synthetic_batch(smpl.v_template, BATCH, jreg, rng)
+    levels = [(str(op.num_vertices), op.band_val.numpy(), op.num_vertices)
+              for op in art.mesh_ops if op.kind == "band"]
+    levels.append(("3475 band_k 2", k2_level(3475).band_val.numpy(), 3475))
+    best = os.path.join(root, "experiment_f32", "checkpoint", "best.pth.tar")
+    report = {"label": MESH_LABEL, "card": card, "halo": [], "steps": {}, "tester": {}}
+    for world, shape in MESH_SHAPES.items():
+        tag = f"{shape[0]}x{shape[1]}"
+        tester_cfg = engine_cfg(os.path.join(root, f"test_mesh_{tag}.json"), root,
+                                os.path.join(root, f"experiment_mesh_{tag}"),
+                                TEST={"deploy": True},
+                                TPU={"compute_dtype": "f32", "data_axis": shape[0],
+                                     "graph_axis": shape[1]})
+        spec = {"device": "cuda:0", "art": art_path, "batch": batch, "jreg": jreg,
+                "halo": levels, "dtypes": MESH_DTYPES[world], "tester_cfg": tester_cfg,
+                "best": best, "hidden": 4096, "blocks": None}
+        mesh_world(world, spec, report, deploy_result, card)
+    # (e) NCCL
+    report["nccl"] = _nccl_world_one(card)
+    if torch.cuda.device_count() >= 2:
+        spec = {"device": "cuda:{rank}", "art": art_path, "batch": batch, "jreg": jreg,
+                "halo": [], "dtypes": ("float32",), "tester_cfg": None, "best": best,
+                "hidden": 4096, "blocks": None}
+        ranks = spawn_ranks(mesh_rank, 2, (spec,), timeout=MESH_JOIN_S, backend="nccl")
+        s = ranks[0]["steps"]["float32"]
+        report["nccl"]["two_cards_2x1"] = {"ms_per_step": s["ms_per_step"],
+                                           "loss_rel_err": s["loss_rel_err"]}
+        log(f"phase 15e: NCCL (2, 1) float32 step across two cards: ms {s['ms_per_step']}, "
+            f"loss rel {s['loss_rel_err']:.2e}")
+    else:
+        log(f"phase 15e: NCCL across two cards did not run: "
+            f"{torch.cuda.device_count()} card(s) here")
+    report["wall_s"] = time.time() - t_start
+    log(f"phase 15: {report['wall_s']:.1f} s")
+    return report
+
+
 def kernel_table(rows, launches_of, main_tags, suffix="") -> list:
     """The {"kernels": ...} rows of SOURCES' kernels (name + suffix): per
     kernel its launches on its path, ms, plain ms, library ms and bound
@@ -2530,6 +3057,7 @@ def main() -> int:
     libs = _build.build_all()
     report["build_s"] = time.time() - t0
     log(f"phase 1: built {sorted(libs)} in {report['build_s']:.1f} s")
+    report["ptxas"] = []
     for stem, text in _build.build_log.items():
         fn = ""
         for line in text.splitlines():
@@ -2537,7 +3065,8 @@ def main() -> int:
             if props:
                 fn = kernel_label(props.group(1))
             elif "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas {stem} {fn}: {line.strip()}")
+                report["ptxas"].append(f"ptxas {stem} {fn}: {line.strip()}")
+                log(f"  {report['ptxas'][-1]}")
 
     # -- phase 2: kernel checks at the main path's shapes -----------------
     deploy = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0)
@@ -2745,6 +3274,9 @@ def main() -> int:
         eng = report["engine"] = engine_layer(root, card)
         # -- phase 14: the float32 instances and paths --------------------------
         f32 = report["f32"] = f32_layer(root, card)
+        # -- phase 15: multi-device ---------------------------------------------
+        multi = report["multi_device"] = mesh_layer(
+            root, card, f32["engine"]["test"]["runs"]["deploy"]["result"])
     f32_launches = {"fused_cheby_conv": f32["forward"]["launches"]["fused_cheby_conv"],
                     "fused_cheby_conv_commuted":
                         f32["forward"]["launches"]["fused_cheby_conv_commuted"],
@@ -2822,6 +3354,24 @@ def main() -> int:
             f32_eng["test"]["runs"]["deploy"]["launches_per_forward"],
         "deploy_vs_training_form_rel": f32_eng["test"]["rel_diff"],
         "demo": f32_eng["demo"]}}), flush=True)
+    print(json.dumps({"multi_device": {
+        "card": card, "label": multi["label"], "wall_s": multi["wall_s"],
+        "halo_worst": {f"{n} ranks {dt}": max(max(x["err"], x["vjp_err"]) for x in multi["halo"]
+                                              if x["ranks"] == n and x["dtype"] == dt)
+                       for n in MESH_SHAPES for dt in HALO_TOLS},
+        "halo_ms_6890_bf16": {n: [x["ms"] for x in multi["halo"] if x["ranks"] == n
+                                  and x["level"] == "6890" and x["dtype"] == "bfloat16"]
+                              for n in MESH_SHAPES},
+        "steps": {k: {f: v[f] for f in ("ms_per_step", "loss_rel_err",
+                                        "worst_grad_rel_l2", "largest_grad_rel_l2",
+                                        "whole_grad_rel_l2", "whole_scale_rel_l2",
+                                        "grad_sync_ms",
+                                        "worst_param_rel_l2", "limits",
+                                        "launches_per_step", "band_sized_gathers",
+                                        "allowed_gathers")}
+                  | {"census": v["census"]["by_kind"]}
+                  for k, v in multi["steps"].items()},
+        "tester": multi["tester"], "nccl": multi["nccl"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ Reference: main/test.py:10-33: load cfg + weights, run Tester/LiftTester.
 Same flags as the JAX package's, plus --device (default cuda).
 
 Usage: python -m pose2mesh_release_tpu_torch.cli.test --cfg x.json [--weights p.pth.tar]
+On a mesh: torchrun --nproc_per_node N -m pose2mesh_release_tpu_torch.cli.test ...
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from ..config import load_config
+    from ..parallel.distributed import init_distributed
+
+    # under torchrun: join the process group before the engine builds its mesh
+    init_distributed(device=args.device)
     from ..core.engine import LiftTester, Tester
 
     cfg = load_config(args.cfg)
@@ -35,7 +40,8 @@ def main(argv=None):
     else:
         tester = LiftTester(cfg, load_path=weights, debug=args.debug, device=args.device)
     result = tester.test(0)
-    print("evaluation done:", result)
+    if tester.primary:
+        print("evaluation done:", result)
     return result
 
 

@@ -7,6 +7,8 @@ epoch loop with per-epoch eval, checkpointing, best tracking and loss plots
 lives in core.engine.Trainer.fit.
 
 Usage: python -m pose2mesh_release_tpu_torch.cli.train --cfg x.json [--device cpu]
+On a mesh (cfg TPU.data_axis x TPU.graph_axis = N devices), one process each:
+    torchrun --nproc_per_node N -m pose2mesh_release_tpu_torch.cli.train --cfg x.json
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from ..config import load_config
+    from ..parallel.distributed import init_distributed
+
+    # under torchrun: join the process group before the engine builds its mesh
+    init_distributed(device=args.device)
     from ..core.engine import LiftTester, LiftTrainer, Trainer
 
     cfg = load_config(args.cfg)
@@ -58,8 +64,10 @@ def main(argv=None):
             is_best = crit < best
             best = min(best, crit)
             trainer.save(epoch, is_best=is_best)
-            print(f"epoch {epoch}: loss {loss:.4f}" + (" (best)" if is_best else ""))
-    print("training done:", result)
+            if trainer.primary:
+                print(f"epoch {epoch}: loss {loss:.4f}" + (" (best)" if is_best else ""))
+    if trainer.primary:
+        print("training done:", result)
     return result
 
 

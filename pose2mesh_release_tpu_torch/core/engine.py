@@ -17,10 +17,26 @@ the loader and the model.  On the card the band convs run on the port's
 CUDA kernels, in `TPU.compute_dtype` (bf16 or f32) on every path: the
 engines refuse `TPU.use_pallas: false` there; on the CPU every setting runs
 through the kernels' plain versions.
-Multi-device meshes (`TPU.data_axis * TPU.graph_axis > 1`) are not ported.
 Weights are drawn from a CPU `torch.Generator` seeded with `cfg.seed or 0`;
 training dropout from one device generator per epoch, seeded from
-(cfg.seed, epoch).
+(cfg.seed, epoch) and, on a mesh of several data ranks, the data rank.
+
+Multi-device (`TPU.data_axis * TPU.graph_axis > 1`, the JAX engine's mesh):
+one process per device, launched by torchrun (`cli.train` / `cli.test`
+call `parallel.distributed.init_distributed` first); the mesh's size must
+be the world size.  Each rank computes on cuda:LOCAL_RANK unless the caller
+names a device (every rank on cuda:0 under gloo is for tests and the smoke
+run).  The engines run the same steps on the mesh (`core.train`): each data
+rank trains on its rows of every global batch (the loader's `data_rank`),
+graph ranks split the band levels (`parallel.sharding.shard_artifact`),
+rank 0's state is broadcast at the start, and a step equals the
+single-device step of the global batch.  Graph ranks of one data index draw
+the same dropout mask (the seed has no graph index), which keeps the
+replicated PoseNet and dense levels equal.  Testers gather the predictions
+of every data rank on every rank.  Rank 0 alone writes checkpoints,
+metrics.jsonl, plots and prints, each save followed by a barrier; resume
+reads on every rank.  steps_per_dispatch > 1 is refused on a mesh, as the
+JAX engine refuses it.
 """
 from __future__ import annotations
 
@@ -30,6 +46,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..body.mano import MANO
 from ..body.smpl import SMPL
@@ -39,6 +56,10 @@ from ..device import resolve_device
 from ..models.fold import fold_bn_variables
 from ..models.pose2mesh import Pose2Mesh
 from ..models.posenet import PoseNet
+from ..parallel.collectives import barrier, broadcast_object
+from ..parallel.distributed import is_primary, local_rank
+from ..parallel.mesh import make_mesh
+from ..parallel.sharding import shard_artifact, shard_state
 from ..train_setup import train_batch
 from ..utils.metrics_log import MetricsLogger
 from ..utils.plots import save_plot
@@ -77,9 +98,12 @@ def build_datasets(cfg: Config, split: str, mesh_model, *, model_name: str,
     return out
 
 
-def _epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Generator:
-    """The dropout noise of one epoch, seeded from (seed, epoch)."""
-    state = int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0])
+def _epoch_generator(seed: int, epoch: int, device: torch.device, mesh=None
+                     ) -> torch.Generator:
+    """The dropout noise of one epoch, seeded from (seed, epoch) and, with
+    several data ranks, this rank's data index."""
+    key = [seed, epoch] + ([mesh.data_rank] if mesh is not None and mesh.data > 1 else [])
+    state = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(state)
 
 
@@ -90,19 +114,39 @@ def _mean(totals: List[torch.Tensor]) -> float:
     return float(np.mean(torch.stack(totals).cpu().numpy().astype(np.float64)))
 
 
+def _mesh_for(cfg: Config, mesh):
+    """The (data, graph) mesh cfg.TPU asks for (None for 1 x 1); its size
+    must be the number of processes."""
+    d, g = cfg.TPU.data_axis, cfg.TPU.graph_axis
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if d * g != world:
+        raise ValueError(
+            f"cfg.TPU asks for a {d}x{g} mesh, {world} process(es) running: launch one "
+            f"process per device, e.g. torchrun --nproc_per_node {d * g} -m "
+            f"pose2mesh_release_tpu_torch.cli.train --cfg ...")
+    if mesh is not None and (mesh.data, mesh.graph) != (d, g):
+        raise ValueError(f"a {mesh.data}x{mesh.graph} mesh given for cfg.TPU's {d}x{g}")
+    if mesh is None and d * g > 1:
+        mesh = make_mesh(g)
+    return mesh
+
+
 class _Base:
-    """Common: device, compute dtype and the checks of what the port runs."""
+    """Common: mesh, device, compute dtype and the checks of what the port
+    runs.  mesh: the Trainer's, shared with its Tester (else built)."""
 
     def __init__(self, cfg: Config, *, debug: bool = False,
-                 device: str | torch.device | None = "cuda"):
+                 device: str | torch.device | None = "cuda", mesh=None):
         self.cfg = cfg
         self.debug = debug
+        self.mesh = _mesh_for(cfg, mesh)
+        if self.mesh is not None and torch.device(device or "cuda") == torch.device("cuda"):
+            device = torch.device("cuda", local_rank())
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.primary = is_primary()
         self.seed = cfg.seed or 0
-        if cfg.TPU.data_axis * cfg.TPU.graph_axis > 1:
-            raise NotImplementedError(
-                f"cfg.TPU asks for a {cfg.TPU.data_axis}x{cfg.TPU.graph_axis} device mesh; "
-                "the port runs on one device (multi-device is a later slice)")
         if self.device.type == "cuda" and not cfg.TPU.use_pallas:
             raise ValueError("cfg.TPU.use_pallas: false on CUDA: the band convs on the card "
                              "are the CUDA kernels; their plain versions are for the CPU")
@@ -114,7 +158,23 @@ class _Base:
         return Pose2Mesh(joint_num, art.mesh_ops[-1].num_vertices, mano=mano,
                          posenet_hidden=self.cfg.MODEL.posenet_hidden, dtype=self.dtype,
                          inference_fused=deploy, device=self.device,
-                         generator=torch.Generator().manual_seed(self.seed))
+                         generator=torch.Generator().manual_seed(self.seed), mesh=self.mesh)
+
+    def _art_on_device(self, art):
+        """The operators in the compute dtype on the device, split over the
+        mesh's graph axis."""
+        art = art.to(self.device, self.dtype)
+        return shard_artifact(art, self.mesh) if self.mesh is not None else art
+
+    def _loader_rows(self) -> Dict[str, int]:
+        if self.mesh is None:
+            return {}
+        return {"data_rank": self.mesh.data_rank, "data_ranks": self.mesh.data}
+
+    def _saved(self) -> None:
+        """After rank 0's save: every rank waits until the file is there."""
+        if self.mesh is not None:
+            barrier(self.mesh)
 
 
 class Trainer(_Base):
@@ -130,6 +190,9 @@ class Trainer(_Base):
                  test_dataset=None, model: Optional[Pose2Mesh] = None, mesh_model=None,
                  device: str | torch.device | None = "cuda"):
         super().__init__(cfg, debug=debug, device=device)
+        if cfg.TPU.steps_per_dispatch > 1 and self.mesh is not None:
+            raise ValueError("cfg.TPU.steps_per_dispatch > 1 requires a 1x1 mesh, as the "
+                             "JAX engine does")
         if mesh_model is None:
             mesh_model = (datasets[0].mesh_model if datasets
                           else _mesh_model_for(cfg.DATASET.input_joint_set, cfg.data_dir))
@@ -141,23 +204,25 @@ class Trainer(_Base):
         self.art = main.graph
         # the operators in the compute dtype on the device, once per engine
         # (the in-epoch eval shares them)
-        self.art_dev = main.graph.to(self.device, self.dtype)
+        self.art_dev = self._art_on_device(main.graph)
         self.joint_num = main.joint_num
         self.loader = BatchLoader(
             MultipleDatasets(self.datasets, make_same_len=True)
             if len(self.datasets) > 1 else self.datasets[0],
             cfg.TRAIN.batch_size, shuffle=cfg.TRAIN.shuffle, drop_last=True,
-            num_workers=cfg.DATASET.workers, device=self.device)
+            num_workers=cfg.DATASET.workers, device=self.device, **self._loader_rows())
 
         self.model = model if model is not None else self._build_cascade(
             self.joint_num, main.graph, mano=cfg.DATASET.input_joint_set == "mano")
+        if self.mesh is not None:
+            shard_state(self.model.use_mesh(self.mesh), self.mesh)
         self.optimizer = make_preconditioner(cfg.TRAIN.optimizer, self.model.parameters())
         self.lr_at = multistep_lr(cfg.TRAIN.lr, cfg.TRAIN.lr_step, cfg.TRAIN.lr_factor)
         self._train_step = make_train_step(
             self.model, self.optimizer, main.target_regressor(),
             normal_weight=cfg.MODEL.normal_loss_weight,
             edge_weight=cfg.MODEL.edge_loss_weight,
-            joint_weight=cfg.MODEL.joint_loss_weight, device=self.device)
+            joint_weight=cfg.MODEL.joint_loss_weight, device=self.device, mesh=self.mesh)
         # k > 1: k loader batches stacked and run by one call
         self.steps_per_dispatch = max(1, cfg.TPU.steps_per_dispatch)
         self._multi_step = (make_multi_train_step(self._train_step)
@@ -172,7 +237,8 @@ class Trainer(_Base):
         if resume:
             self._resume()
         self.tester = Tester(cfg, debug=debug, dataset=test_dataset,
-                             mesh_model=mesh_model, model=self.model, device=self.device)
+                             mesh_model=mesh_model, model=self.model, device=self.device,
+                             mesh=self.mesh)
 
     def _load_posenet(self, path: str) -> None:
         """A pretrained PoseNet checkpoint into the cascade's lifter
@@ -197,7 +263,7 @@ class Trainer(_Base):
     def train_epoch(self, epoch: int, lr_override: Optional[float] = None) -> float:
         lr = self.lr_at(epoch) if lr_override is None else lr_override
         use_edge = epoch > self.cfg.TRAIN.edge_loss_start
-        gen = _epoch_generator(self.seed, epoch, self.device)
+        gen = _epoch_generator(self.seed, epoch, self.device, self.mesh)
         totals: List[torch.Tensor] = []
         t0 = time.time()
         k = self.steps_per_dispatch
@@ -220,7 +286,7 @@ class Trainer(_Base):
                 self.state, loss = self._train_step(self.state, self.art_dev, batch, lr,
                                                     use_edge, gen)
                 totals.append(loss["total"])
-            if i % self.cfg.TRAIN.print_freq == 0 and totals:
+            if i % self.cfg.TRAIN.print_freq == 0 and totals and self.primary:
                 l_tot = float(totals[-1])
                 rate = (i + 1) * self.cfg.TRAIN.batch_size / (time.time() - t0)
                 print(f"epoch {epoch} it {i}/{len(self.loader)} "
@@ -242,7 +308,8 @@ class Trainer(_Base):
         result: Dict[str, float] = {}
         plateau = (ReduceLROnPlateau(cfg.TRAIN.lr) if cfg.TRAIN.scheduler == "plateau"
                    else None)
-        mlog = MetricsLogger(osp.join(cfg.output_dir, "metrics.jsonl"))
+        mlog = MetricsLogger(osp.join(cfg.output_dir, "metrics.jsonl")
+                             if self.primary else None)
         try:
             for epoch in range(self.begin_epoch, cfg.TRAIN.end_epoch + 1):
                 t0 = time.time()
@@ -259,13 +326,15 @@ class Trainer(_Base):
                 if is_best:
                     best_err = err["joint_err"]
                 self._save(epoch, is_best, final=epoch == cfg.TRAIN.end_epoch)
+                mlog.log("epoch", epoch=epoch, train_loss=mean_loss, train_s=train_s,
+                         epoch_s=time.time() - t0, **err)
+                if not self.primary:
+                    continue
                 # loss / error curves (funcs_utils.py:131-151, main/train.py:60-62)
                 save_plot(self.train_log, cfg.graph_dir, title="train_loss")
                 if self.test_log:
                     save_plot(self.test_log, cfg.graph_dir, title="test_joint_err",
                               ylabel="mm")
-                mlog.log("epoch", epoch=epoch, train_loss=mean_loss, train_s=train_s,
-                         epoch_s=time.time() - t0, **err)
                 print(f"epoch {epoch}: train loss {mean_loss:.4f}, "
                       f"test joint err {err.get('joint_err', -1):.2f} mm"
                       + (" (best)" if is_best else ""))
@@ -274,10 +343,12 @@ class Trainer(_Base):
         return result
 
     def _save(self, epoch: int, is_best: bool, final: bool) -> None:
-        save_checkpoint(self.cfg.checkpoint_dir, epoch, self.model, self.optimizer,
-                        step=self.state.step, train_log=self.train_log,
-                        test_log={"joint": list(self.test_log)},
-                        is_best=is_best, is_final=final)
+        if self.primary:
+            save_checkpoint(self.cfg.checkpoint_dir, epoch, self.model, self.optimizer,
+                            step=self.state.step, train_log=self.train_log,
+                            test_log={"joint": list(self.test_log)},
+                            is_best=is_best, is_final=final)
+        self._saved()
 
 
 class Tester(_Base):
@@ -290,8 +361,8 @@ class Tester(_Base):
 
     def __init__(self, cfg: Config, *, load_path: str = "", debug: bool = False,
                  dataset=None, mesh_model=None, model: Optional[Pose2Mesh] = None,
-                 device: str | torch.device | None = "cuda"):
-        super().__init__(cfg, debug=debug, device=device)
+                 device: str | torch.device | None = "cuda", mesh=None):
+        super().__init__(cfg, debug=debug, device=device, mesh=mesh)
         if mesh_model is None:
             mesh_model = _mesh_model_for(cfg.DATASET.input_joint_set, cfg.data_dir)
         self.mesh_model = mesh_model
@@ -310,8 +381,9 @@ class Tester(_Base):
             self.model = self._build_cascade(dataset.joint_num, dataset.graph,
                                              mano=cfg.DATASET.input_joint_set == "mano",
                                              deploy=self._deploy)
+        self.model.use_mesh(self.mesh)
         self._eval_step = make_eval_step(self.model, dataset.target_regressor(),
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh)
         self.loader = BatchLoader(dataset, cfg.TEST.batch_size, shuffle=False,
                                   drop_last=False, num_workers=cfg.DATASET.workers,
                                   device=self.device)
@@ -334,7 +406,7 @@ class Tester(_Base):
             raise ValueError("no weights: pass load_path= or model=")
         if art is None:
             if self._art is None:
-                self._art = ds.graph.to(self.device, self.dtype)
+                self._art = self._art_on_device(ds.graph)
             art = self._art
 
         j_errs, v_errs = [], []
@@ -363,23 +435,27 @@ class Tester(_Base):
 
         out = {"joint_err": float(np.mean(j_errs)) if j_errs else 0.0,
                "mesh_err": float(np.mean(v_errs)) if v_errs else 0.0}
-        print(f"test epoch {epoch}: joint {out['joint_err']:.2f} mm, "
-              f"mesh {out['mesh_err']:.2f} mm")
+        if self.primary:
+            print(f"test epoch {epoch}: joint {out['joint_err']:.2f} mm, "
+                  f"mesh {out['mesh_err']:.2f} mm")
         if collect and meshes:
             kwargs = {}
             if self.cfg.TEST.vis:  # .obj dumps during eval (config.py TEST.vis)
                 kwargs["vis_dir"] = self.cfg.vis_dir
-            out.update(ds.evaluate({
+            # every rank holds every prediction; rank 0 evaluates
+            res = ds.evaluate({
                 "mesh_coord": np.concatenate(meshes),
                 "mesh_coord_target": np.concatenate(target_meshes),
-            }, **kwargs))
+            }, **kwargs) if self.primary else None
+            out.update(broadcast_object(res, self.mesh) if self.mesh is not None else res)
         return out
 
 
-def _posenet(joint_num: int, seed: int, device: torch.device) -> PoseNet:
-    """The lifter at the reference's width (4096), seeded, on `device`."""
+def _posenet(joint_num: int, seed: int, device: torch.device, mesh) -> PoseNet:
+    """The lifter at the reference's width (4096), seeded, on `device`, on `mesh`."""
     model = PoseNet(joint_num)
     model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.mesh = mesh
     return model.to(device)
 
 
@@ -398,17 +474,19 @@ class LiftTrainer(_Base):
             MultipleDatasets(self.datasets, make_same_len=True)
             if len(self.datasets) > 1 else self.datasets[0],
             cfg.TRAIN.batch_size, shuffle=True, drop_last=True,
-            num_workers=cfg.DATASET.workers, device=self.device)
-        self.model = _posenet(self.joint_num, self.seed, self.device)
+            num_workers=cfg.DATASET.workers, device=self.device, **self._loader_rows())
+        self.model = _posenet(self.joint_num, self.seed, self.device, self.mesh)
+        if self.mesh is not None:
+            shard_state(self.model, self.mesh)
         self.optimizer = make_preconditioner(cfg.TRAIN.optimizer, self.model.parameters())
         self.lr_at = multistep_lr(cfg.TRAIN.lr, cfg.TRAIN.lr_step, cfg.TRAIN.lr_factor)
-        self._train_step, _ = make_posenet_steps(self.model, self.optimizer)
+        self._train_step, _ = make_posenet_steps(self.model, self.optimizer, self.mesh)
         self.state = TrainState(self.model, self.optimizer)
         self.train_log: List[float] = []
 
     def train_epoch(self, epoch: int) -> float:
         lr = self.lr_at(epoch)
-        gen = _epoch_generator(self.seed, epoch, self.device)
+        gen = _epoch_generator(self.seed, epoch, self.device, self.mesh)
         losses = []
         for joint_img, joint_cam, valid in self.loader:
             batch = {"pose2d": joint_img.reshape(len(joint_img), -1),
@@ -420,8 +498,11 @@ class LiftTrainer(_Base):
         return mean
 
     def save(self, epoch: int, is_best: bool = False) -> None:
-        save_checkpoint(self.cfg.checkpoint_dir, epoch, self.model, self.optimizer,
-                        step=self.state.step, train_log=self.train_log, is_best=is_best)
+        if self.primary:
+            save_checkpoint(self.cfg.checkpoint_dir, epoch, self.model, self.optimizer,
+                            step=self.state.step, train_log=self.train_log,
+                            is_best=is_best)
+        self._saved()
 
 
 class LiftTester(_Base):
@@ -436,7 +517,7 @@ class LiftTester(_Base):
                                    debug=debug, device=self.device)
             dataset = built[0] if built else None
         self.dataset = dataset
-        self.model = (_posenet(dataset.joint_num, self.seed, self.device)
+        self.model = (_posenet(dataset.joint_num, self.seed, self.device, self.mesh)
                       if dataset is not None else None)
         if load_path and self.model is not None:
             self.model.load_state_dict(load_checkpoint(
@@ -448,12 +529,10 @@ class LiftTester(_Base):
         ds = self.dataset
         if ds is None:
             return {}
-        model = state.model if state is not None else self.model
+        state = state if state is not None else TrainState(self.model, None)
+        _, eval_step = make_posenet_steps(state.model, state.optimizer, self.mesh)
         loader = BatchLoader(ds, self.cfg.TEST.batch_size, shuffle=False,
                              num_workers=self.cfg.DATASET.workers, device=self.device)
-        preds = []
-        with torch.inference_mode():
-            for joint_img, _joint_cam, _valid in loader:
-                pred = model(joint_img.reshape(len(joint_img), -1))
-                preds.append(pred.reshape(len(joint_img), -1, 3).float().cpu().numpy())
+        preds = [eval_step(state, joint_img.reshape(len(joint_img), -1)).float().cpu().numpy()
+                 for joint_img, _joint_cam, _valid in loader]
         return ds.evaluate_joint({"joint_coord": np.concatenate(preds)})

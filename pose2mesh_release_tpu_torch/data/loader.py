@@ -13,6 +13,10 @@ event, and the batch's tensors are marked as used on the consumer's stream,
 so no batch is read before its copy and its augmentation are done and no
 call synchronizes the card.  Per-host sharding for multi-host runs: each
 host iterates its own contiguous index shard (`host_id` / `host_count`).
+On a data-parallel mesh every data rank draws the same epoch order (the
+same seed) and takes its rows of each global batch (`data_rank` of
+`data_ranks`: rows [d B/D, (d+1) B/D)), so the ranks' batches together are
+the single-device batch.
 """
 from __future__ import annotations
 
@@ -79,6 +83,9 @@ class BatchLoader:
     drop_last: True for training (static shapes).
     device: where the batches' tensors live (default "cuda"; raises without
     CUDA unless "cpu").
+    data_rank, data_ranks: this rank's rows of each batch of `batch_size`
+    (global) rows; with data_ranks > 1 every batch must be whole (drop_last)
+    and split evenly.
     """
 
     def __init__(
@@ -94,7 +101,12 @@ class BatchLoader:
         host_id: int = 0,
         host_count: int = 1,
         device: str | torch.device | None = "cuda",
+        data_rank: int = 0,
+        data_ranks: int = 1,
     ):
+        if data_ranks > 1 and (not drop_last or batch_size % data_ranks):
+            raise ValueError(f"a batch of {batch_size} split over {data_ranks} data ranks "
+                             f"needs drop_last and a multiple of {data_ranks}")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.batch_size = batch_size
@@ -105,6 +117,8 @@ class BatchLoader:
         self.rng = np.random.default_rng(seed)
         self.host_id = host_id
         self.host_count = host_count
+        self.data_rank = data_rank
+        self.data_ranks = data_ranks
 
     def _epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -142,6 +156,8 @@ class BatchLoader:
                      else contextlib.nullcontext()):
                 for b in range(nb):
                     batch_idx = indices[b * self.batch_size:(b + 1) * self.batch_size]
+                    per = self.batch_size // self.data_ranks
+                    batch_idx = batch_idx[self.data_rank * per:(self.data_rank + 1) * per]
                     if fused:  # vectorized whole-batch path (data/pipeline.py)
                         batch = self.dataset.get_batch(batch_idx, device=dev)
                     else:

@@ -9,8 +9,8 @@ MANO_BLOCKS.  Both: levels above 768 vertices banded (`dense_threshold`
 BatchNorm folded into the MeshNet convs.  The weights are random, drawn
 from a seeded generator, with non-identity BatchNorm statistics so the
 fold does real work.  flat_impl and fused pick MeshNet's band-conv kernels
-(`models.meshnet`); `on_path` gives the same artifact and weights on
-another path.  Used by chip_smoke.py and tools/profile_forward.py.
+(`models.meshnet`); `on_path` gives the same artifact, weights and mesh
+on another path.  Used by chip_smoke.py and tools/profile_forward.py.
 """
 from __future__ import annotations
 
@@ -122,13 +122,14 @@ def mano_deploy_forward(*, dtype: torch.dtype = torch.bfloat16,
 def on_path(d: DeployForward, *, flat_impl: str = "group",
             fused: bool = True) -> DeployForward:
     """`d` with MeshNet's band convs on another path: a model built for that
-    path and loaded with d.model's weights, on the same artifact."""
+    path and loaded with d.model's weights, on the same artifact and mesh."""
     dev = d.art.vertex_gather.device
     model = Pose2Mesh(d.model.num_joint, d.art.mesh_ops[-1].num_vertices,
                       blocks=d.model.pose2mesh.blocks,
                       posenet_hidden=d.model.pose_lifter.w1.out_features,
                       dtype=d.model.pose2mesh.dtype, flat_impl=flat_impl, fused=fused,
-                      device=dev, generator=torch.Generator().manual_seed(0))
+                      device=dev, generator=torch.Generator().manual_seed(0),
+                      mesh=d.model.mesh)
     model.load_state_dict(d.model.state_dict())
     return replace(d, model=model, eval_step=make_eval_step(
-        model, d.j_regressor, device=dev))
+        model, d.j_regressor, device=dev, mesh=d.model.mesh))

@@ -1,7 +1,8 @@
 """Device selection for the port's entry points.
 
 Every entry point takes `device=`, defaulting to "cuda".  Asking for CUDA
-on a machine without it raises: nothing silently runs on the CPU.  Pass
+on a machine without it, or for a card it does not have, raises: nothing
+silently runs on the CPU or shares another card.  Pass
 device="cpu" to run the plain PyTorch versions of the kernels on the CPU.
 """
 from __future__ import annotations
@@ -19,6 +20,10 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise ValueError(f"{dev}: this machine has {torch.cuda.device_count()} CUDA "
+                         f"device(s)")
     return dev
 
 

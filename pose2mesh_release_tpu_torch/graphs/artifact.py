@@ -61,6 +61,10 @@ class LevelOperator:
         With strip_h > 0 also the strip form: `strip_val` (nt*T, W) with
         strip_val[r, j] = L[r, strip_off[r // strip_h] + j]; band_bw is the
         scalar bandwidth max |r - c|.
+    kind == "halo": one graph rank's slab of a band level
+        (`parallel.sharding.shard_artifact`): `band_val` is (2*band_k+1,
+        nt_l + 2*band_k, T, T), the rank's nt_l row tiles between band_k
+        zero tiles a side; num_vertices is the whole level's.
     kind == "bcsr": `blk_col[t, b]` is the column tile of the b-th nonzero
         block of row tile t, `blk_val` (nt, maxb, T, T) its values (padding
         blocks are zero and point at column tile 0).
@@ -86,6 +90,8 @@ class LevelOperator:
     def padded_vertices(self) -> int:
         if self.kind == "band":
             return int(self.band_val.shape[1]) * self.block_size
+        if self.kind == "halo":  # this rank's rows
+            return int(self.band_val.shape[1] - 2 * self.band_k) * self.block_size
         return self.num_vertices
 
     def to(self, device, dtype: Optional[torch.dtype] = None) -> "LevelOperator":

@@ -40,6 +40,22 @@ count.
   that the JAX package sends through `fused_cheby_project` (in eval, the first
   conv of each band block) take its unfused form.
 
+On a mesh (`mesh`, set by `Pose2Mesh.use_mesh`), the JAX package's
+spmd_mesh: x holds this data rank's rows of the batch, and every BatchNorm
+takes its statistics over the global batch (`posenet.bn_affine`).  With a
+graph axis > 1 the band levels of kind "halo" (`parallel.sharding.
+shard_artifact`) hold this graph rank's rows, padded to the level's tile
+count over the axis; dense levels (and band levels too small to split) are
+replicated on the graph ranks.  On a halo level each conv is the JAX halo
+branch: the basis through `parallel.halo.halo_banded_hop`, stacked as
+`chebyshev_stack` stacks it, projected by `linear`; in the training form its
+pad rows are zeroed and its BatchNorm (`masked_batch_norm`) sums the rows of
+every rank of the world over the real row count.  No fold chain and no fused
+kernel there, as in the JAX package.  Level transitions: out of a halo
+level `collectives.gather_rows` (the upsample gathers on the replicated
+tensor), into one the padded replicated rows through `scatter_rows`; the
+mesh output is gathered once at the end and its pad rows dropped.
+
 Parameters follow the reference's state dict: `cl.N` (Linear over the
 fin-major Chebyshev stack, weight (fout, fin*K)), `bn.N` and `fc`.
 """
@@ -61,10 +77,13 @@ from ..ops.fused_cheby_train import (
 )
 from ..ops.strip_cheby import strip_cheby_conv, strip_mode
 from ..ops.window_cheby import window_cat, window_cheby_conv
+from ..parallel.audit import FINAL_ROWS, LEVEL_ENTRY, LEVEL_TRANSITION
+from ..parallel.collectives import gather_rows, scatter_rows
+from ..parallel.halo import global_rows, halo_banded_hop, row_mask
 from .posenet import bn_affine, linear
 
 __all__ = ["MeshNet", "channel_interp_matrix", "flat_route", "FLAT_IMPLS",
-           "SMPL_BLOCKS", "MANO_BLOCKS",
+           "masked_batch_norm", "SMPL_BLOCKS", "MANO_BLOCKS",
            "extract_mesh"]
 
 # Per-block channel schedules (reference meshnet.py:23-33).
@@ -118,6 +137,7 @@ class MeshNet(nn.Module):
         self.K = K
         self.dtype = dtype
         self.inference_fused = inference_fused
+        self.mesh = None
         self.cl = nn.ModuleList(
             nn.Linear(c[li] * K, c[li + 1])
             for c in self.blocks for li in range(len(c) - 1))
@@ -243,6 +263,7 @@ class MeshNet(nn.Module):
         B = x.shape[0]
         x = x.transpose(0, 1)  # (J, B, C_in): vertex-major throughout
         ci = 0
+        split = False  # whether x holds this graph rank's rows of a halo level
         for i, chans in enumerate(self.blocks):
             op = ops[i]
             band = op.kind == "band"
@@ -253,12 +274,18 @@ class MeshNet(nn.Module):
             if band and x.shape[0] != op.padded_vertices:
                 # band level straight after the FC: pad rows once
                 x = F.pad(x, (0, 0, 0, 0, 0, op.padded_vertices - x.shape[0]))
+            if op.kind == "halo" and not split:
+                x, split = self._split(op, x), True
             input_x = x
             has_skip = 0 < i < n_blocks - 1
             for li in range(len(chans) - 1):
                 final = i == n_blocks - 1 and li == len(chans) - 2
                 lin = self.cl[ci]
                 ci += 1
+                if op.kind == "halo":
+                    x = linear(self._halo_stack(op, x), lin, self.dtype)
+                    x = x if final else torch.relu(x)
+                    continue
                 if not band:
                     x = self._dense_conv(op, x, lin, relu=not final)
                     continue
@@ -280,13 +307,59 @@ class MeshNet(nn.Module):
                     x = self._skip(x, input_x)
                 if i < n_blocks - 2:
                     # x2 nearest vertex upsample: a precomputed gather
+                    if split:
+                        x, split = self._gather(x, LEVEL_TRANSITION), False
                     up = art.up_idx[n_mesh - i - 1]
                     if ops[i + 1].kind == "band":
                         up = F.pad(up, (0, ops[i + 1].padded_vertices - up.shape[0]))
                     x = x.index_select(0, up)
+        if split:
+            x = self._gather(x, FINAL_ROWS)
         x = x[:art.mesh_ops[0].num_vertices]
         # (V, B, 3) -> (B, V, 3); coordinates leave the net in float32
         return x.transpose(0, 1).float()
+
+    # ---- the graph axis ---------------------------------------------------
+
+    def _split(self, op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
+        """The replicated (V, B, F) rows entering halo level `op`, zero-padded
+        to the level's rows over the graph axis: this rank's share."""
+        x = F.pad(x, (0, 0, 0, 0, 0, global_rows(op, self.mesh.graph) - x.shape[0]))
+        return scatter_rows(x, self.mesh, "graph", site=LEVEL_ENTRY)
+
+    def _gather(self, x: torch.Tensor, site: str) -> torch.Tensor:
+        return gather_rows(x, self.mesh, "graph", site=site)
+
+    def _halo_stack(self, op: LevelOperator, x: torch.Tensor) -> torch.Tensor:
+        """The fin-major Chebyshev stack [x, Lx, 2L(Lx) - x] of this rank's
+        rows, each hop a halo hop."""
+        x = x.to(self.dtype)
+        z1 = halo_banded_hop(op, x, self.mesh)
+        z2 = 2.0 * halo_banded_hop(op, z1, self.mesh) - x
+        return torch.stack([x, z1, z2], dim=-1).reshape(x.shape[:-1] + (3 * x.shape[-1],))
+
+    def _halo_block(self, op: LevelOperator, x, convs, bns, train: bool):
+        """One block's convs on a halo level: projection, pad rows zeroed,
+        masked BatchNorm and ReLU (none after the network's last conv)."""
+        mask = row_mask(op, self.mesh.graph_rank, x.device)
+        for lin, bn in zip(convs, bns):
+            y = torch.where(mask, linear(self._halo_stack(op, x), lin, self.dtype), 0.0)
+            x = y if bn is None else torch.relu(
+                masked_batch_norm(y, bn, train, op.num_vertices, mask, self.mesh))
+        return x
+
+    def graph_split_parameters(self, art: PyramidArtifact):
+        """The parameters of the convs on `art`'s halo levels and of their
+        BatchNorms: each graph rank holds their gradient for its rows only."""
+        ops, out, ci = self._ops(art), [], 0
+        bns = list(self.bn) if hasattr(self, "bn") else []
+        for op, chans in zip(ops, self.blocks):
+            for c in range(ci, ci + len(chans) - 1):
+                if op.kind == "halo":
+                    out += list(self.cl[c].parameters())
+                    out += list(bns[c].parameters()) if c < len(bns) else []
+            ci += len(chans) - 1
+        return out
 
     # ---- training form --------------------------------------------------
 
@@ -308,7 +381,8 @@ class MeshNet(nn.Module):
         if train and sums is None:
             yf = y.float()
             sums = (yf.sum((0, 1)), (yf * yf).sum((0, 1)))
-        return bn_affine(bn, sums, y.shape[0] * y.shape[1], train)
+        data = self.mesh.data if self.mesh is not None else 1
+        return bn_affine(bn, sums, y.shape[0] * y.shape[1] * data, train, self.mesh)
 
     def _band_block(self, op: LevelOperator, x, convs, bns, train: bool):
         """One block's convs on a band level, as the JAX fold chain: a conv
@@ -345,12 +419,17 @@ class MeshNet(nn.Module):
         B = x.shape[0]
         x = x.transpose(0, 1)  # (J, B, C_in): vertex-major throughout
         ci = 0
+        split = False  # whether x holds this graph rank's rows of a halo level
         for i, chans in enumerate(self.blocks):
             op, n = ops[i], len(chans) - 1
             convs, block_bns = self.cl[ci:ci + n], bns[ci:ci + n]
             ci += n
+            if op.kind == "halo" and not split:
+                x, split = self._split(op, x), True
             input_x = x
-            if op.kind == "band":
+            if op.kind == "halo":
+                x = self._halo_block(op, x, convs, block_bns, train)
+            elif op.kind == "band":
                 x = self._band_block(op, x, convs, block_bns, train)
             else:
                 for lin, bn in zip(convs, block_bns):
@@ -363,9 +442,27 @@ class MeshNet(nn.Module):
             elif i < n_blocks - 1:
                 x = self._skip(x, input_x)
                 if i < n_blocks - 2:
+                    if split:
+                        x, split = self._gather(x, LEVEL_TRANSITION), False
                     x = x.index_select(0, art.up_idx[n_mesh - i - 1])
+        if split:
+            x = self._gather(x, FINAL_ROWS)[:art.mesh_ops[0].num_vertices]
         # (V, B, 3) -> (B, V, 3); coordinates leave the net in float32
         return x.transpose(0, 1).float()
+
+
+def masked_batch_norm(y: torch.Tensor, bn: nn.BatchNorm1d, train: bool, real_rows: int,
+                      mask: torch.Tensor, mesh) -> torch.Tensor:
+    """BatchNorm of this graph rank's (rows, B, F) share of a halo level
+    whose pad rows (mask False) are zero: in training the sums over every
+    rank of the world, divided by the real rows of the global batch
+    (real_rows B D), as the JAX `_MaskedBatchNorm` divides on the whole
+    padded tensor; pad rows zero again after.  Float32, cast back."""
+    yf = y.float()
+    sums = (yf.sum((0, 1)), (yf * yf).sum((0, 1))) if train else None
+    scale, shift = bn_affine(bn, sums, real_rows * y.shape[1] * mesh.data, train, mesh,
+                             "world")
+    return torch.where(mask, (yf * scale + shift).to(y.dtype), 0.0)
 
 
 FLAT_IMPLS = ("group", "strip", "window")

@@ -8,7 +8,8 @@ folded into its convs (load a state dict passed through
 `inference_fused=False` it is the training form and `forward(..., train=True,
 generator=g)` runs the training forward (batch statistics, dropout drawn
 from g).  `flat_impl` and `fused` pick MeshNet's band-conv kernels (see
-`models.meshnet`).
+`models.meshnet`).  `mesh` (or `use_mesh`), the JAX package's spmd_mesh:
+the ('data', 'graph') mesh the cascade runs on, None on one device.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ class Pose2Mesh(nn.Module):
 
     coarse_vertices: art.mesh_ops[-1].num_vertices (the FC output rows).
     dropout: PoseNet's training dropout rate.
-    generator: seeds the parameter init (a fixed seed when None)."""
+    generator: seeds the parameter init (a fixed seed when None).
+    mesh: a `parallel.mesh.Mesh` (None: one device)."""
 
     def __init__(self, num_joint: int, coarse_vertices: int, *, mano: bool = False,
                  posenet_hidden: int = 4096,
@@ -41,7 +43,7 @@ class Pose2Mesh(nn.Module):
                  inference_fused: bool = True, flat_impl: str = "group",
                  fused: bool = True, dropout: float = 0.5,
                  device: str | torch.device | None = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         self.num_joint = num_joint
@@ -52,8 +54,15 @@ class Pose2Mesh(nn.Module):
             blocks=blocks or (MANO_BLOCKS if mano else SMPL_BLOCKS), dtype=dtype,
             inference_fused=inference_fused, flat_impl=flat_impl, fused=fused)
         self.reset_parameters(generator)
+        self.use_mesh(mesh)
         self.to(dev)
         self.eval()
+
+    def use_mesh(self, mesh) -> "Pose2Mesh":
+        """Run on `mesh` (None: one device): PoseNet and MeshNet take their
+        BatchNorm statistics over it, MeshNet splits its halo levels."""
+        self.mesh = self.pose_lifter.mesh = self.pose2mesh.mesh = mesh
+        return self
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

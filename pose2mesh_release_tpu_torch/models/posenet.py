@@ -11,8 +11,12 @@ BatchNorm runs in float32 and casts back: at eval from its running
 statistics; in training from the batch's (mean, biased variance E[x^2] -
 E[x]^2 clamped at 0, as flax computes them), which also move the running
 statistics with momentum 0.1 (flax's 0.9), storing the biased variance as
-flax does.  Dropout is the identity at eval; in training its keep mask is
-drawn from the `torch.Generator` the caller passes.
+flax does.  On a mesh (`mesh`, set by `Pose2Mesh.use_mesh`) the batch is
+the global one: `bn_affine`, where every BatchNorm of the port takes its
+statistics, sums them over the data ranks (as the JAX package's sharded
+step computes them over the whole batch).  Dropout is the identity at eval;
+in training its keep mask is drawn from the `torch.Generator` the caller
+passes.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce_sum
+
 __all__ = ["PoseNet", "batch_norm", "bn_affine", "dropout", "linear"]
 
 
@@ -31,11 +37,16 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 
 def bn_affine(bn: nn.BatchNorm1d, sums: Tuple[torch.Tensor, torch.Tensor], n: int,
-              train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+              train: bool, mesh=None, axis: str = "data"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (scale, shift) with bn(y) = y*scale + shift.  In training
-    the statistics come from the float32 sums (sum y, sum y^2) over n rows and
-    move the running statistics; at eval the running ones are used."""
+    the statistics come from the float32 sums (sum y, sum y^2), on a mesh
+    summed over `axis`, over n rows in all, and move the running statistics;
+    at eval the running ones are used."""
     if train:
+        if mesh is not None:
+            sums = all_reduce_sum(torch.stack(sums), mesh, axis,
+                                  site="batch-norm statistics").unbind(0)
         mean = sums[0] / n
         var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
         with torch.no_grad():
@@ -47,14 +58,16 @@ def bn_affine(bn: nn.BatchNorm1d, sums: Tuple[torch.Tensor, torch.Tensor], n: in
     return scale, bn.bias - mean * scale
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor:
-    """BatchNorm over the rows of x (B, C), in float32, cast back."""
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool, mesh=None) -> torch.Tensor:
+    """BatchNorm over the rows of x (B, C), in float32, cast back; on a mesh
+    over the rows of every data rank."""
     xf = x.float()
     if not train:
         y = F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                          training=False, eps=bn.eps)
         return y.to(x.dtype)
-    scale, shift = bn_affine(bn, (xf.sum(0), (xf * xf).sum(0)), xf.shape[0], True)
+    n = xf.shape[0] * (mesh.data if mesh is not None else 1)
+    scale, shift = bn_affine(bn, (xf.sum(0), (xf * xf).sum(0)), n, True, mesh)
     return (xf * scale + shift).to(x.dtype)
 
 
@@ -80,10 +93,10 @@ class ResidualStage(nn.Module):
         self.w2 = nn.Linear(hidden, hidden)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool = False,
-                rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                rate: float = 0.0, generator: Optional[torch.Generator] = None,
+                mesh=None) -> torch.Tensor:
         def pre(v, bn):
-            v = torch.relu(batch_norm(v, bn, train))
+            v = torch.relu(batch_norm(v, bn, train, mesh))
             return dropout(v, rate, generator) if train else v
         y = linear(pre(x, self.batch_norm1), self.w1, dtype)
         y = linear(pre(y, self.batch_norm2), self.w2, dtype)
@@ -92,13 +105,15 @@ class ResidualStage(nn.Module):
 
 class PoseNet(nn.Module):
     """2D joints (B, J*2) -> 3D joints (B, J*3) float32, mm.  `dropout` is the
-    training dropout rate (the reference's 0.5)."""
+    training dropout rate (the reference's 0.5); `mesh` the mesh its batch
+    is split over (None: one device)."""
 
     def __init__(self, num_joint: int, hidden: int = 4096, num_stages: int = 2,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.5):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
+        self.mesh = None
         self.w1 = nn.Linear(num_joint * 2, hidden)
         self.linear_stages = nn.ModuleList(
             ResidualStage(hidden) for _ in range(num_stages))
@@ -121,5 +136,5 @@ class PoseNet(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = linear(x2d.reshape(x2d.shape[0], -1), self.w1, self.dtype)
         for stage in self.linear_stages:
-            y = stage(y, self.dtype, train, self.dropout, generator)
+            y = stage(y, self.dtype, train, self.dropout, generator, self.mesh)
         return linear(y, self.w2, self.dtype).float()

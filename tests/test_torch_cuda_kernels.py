@@ -19,7 +19,10 @@ hops, the last with the ReLU and the skip) and the window conv (the strip
 conv's basis order at T-row tiles) also run their launches apart through
 their launchers, which must give the whole call's bits; the window conv at
 nt = 2k+1 makes every row tile an edge tile of the window form; the strip
-conv runs at strip tiles of 64, 128 and 256 rows.
+conv runs at strip tiles of 64, 128 and 256 rows.  The halo hop
+(`parallel.halo.halo_banded_hop`: K4 on each rank's halo-extended slab) runs
+on 2 gloo ranks on cuda:0 at the hop's odd shapes, forward and VJP against
+the one-device K4 (float32 within 1e-6).
 
 Needs a CUDA device; skips elsewhere.  Run on the card, without the JAX
 test configuration:
@@ -50,6 +53,9 @@ from pose2mesh_release_tpu_torch.ops import fused_cheby_train as ft
 from pose2mesh_release_tpu_torch.ops import hop as hp
 from pose2mesh_release_tpu_torch.ops import strip_cheby as sc
 from pose2mesh_release_tpu_torch.ops import window_cheby as wc
+from pose2mesh_release_tpu_torch.parallel.distributed import spawn_ranks
+
+import torch_mesh_helpers
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -767,3 +773,45 @@ def test_strip_window_hop_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x2 = torch.zeros(2048, 2, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         sc.strip_cheby_conv(S2, off2.to(cuda), 16, x2, W, b, mode="basis", relu=True)
+
+
+# the halo hop on 2 graph ranks: (k, V, B, F) of test_banded_hop_kernel's
+# random bands, both dtypes; one spawn of 2 gloo ranks on cuda:0 runs them all
+HALO_CASES = [(k, V, B, F, dt) for k, V, B, F in [(1, 900, 3, 16), (2, 900, 3, 48),
+                                                  (2, 1849, 5, 32), (2, 1000, 3, 16)]
+              for dt in ("bfloat16", "float32")]
+
+
+@pytest.fixture(scope="module")
+def halo_runs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cases = []
+    for k, V, B, F, dt in HALO_CASES:
+        rng = np.random.default_rng(V + B)
+        x = (rng.standard_normal((V, B, F)) * 0.5).astype(np.float32)
+        g = rng.standard_normal((V, B, F)).astype(np.float32)
+        cases.append((band_level(k, V=V, seed=60 + k).band_val.numpy(), x, g, dt))
+    ranks = spawn_ranks(torch_mesh_helpers.halo_hops, 2, (cases, "cuda:0"), timeout=300)
+    return cases, ranks
+
+
+@pytest.mark.parametrize("case", range(len(HALO_CASES)),
+                         ids=[f"k{k}-V{V}-B{B}-F{F}-{dt}" for k, V, B, F, dt in HALO_CASES])
+def test_halo_hop_on_two_ranks_matches_k4(cuda, halo_runs, case):
+    """2 graph ranks' halo hop (K4 on each slab: 3 launches a rank, the hop,
+    its VJP, the hop again to equal bits) == the one-device K4 on the whole
+    tensor, forward and VJP."""
+    cases, ranks = halo_runs
+    band, x, g, dt = cases[case]
+    dtype, V = getattr(torch, dt), x.shape[0]
+    band = torch.from_numpy(band).to(cuda, dtype)
+    want = hp.hop(band, torch.from_numpy(x).to(cuda, dtype))
+    want_dx = hp.hop(band, torch.from_numpy(g).to(cuda, dtype))
+    got = [r[case] for r in ranks]
+    y = torch.from_numpy(np.concatenate([r["y"] for r in got])[:V])
+    dx = torch.from_numpy(np.concatenate([r["dx"] for r in got])[:V])
+    tolerance = 1e-6 if dtype == torch.float32 else TOL
+    assert rel_l2(y, want.cpu()) <= tolerance
+    assert rel_l2(dx, want_dx.cpu()) <= tolerance
+    assert all(r["launches"] == 3 and r["equal_bits"] for r in got)

@@ -38,68 +38,14 @@ from pose2mesh_release_tpu_torch.graphs.build import build_pyramid
 from pose2mesh_release_tpu_torch.models.pose2mesh import Pose2Mesh
 from pose2mesh_release_tpu_torch.parity.from_jax import posenet_state_dict, state_dict_from_flax
 
+from pose2mesh_release_tpu_torch.parallel.mesh import Mesh
+
 from test_torch_models import to_numpy
 from test_torch_train import _NoDropout
+from torch_mesh_helpers import J, TEST_BLOCKS, LiftDataset, TinyDataset, engine_cfg
 
-J = 7
 V = 770
 SKEL = ((0, 1), (1, 2), (2, 3), (3, 4), (1, 5), (5, 6))
-TEST_BLOCKS = ((5, 8, 8), (8, 16), (16, 16), (16, 16), (16, 8, 3))
-
-
-class TinyMeshModel:
-    def __init__(self, faces, vertex_num):
-        self.face = faces
-        self.vertex_num = vertex_num
-
-
-class TinyDataset:
-    """Duck-typed mesh dataset (the engine's contract), numpy per sample;
-    one instance per package (`graph` is that package's artifact)."""
-    name = "Tiny"
-
-    def __init__(self, n, art, faces, joint_num=J, seed=0):
-        rng = np.random.default_rng(seed)
-        nv = len(np.unique(faces))
-        self.n, self.graph, self.joint_num = n, art, joint_num
-        self.mesh_model = TinyMeshModel(faces, nv)
-        self.pose2d = rng.standard_normal((n, joint_num, 2)).astype(np.float32)
-        self.mesh = (rng.standard_normal((n, nv, 3)) * 0.05).astype(np.float32)
-        self.pose3d = (rng.standard_normal((n, joint_num, 3)) * 50).astype(np.float32)
-        reg = rng.random((joint_num, nv)).astype(np.float32) ** 4
-        self.reg = reg / reg.sum(1, keepdims=True)
-
-    def __len__(self):
-        return self.n
-
-    def __getitem__(self, i):
-        inputs = {"pose2d": self.pose2d[i]}
-        targets = {"mesh": self.mesh[i], "lift_pose3d": self.pose3d[i],
-                   "reg_pose3d": self.pose3d[i]}
-        meta = {"mesh_valid": np.ones((1, 1), np.float32),
-                "lift_pose3d_valid": np.ones((self.joint_num, 1), np.float32),
-                "reg_pose3d_valid": np.ones((self.joint_num, 1), np.float32)}
-        return inputs, targets, meta
-
-    def target_regressor(self):
-        return self.reg
-
-    def compute_both_err(self, pm, tm, pj, tj):
-        return float(np.abs(pj - tj).mean()), float(np.abs(pm - tm).mean())
-
-    def evaluate(self, outs):
-        return {"mpvpe": float(np.abs(outs["mesh_coord"] - outs["mesh_coord_target"]).mean())}
-
-
-class LiftDataset(TinyDataset):
-    """The lifter's samples: (2D pose, 3D pose, validity)."""
-
-    def __getitem__(self, i):
-        return self.pose2d[i], self.pose3d[i], np.ones((self.joint_num, 1), np.float32)
-
-    def evaluate_joint(self, outs):
-        pred = np.asarray(outs["joint_coord"])
-        return {"mpjpe": float(np.sqrt(((pred - self.pose3d[:len(pred)]) ** 2).sum(-1)).mean())}
 
 
 @pytest.fixture(scope="module")
@@ -112,17 +58,7 @@ def tiny():
 
 
 def _cfg(tmpdir, make=default_config):
-    cfg = make()
-    cfg.TRAIN.batch_size = 4
-    cfg.TRAIN.end_epoch = 2
-    cfg.TRAIN.print_freq = 100
-    cfg.TRAIN.edge_loss_start = 0
-    cfg.TEST.batch_size = 4
-    cfg.DATASET.workers = 1
-    cfg.TPU.compute_dtype = "f32"
-    cfg.MODEL.posenet_hidden = 32
-    cfg.output_dir = str(tmpdir)
-    return cfg
+    return engine_cfg(make, tmpdir)
 
 
 def _port_cascade(art_t, seed=0, dropout=0.0):
@@ -368,8 +304,10 @@ def test_lift_trainer_and_tester_match_jax(tmp_path, monkeypatch):
 
 def test_refusals(tiny, tmp_path, monkeypatch):
     """A JAX .ckpt raises (naming the converter); without CUDA the default
-    device raises; on a CUDA request (CUDA reported available) multi-device
-    and use_pallas false raise before any work on the card, while f32 on a
+    device raises; a mesh larger than the processes running raises (naming
+    torchrun), as does steps_per_dispatch > 1 on a mesh; on a CUDA request
+    (CUDA reported available) a card index beyond the device count and
+    use_pallas false raise before any work on the card, while f32 on a
     graph with band levels gets past the checks to the first tensor sent to
     the card on every path: the training form (Trainer, training-form
     Tester), the group deploy path (the deploy Tester), the unfused training
@@ -412,11 +350,22 @@ def test_refusals(tiny, tmp_path, monkeypatch):
               (tester, {"flat_impl": "strip"}), (tester, {"flat_impl": "window"}))
     for make, path in others:
         make(_cfg(tmp_path), "cpu", **path)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    # a mesh larger than the processes running; steps_per_dispatch > 1 on a
+    # mesh (a 2 x 1 mesh stands in for the one a launcher's processes build)
     cfg = _cfg(tmp_path)
     cfg.TPU.data_axis = 2
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        build(cfg, "cuda")
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        build(cfg, "cpu")
+    cfg.TPU.steps_per_dispatch = 2
+    with monkeypatch.context() as mp:
+        mp.setattr(engine, "_mesh_for", lambda cfg, mesh: Mesh(2, 1, 0, "gloo", {}, {}))
+        with pytest.raises(ValueError, match="steps_per_dispatch > 1 requires a 1x1 mesh"):
+            build(cfg, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    # a card the machine does not have
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="cuda:1: this machine has 1 CUDA device"):
+        build(_cfg(tmp_path), "cuda:1")
     cfg = _cfg(tmp_path)
     cfg.TPU.use_pallas = False
     with pytest.raises(ValueError, match="use_pallas"):
