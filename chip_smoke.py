@@ -170,9 +170,32 @@ Phases (any failure exits non-zero):
      against phase 14's 1 x 1 deploy Tester (every metric 1e-4); (e) NCCL at
      world size 1 (all_reduce_sum, the gradient sync), and the (2, 1) step
      across two cards where the machine has them;
+  16. the JAX package's last modules: (a) the published-checkpoint runbook:
+     the port's RefCascade (parity/torch_ref.py) over phase 3's pyramid with
+     seeded weights, saved as a reference-layout final.pth.tar (`module.`
+     prefixes), through load_checkpoint and the deploy forward (group path,
+     8 + 2 a forward) in bf16 and float32, 4 batches of 64, against
+     RefCascade's float32 forward on the card (mesh, regressed and lifted
+     joints rel_l2 2e-2 / 1e-4); a 19-joint one over the datasets' graph
+     through cli.test on phase 12's PW3D files (6 + 2 a forward) against the
+     same evaluation of RefCascade (2e-2 relative); (b) the committed JAX
+     .ckpt fixture (tests/data/jax_ckpt, written by the JAX package) through
+     load_checkpoint: the deploy forward in float32 (1e-4) and bf16 (2e-2)
+     against the JAX eval outputs (3 group + 1 commuted a forward), a
+     Trainer-style resume (optimizer state by optim_state_from_flax) and one
+     float32 RMSprop step (4 K1 + 4 K2) against the JAX package's next step
+     (losses 1e-4; parameters and statistics rtol 1e-3, atol 1e-2 and each
+     one's step rel_l2 1e-2, the biases whose gradient cancels within
+     RMSprop's 10 learning rates);
+     (c) the 3DPW converter on the card and on the CPU over
+     tests/test_data.py's synthetic pickle (integers and strings equal,
+     floats 1e-5) and the port's PW3D on the card's JSON; (d)
+     utils.profiling's pyramid_roofline and, per band level,
+     spmm_roofline's and sparse_conv_roofline's ideal time beside phase 2's
+     K4 and group-conv times;
   then print the MANO kernels' numbers per pass, the data layer's numbers,
   the engine's numbers, the float32 paths' numbers, the multi-device
-  numbers and the kernel table (the bf16 kernels and, named `...[f32]`,
+  numbers, phase 16's numbers and the kernel table (the bf16 kernels and, named `...[f32]`,
   their float32 instances) as one JSON line each, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
@@ -212,6 +235,12 @@ import sys
 import tempfile
 import time
 
+# the card's peak rates (H100 SXM): bf16 dense, the 3xTF32 rate of the
+# float32 instances, HBM3 bytes/s
+from pose2mesh_release_tpu_torch.utils.profiling import (
+    PEAK_3XTF32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES,
+)
+
 KERNEL_TOL = 1e-2
 FORWARD_TOL = 2e-2
 STEP_LOSS_TOL = 2e-2
@@ -220,17 +249,14 @@ BATCH = 64
 REQUESTS = 4
 TRAIN_STEPS = 4
 LR = 1e-3
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 # phase 14, the float32 instances: each against its plain version on the
-# same float32 inputs (relative L2), their bound at the 3xTF32 rate (three
-# TF32 products per float32 product: 495 / 3 TFLOP/s), the float32 forward
+# same float32 inputs (relative L2), their bound at the 3xTF32 rate
+# (PEAK_3XTF32_FLOPS), the float32 forward
 # against the plain float32 forward, the float32 step against the
 # plain-K1/K2 float32 step (loss, gradients), the float32 deploy Tester's
 # metrics against the float32 training-form eval (relative), the demo's
 # mesh on the card against the CPU's (relative L2)
 F32_KERNEL_TOL = 1e-5
-PEAK_3XTF32_FLOPS = 495e12 / 3
 F32_FORWARD_TOL = 1e-4
 F32_STEP_LOSS_TOL = 1e-5
 F32_STEP_GRAD_TOL = 1e-3
@@ -2998,6 +3024,489 @@ def mesh_layer(root: str, card, deploy_result: dict) -> dict:
     return report
 
 
+# phase 16, the JAX package's last modules: (a) the published-checkpoint
+# runbook (the port's RefCascade, a reference-layout .pth.tar, the deploy
+# forward in bf16 and float32 against RefCascade's float32 forward: mesh and
+# joints relative L2; then cli.test on it), (b) the JAX .ckpt fixture served
+# and resumed, (c) the 3DPW converter on the card against the CPU, (d) the
+# rooflines beside phase 2's kernel times
+REF_BATCHES = 4
+REF_TOLS = {"bfloat16": FORWARD_TOL, "float32": F32_FORWARD_TOL}
+JAX_FIXTURE = os.path.join("tests", "data", "jax_ckpt")
+# the fixture's 4 band convs (770 and 385 rows): a deploy forward's, a step's
+FIXTURE_DEPLOY_LAUNCHES = {"fused_cheby_conv": 3, "fused_cheby_conv_commuted": 1}
+FIXTURE_STEP_LAUNCHES = {"fused_cheby_conv_train": 4, "fused_cheby_conv_bwd": 4}
+FIXTURE_STEP_TOLS = {"rtol": 1e-3, "atol": 1e-2, "step_rel_l2": 1e-2}
+# RMSprop's largest step, in learning rates: |g| / sqrt(nu) <= 1 / sqrt(1 - 0.99)
+RMS_BOUND = 1.0 / math.sqrt(1.0 - 0.99)
+CONVERTER_TOL = 1e-5
+
+
+def _randomize_batch_norms(model, generator) -> None:
+    """Random affine and running statistics in every BatchNorm of `model`,
+    so a folded deploy forward does real work."""
+    import torch
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if t.dtype == torch.long or not any(s in name for s in (".bn.", "batch_norm")):
+                continue
+            if name.endswith(("weight", "running_var")):
+                t.copy_(torch.rand(t.shape, generator=generator) + 0.5)
+            else:  # bias, running_mean
+                t.copy_(torch.randn(t.shape, generator=generator) * 0.1)
+
+
+def reference_checkpoint(path: str, joint_num: int, pyr, seed: int):
+    """The port's RefCascade (SMPL_BLOCKS, PoseNet 4096) over `pyr`'s
+    Laplacians with seeded weights, saved at `path` as the reference writes
+    its checkpoints (DataParallel `module.` prefixes); returns the model on
+    the card, float32, at eval."""
+    import torch
+    from pose2mesh_release_tpu_torch.models.meshnet import SMPL_BLOCKS
+    from pose2mesh_release_tpu_torch.parity.torch_ref import RefCascade
+    torch.manual_seed(seed)
+    ref = RefCascade(joint_num, SMPL_BLOCKS, list(pyr.mesh_laplacians) + [pyr.joint_laplacian],
+                     hidden=4096)
+    _randomize_batch_norms(ref, torch.Generator().manual_seed(seed))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"epoch": 10, "model_state_dict": {f"module.{k}": v for k, v in
+                                                  ref.state_dict().items()}}, path)
+    return ref.cuda().eval()
+
+
+class RefEval:
+    """RefCascade as an eval step (eval_loop's `d`): mesh mm in the original
+    vertex order, the regressed joints, the lifted pose."""
+
+    def __init__(self, ref, vertex_slot, j_regressor):
+        import torch
+        self.ref, self.art_compute = ref, None
+        self.slot = torch.as_tensor(vertex_slot, device="cuda")
+        self.jreg = torch.as_tensor(j_regressor, dtype=torch.float32, device="cuda")
+
+    def eval_step(self, _art, pose2d):
+        import torch
+        with torch.no_grad():
+            mesh, pose3d = self.ref(pose2d.float())
+        mesh_mm = mesh.index_select(1, self.slot) * 1000.0
+        return mesh_mm, torch.einsum("jv,bvc->bjc", self.jreg, mesh_mm), pose3d
+
+
+def ref_runbook(root: str, card) -> dict:
+    """Phase 16 (a): a reference-layout final.pth.tar of the port's
+    RefCascade over phase 3's SMPL pyramid (17 H36M joints, dense_threshold
+    768) through the deploy forward (group path, BatchNorm folded at load):
+    bf16 and float32, REF_BATCHES batches of BATCH, exactly 8 group + 2
+    commuted convs a forward, each against RefCascade's float32 forward;
+    then a 19-joint one over the datasets' graph through cli.test on phase
+    12's PW3D files (6 + 2 a forward) against the same evaluation of
+    RefCascade (EVAL_TOL, relative)."""
+    import torch
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.cli import test as cli_test
+    from pose2mesh_release_tpu_torch.core.checkpoint import load_checkpoint
+    from pose2mesh_release_tpu_torch.core.train import make_eval_step
+    from pose2mesh_release_tpu_torch.data import get_dataset_class
+    from pose2mesh_release_tpu_torch.data.joint_sets import HUMAN36
+    from pose2mesh_release_tpu_torch.deploy import DENSE_THRESHOLD, POSENET_HIDDEN
+    from pose2mesh_release_tpu_torch.graphs.artifact import pack_pyramid
+    from pose2mesh_release_tpu_torch.graphs.build import build_pyramid
+    from pose2mesh_release_tpu_torch.models.fold import fold_bn_variables
+    from pose2mesh_release_tpu_torch.models.pose2mesh import Pose2Mesh
+    smpl = SMPL()
+    t0 = time.time()
+    pyr = build_pyramid(smpl.face, joint_num=HUMAN36.joint_num, skeleton=HUMAN36.skeleton,
+                        flip_pairs=HUMAN36.flip_pairs, levels=9,
+                        extra_joint_edges=HUMAN36.extra_edges)
+    art = pack_pyramid(pyr, smpl.face, dense_threshold=DENSE_THRESHOLD, device="cuda")
+    ckpt = os.path.join(root, "reference", "final.pth.tar")
+    ref = reference_checkpoint(ckpt, HUMAN36.joint_num, pyr, seed=16)
+    setup_s = time.time() - t0
+    g = torch.Generator().manual_seed(16)
+    batches = [torch.randn(BATCH, HUMAN36.joint_num, 2, generator=g).cuda()
+               for _ in range(REF_BATCHES)]
+    ref_eval = RefEval(ref, pyr.vertex_slot, smpl.joint_regressor_h36m)
+    want = [ref_eval.eval_step(None, p) for p in batches]
+    torch.cuda.synchronize()
+    ref_ms = cuda_ms(lambda: ref_eval.eval_step(None, batches[0]), 3)
+    t0 = time.perf_counter()
+    sd = load_checkpoint(ckpt, device="cuda")["model_state_dict"]
+    load_s = time.perf_counter() - t0
+    log(f"phase 16 (a): RefCascade (PoseNet 4096, SMPL_BLOCKS) over phase 3's pyramid, "
+        f"final.pth.tar of {os.path.getsize(ckpt) / 2**20:.1f} MiB written and loaded onto "
+        f"the card in {load_s:.3f} s (set-up {setup_s:.1f} s)")
+    report = {"setup_s": setup_s, "load_s": load_s, "ref_ms_per_batch": ref_ms, "forward": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        model = Pose2Mesh(HUMAN36.joint_num, art.mesh_ops[-1].num_vertices,
+                          posenet_hidden=POSENET_HIDDEN, dtype=dtype, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+        model.load_state_dict(fold_bn_variables(sd))
+        step = make_eval_step(model, smpl.joint_regressor_h36m, device="cuda")
+        art_c = art.to("cuda", dtype)
+        step(art_c, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = [step(art_c, p) for p in batches]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != expect(fused_cheby_conv=8 * REF_BATCHES,
+                              fused_cheby_conv_commuted=2 * REF_BATCHES):
+            raise SystemExit(f"phase 16 (a) {name}: launches {launches}")
+        errs = {k: max(rel_l2(o[i], w[i]) for o, w in zip(outs, want))
+                for i, k in enumerate(("mesh", "reg_joints", "lifted_joints"))}
+        ms = cuda_ms(lambda: step(art_c, batches[0]), 3)
+        report["forward"][name] = {"rel_l2": errs, "ms_per_batch": ms,
+                                   "launches_per_forward": {k: v // REF_BATCHES for k, v in
+                                                            launches.items() if v}}
+        log(f"phase 16 (a): reference final.pth.tar through the {name} deploy forward, "
+            f"{REF_BATCHES} batches of {BATCH}: rel_l2 vs RefCascade float32 "
+            f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tolerance {REF_TOLS[name]}); "
+            f"{ms:.3f} ms a batch, RefCascade {ref_ms:.3f} ({card}); launches {launches}")
+        if not all(e <= REF_TOLS[name] for e in errs.values()):
+            raise SystemExit(f"phase 16 (a): the {name} deploy forward disagrees with "
+                             f"RefCascade: {errs}")
+        del model, outs
+    del ref, ref_eval, want
+    torch.cuda.empty_cache()
+
+    # cli.test on a 19-joint reference checkpoint over the datasets' graph
+    ds = get_dataset_class("PW3D")("test", data_dir=os.path.join(root, "PW3D"),
+                                   mesh_model=SMPL(data_dir=root), device="cuda")
+    js = ds.joint_set
+    pyr = build_pyramid(smpl.face, joint_num=js.joint_num, skeleton=js.skeleton,
+                        flip_pairs=js.flip_pairs, levels=ds.levels,
+                        extra_joint_edges=js.extra_edges)
+    ckpt = os.path.join(root, "reference", "pw3d_final.pth.tar")
+    ref = reference_checkpoint(ckpt, js.joint_num, pyr, seed=17)
+    want, _ = eval_loop(ds, RefEval(ref, pyr.vertex_slot, ds.target_regressor()), "cuda")
+    del ref
+    torch.cuda.empty_cache()
+    out = os.path.join(root, "experiment_reference")
+    cfg_path = engine_cfg(os.path.join(root, "test_reference.json"), root, out,
+                          TEST={"deploy": True})
+    reset_launches()
+    with EngineProbe() as probe:
+        got = cli_test.main(["--cfg", cfg_path, "--weights", ckpt, "--device", "cuda"])
+    _check_steps("phase 16 (a) cli.test forwards", probe.eval, DATA_DEPLOY_LAUNCHES,
+                 len(probe.eval))
+    if not probe.eval:
+        raise SystemExit("phase 16 (a): cli.test ran no forward")
+    keys = ("joint_err", "mesh_err", "mpjpe", "pa_mpjpe", "mpvpe")
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in keys}
+    log(f"phase 16 (a): cli.test on a reference pw3d_final.pth.tar (19 joints): "
+        f"{ {k: round(got[k], 4) for k in keys} }, RefCascade's evaluation "
+        f"{ {k: round(want[k], 4) for k in keys} }, relative difference "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tolerance {EVAL_TOL}); eval-step ms "
+        f"{[round(t, 3) for t in probe.eval_ms]}; launches per forward {probe.eval[0]} ({card})")
+    if not all(v <= EVAL_TOL for v in rel.values()):
+        raise SystemExit(f"phase 16 (a): cli.test disagrees with RefCascade: {rel}")
+    report["cli_test"] = {"result": got, "reference": want, "rel_diff": rel,
+                          "eval_ms": probe.eval_ms, "launches_per_forward": probe.eval[0]}
+    return report
+
+
+def read_jax_fixture(path: str, device: str = "cuda") -> dict:
+    """Phase 16 (b)'s inputs: the fixture's config and arrays, its pyramid
+    packed by the port (uv_sphere, the JAX package's packing), the .ckpt's
+    payload on `device` (load_checkpoint, timed)."""
+    import numpy as np
+    from pose2mesh_release_tpu_torch.body.synthetic import uv_sphere
+    from pose2mesh_release_tpu_torch.core.checkpoint import load_checkpoint
+    from pose2mesh_release_tpu_torch.graphs.artifact import pack_pyramid
+    from pose2mesh_release_tpu_torch.graphs.build import build_pyramid
+    arrays = dict(np.load(os.path.join(path, "fixture.npz")))
+    c = json.loads(str(arrays.pop("config")))
+    _, faces = uv_sphere(c["num_vertices"])
+    pyr = build_pyramid(faces, joint_num=c["joint_num"],
+                        skeleton=[tuple(e) for e in c["skeleton"]], levels=c["levels"])
+    art = pack_pyramid(pyr, faces, dense_threshold=c["dense_threshold"], device=device)
+    load_s = []
+    for _ in range(2):  # the first load in a process includes torch.optim's one-time set-up
+        t0 = time.perf_counter()
+        payload = load_checkpoint(os.path.join(path, "checkpoint1.ckpt"), device=device)
+        load_s.append(time.perf_counter() - t0)
+    return {"config": c, "arrays": arrays, "art": art, "payload": payload, "load_s": load_s}
+
+
+def _fixture_model(fx, device, dtype, deploy: bool):
+    import torch
+    from pose2mesh_release_tpu_torch.models.pose2mesh import Pose2Mesh
+    c = fx["config"]
+    return Pose2Mesh(c["joint_num"], fx["art"].mesh_ops[-1].num_vertices,
+                     posenet_hidden=c["posenet_hidden"],
+                     blocks=tuple(tuple(b) for b in c["blocks"]), dtype=dtype,
+                     inference_fused=deploy, dropout=0.0, device=device,
+                     generator=torch.Generator().manual_seed(0))
+
+
+def jax_fixture_forward(fx, dtype, device: str = "cuda") -> dict:
+    """The fixture .ckpt's deploy forward (BatchNorm folded) in `dtype`
+    against the JAX eval outputs: relative L2 per output."""
+    import torch
+    from pose2mesh_release_tpu_torch.core.train import make_eval_step
+    from pose2mesh_release_tpu_torch.models.fold import fold_bn_variables
+    a = fx["arrays"]
+    model = _fixture_model(fx, device, dtype, deploy=True)
+    model.load_state_dict(fold_bn_variables(fx["payload"]["model_state_dict"]))
+    out = make_eval_step(model, a["jreg"], device=device)(
+        fx["art"].to(device, dtype), torch.from_numpy(a["eval/pose2d"]).to(device))
+    return {k: rel_l2(t.cpu(), torch.from_numpy(a[f"eval/{k}"]))
+            for k, t in zip(("mesh_mm", "reg_pose", "pose3d"), out)}
+
+
+def hold_step(got: dict, want: dict, before: dict, lr: float, cancelling: set,
+              rtol: float, atol: float, step_rel_l2: float) -> list:
+    """A state dict after a step (`got`) against another's (`want`), both
+    from `before`: every entry within (rtol, atol) and its step (the change
+    from `before`) within step_rel_l2 relative L2 of the other's step, except
+    the `cancelling` biases (exact gradient zero), which each side must have
+    moved by at most RMS_BOUND learning rates (RMSprop and Adam turn a
+    gradient of rounding into steps up to that size; so do they for single
+    elements whose gradient is mostly rounding, which atol covers).
+    Returns the failures."""
+    import torch
+    bad = []
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        g = got[k].detach().double().cpu()
+        w, b = torch.as_tensor(w).double(), torch.as_tensor(before[k]).double().cpu()
+        if k in cancelling:
+            moved = max(float((g - b).abs().max()), float((w - b).abs().max()))
+            if moved > RMS_BOUND * lr * (1 + 1e-3):
+                bad.append((k, "moved", moved))
+            continue
+        if not torch.allclose(g, w, rtol=rtol, atol=atol):
+            bad.append((k, "value", float((g - w).abs().max())))
+        step_err = float(((g - b) - (w - b)).norm() / (w - b).norm().clamp_min(1e-30))
+        if step_err > step_rel_l2:
+            bad.append((k, "step", step_err))
+    return bad
+
+
+def jax_fixture_step(fx, device: str = "cuda") -> dict:
+    """The fixture .ckpt resumed as Trainer._resume does (weights, the
+    optimizer state through optim_state_from_flax, the step) and one float32
+    RMSprop step on the fixture's batch, against the JAX package's second
+    step: losses (relative), every parameter and running statistic
+    (`hold_step`)."""
+    import numpy as np
+    import torch
+    from pose2mesh_release_tpu_torch.core.optim import make_preconditioner
+    from pose2mesh_release_tpu_torch.core.train import TrainState, make_train_step
+    from pose2mesh_release_tpu_torch.parity.from_jax import state_dict_from_flax
+    a, c, payload = fx["arrays"], fx["config"], fx["payload"]
+    model = _fixture_model(fx, device, torch.float32, deploy=False)
+    model.load_state_dict(payload["model_state_dict"])
+    opt = make_preconditioner("rmsprop", model.parameters())
+    opt.load_state_dict(payload["optim_state_dict"])
+    state = TrainState(model, opt, payload["step"])
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, opt, a["jreg"], device=device)
+    batch = {k[len("batch/"):]: torch.from_numpy(v).to(device)
+             for k, v in a.items() if k.startswith("batch/")}
+    art = fx["art"].to(device, torch.float32)
+    state, losses = step(state, art, batch, c["lr"], c["use_edge_loss"], None)
+    loss_rel = {k: abs(float(v) - float(a[f"step2/loss/{k}"])) / abs(float(a[f"step2/loss/{k}"]))
+                for k, v in losses.items()}
+
+    def tree(prefix):
+        out = {}
+        for key, v in a.items():
+            if key.startswith(prefix):
+                node = out
+                *path, leaf = key[len(prefix):].split("/")
+                for p in path:
+                    node = node.setdefault(p, {})
+                node[leaf] = np.asarray(v)
+        return out
+
+    want = state_dict_from_flax({"params": tree("step2/params/"),
+                                 "batch_stats": tree("step2/batch_stats/")})
+    cancelling = cancelling_biases(model)
+    got = model.state_dict()
+    bad = hold_step(got, want, before, c["lr"], cancelling, **FIXTURE_STEP_TOLS)
+    held = [k for k in want if k not in cancelling and not k.endswith("num_batches_tracked")]
+    step_err = {k: float(((got[k].double().cpu() - want[k].double()).norm())
+                         / (want[k].double() - before[k].double()).norm().clamp_min(1e-30))
+                for k in held}
+    worst = max(step_err, key=step_err.get)
+    return {"ok": not bad and max(loss_rel.values()) <= 1e-4 and state.step == 2,
+            "bad": bad, "loss_rel": loss_rel, "step": state.step,
+            "worst_step_rel_l2": (worst, step_err[worst]), "cancelling": sorted(cancelling)}
+
+
+def jax_ckpt_layer(card) -> dict:
+    """Phase 16 (b): the committed JAX .ckpt fixture on the card: the deploy
+    forward in float32 (F32_FORWARD_TOL) and bf16 (FORWARD_TOL) against the
+    JAX eval outputs, each with exactly FIXTURE_DEPLOY_LAUNCHES; the resumed
+    float32 step with exactly FIXTURE_STEP_LAUNCHES against the JAX step."""
+    import torch
+    fx = read_jax_fixture(JAX_FIXTURE, "cuda")
+    report = {"load_s": fx["load_s"], "forward": {}}
+    for dtype, tol in ((torch.float32, F32_FORWARD_TOL), (torch.bfloat16, FORWARD_TOL)):
+        name = str(dtype).split(".")[-1]
+        reset_launches()
+        errs = jax_fixture_forward(fx, dtype)
+        launches = read_launches()
+        log(f"phase 16 (b): JAX checkpoint1.ckpt, {name} deploy forward vs the JAX eval "
+            f"outputs: { {k: f'{v:.2e}' for k, v in errs.items()} } (tolerance {tol}); "
+            f"band-kernel launches {launches}")
+        if launches != expect(**FIXTURE_DEPLOY_LAUNCHES):
+            raise SystemExit(f"phase 16 (b) {name} forward: launches {launches}")
+        if not all(e <= tol for e in errs.values()):
+            raise SystemExit(f"phase 16 (b): the {name} forward disagrees with JAX: {errs}")
+        report["forward"][name] = {"rel_l2": errs, "launches": launches}
+    reset_launches()
+    res = jax_fixture_step(fx)
+    launches = read_launches()
+    log(f"phase 16 (b): resumed float32 RMSprop step (step {res['step']}) vs the JAX step: "
+        f"loss rel { {k: f'{v:.1e}' for k, v in res['loss_rel'].items()} }, worst step "
+        f"rel_l2 {res['worst_step_rel_l2'][0]} {res['worst_step_rel_l2'][1]:.2e} (limits "
+        f"{FIXTURE_STEP_TOLS}), {len(res['cancelling'])} cancelling biases within "
+        f"{RMS_BOUND:.0f} learning rates; failures {res['bad']}; "
+        f"band-kernel launches {launches}; .ckpt loaded in {fx['load_s'][0]:.3f} s, then "
+        f"{fx['load_s'][1]:.4f} s ({card})")
+    if launches != expect(**FIXTURE_STEP_LAUNCHES):
+        raise SystemExit(f"phase 16 (b) step: launches {launches}")
+    if not res["ok"]:
+        raise SystemExit(f"phase 16 (b): the resumed step disagrees with JAX: {res}")
+    report["step"] = {k: res[k] for k in ("loss_rel", "worst_step_rel_l2", "step")}
+    report["step"]["launches"] = launches
+    return report
+
+
+def write_pw3d_sequence(root: str) -> str:
+    """The synthetic 3DPW sequence pickle of tests/test_data.py's converter
+    test (3 frames, 2 people, camera 4 m away) under
+    root/sequenceFiles/test; returns its path."""
+    import pickle
+    import numpy as np
+    rng = np.random.default_rng(9)
+    frames, people = 3, 2
+    seq_dir = os.path.join(root, "sequenceFiles", "test")
+    os.makedirs(seq_dir, exist_ok=True)
+    ext = np.tile(np.eye(4, dtype=np.float32), (frames, 1, 1))
+    ext[:, 2, 3] = 4.0
+    data = {
+        "sequence": "synth_seq_00",
+        "betas": [rng.standard_normal(300).astype(np.float32) * 0.2 for _ in range(people)],
+        "poses": [rng.standard_normal((frames, 72)).astype(np.float32) * 0.1
+                  for _ in range(people)],
+        "trans": [rng.standard_normal((frames, 3)).astype(np.float32) * 0.1
+                  for _ in range(people)],
+        "jointPositions": [rng.standard_normal((frames, 24 * 3)).astype(np.float32) * 0.3
+                           for _ in range(people)],
+        "genders": ["m", "f"],
+        "campose_valid": np.ones((people, frames)),
+        "cam_poses": ext,
+        "cam_intrinsics": np.array([[1000.0, 0, 500], [0, 1000.0, 500], [0, 0, 1]],
+                                   np.float32),
+        "poses2d": rng.random((people, frames, 3, 18)).astype(np.float32),
+    }
+    path = os.path.join(seq_dir, "synth_seq_00.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return path
+
+
+def json_diff(a, b, tol: float = CONVERTER_TOL, path: str = "") -> list:
+    """Where two JSON trees differ: keys, lengths, integers and strings
+    exactly, floats beyond tol (relative above 1)."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or list(a) != list(b):
+            return [path]
+        return [d for k in b for d in json_diff(a[k], b[k], tol, f"{path}/{k}")]
+    if isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in json_diff(x, y, tol, f"{path}[{i}]")]
+    if isinstance(b, float) and isinstance(a, float):
+        return [] if abs(a - b) <= tol * max(1.0, abs(b)) else [f"{path}: {a} vs {b}"]
+    return [] if type(a) is type(b) and a == b else [f"{path}: {a!r} vs {b!r}"]
+
+
+def converter_layer(root: str, card, device: str = "cuda") -> dict:
+    """Phase 16 (c): the 3DPW converter on `device` and on the CPU over
+    write_pw3d_sequence's pickle: the two JSON files agree (json_diff), and
+    the port's PW3D loads the card's."""
+    from pose2mesh_release_tpu_torch.body.smpl import SMPL
+    from pose2mesh_release_tpu_torch.data.pw3d import PW3D
+    from pose2mesh_release_tpu_torch.data.tools.pw3d_to_coco import convert_split
+    base = os.path.join(root, "pw3d_converter")
+    write_pw3d_sequence(base)
+    out, secs = {}, {}
+    for dev in (device, "cpu"):
+        path = os.path.join(base, f"3DPW_{dev.replace(':', '')}.json")
+        t0 = time.time()
+        stats = convert_split(base, "test", path, device=dev)
+        secs[dev] = time.time() - t0
+        with open(path) as f:
+            out[dev] = json.load(f)
+    diff = json_diff(out[device], out["cpu"])
+    os.replace(os.path.join(base, f"3DPW_{device.replace(':', '')}.json"),
+               os.path.join(base, "3DPW_latest_test.json"))
+    ds = PW3D("test", data_dir=base, mesh_model=SMPL(), build_graph=False, device=device)
+    inputs, _, _ = ds[0]
+    log(f"phase 16 (c): 3DPW converter on {device} in {secs[device]:.2f} s, CPU "
+        f"{secs['cpu']:.2f} s: {stats}; JSON differences beyond {CONVERTER_TOL}: "
+        f"{diff[:5]}; PW3D loads {len(ds)} records, pose2d {tuple(inputs['pose2d'].shape)} "
+        f"({card})")
+    if diff or len(ds) != stats["annotations"] or stats["annotations"] == 0 \
+            or tuple(inputs["pose2d"].shape) != (19, 2):
+        raise SystemExit(f"phase 16 (c): converter check failed: {diff[:5]}, {len(ds)} "
+                         f"records, {stats}")
+    return {"stats": stats, "seconds": secs, "records": len(ds)}
+
+
+def roofline_layer(art, rows, path_rows) -> dict:
+    """Phase 16 (d): utils.profiling's rooflines for the SMPL artifact:
+    pyramid_roofline(art, BATCH, 128) and, per band level, spmm_roofline's
+    and sparse_conv_roofline's ideal_us beside phase 2's measured K4 and
+    group-conv ms at that level's first group conv (and the bound_ms of
+    those rows, which counts the nonzeros and the real rows)."""
+    from pose2mesh_release_tpu_torch.utils.profiling import (
+        pyramid_roofline, sparse_conv_roofline, spmm_roofline,
+    )
+    by_tag = {r["tag"]: r for r in list(rows) + list(path_rows)}
+    pyramid = pyramid_roofline(art, BATCH, 128)
+    log(f"phase 16 (d): pyramid_roofline(art, {BATCH}, 128): "
+        f"{ {k: round(v['ideal_us'], 2) for k, v in pyramid.items()} } us")
+    levels = []
+    for i, (V, name, fin, fout, _) in enumerate(MAIN_PATH_CONVS):
+        if name != "fused_cheby_conv" or any(l["V"] == V for l in levels):
+            continue
+        op = next(o for o in art.mesh_ops if o.num_vertices == V)
+        hop, conv = by_tag[f"hop{i}"], by_tag[f"main{i}"]
+        lvl = {"V": V, "fin": fin, "fout": fout,
+               "spmm_ideal_us": spmm_roofline(op, BATCH, fin).ideal_us,
+               "sparse_conv_ideal_us": sparse_conv_roofline(op, BATCH, fin, fout).ideal_us,
+               "k4_ms": hop["ms"], "k4_bound_ms": hop["bound_ms"],
+               "group_ms": conv["ms"], "group_bound_ms": conv["bound_ms"]}
+        levels.append(lvl)
+        log(f"  V={V} {fin}->{fout}: spmm_roofline {lvl['spmm_ideal_us']:.2f} us, K4 "
+            f"{1e3 * lvl['k4_ms']:.2f} us (bound {1e3 * lvl['k4_bound_ms']:.2f}); "
+            f"sparse_conv_roofline {lvl['sparse_conv_ideal_us']:.2f} us, group conv "
+            f"{1e3 * lvl['group_ms']:.2f} us (bound {1e3 * lvl['group_bound_ms']:.2f})")
+    return {"pyramid": pyramid, "levels": levels}
+
+
+def port_complete_layer(root: str, card, art, rows, path_rows) -> dict:
+    """Phase 16: (a) the reference runbook, (b) the JAX .ckpt, (c) the 3DPW
+    converter, (d) the rooflines; any failed check exits non-zero."""
+    import torch
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    report = {"reference": ref_runbook(root, card), "jax_ckpt": jax_ckpt_layer(card),
+              "converter": converter_layer(root, card),
+              "rooflines": roofline_layer(art, rows, path_rows)}
+    report["wall_s"] = time.time() - t0
+    log(f"phase 16: {report['wall_s']:.1f} s")
+    return report
+
+
 def kernel_table(rows, launches_of, main_tags, suffix="") -> list:
     """The {"kernels": ...} rows of SOURCES' kernels (name + suffix): per
     kernel its launches on its path, ms, plain ms, library ms and bound
@@ -3277,6 +3786,8 @@ def main() -> int:
         # -- phase 15: multi-device ---------------------------------------------
         multi = report["multi_device"] = mesh_layer(
             root, card, f32["engine"]["test"]["runs"]["deploy"]["result"])
+        # -- phase 16: the JAX package's last modules ----------------------------
+        done = report["port_complete"] = port_complete_layer(root, card, art, rows, path_rows)
     f32_launches = {"fused_cheby_conv": f32["forward"]["launches"]["fused_cheby_conv"],
                     "fused_cheby_conv_commuted":
                         f32["forward"]["launches"]["fused_cheby_conv_commuted"],
@@ -3372,6 +3883,15 @@ def main() -> int:
                   | {"census": v["census"]["by_kind"]}
                   for k, v in multi["steps"].items()},
         "tester": multi["tester"], "nccl": multi["nccl"]}}), flush=True)
+    ref, jck = done["reference"], done["jax_ckpt"]
+    print(json.dumps({"port_complete": {
+        "card": card, "wall_s": done["wall_s"],
+        "reference_forward": ref["forward"], "reference_ms_per_batch": ref["ref_ms_per_batch"],
+        "reference_pth_load_s": ref["load_s"],
+        "reference_cli_test": {k: ref["cli_test"][k] for k in ("result", "rel_diff", "eval_ms",
+                                                               "launches_per_forward")},
+        "jax_ckpt": jck, "converter": done["converter"],
+        "rooflines": done["rooflines"]["levels"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,11 @@ Format: the reference's own, `torch.save` of {"epoch", "model_state_dict",
 dicts use the reference's names (`pose_lifter.*`, `pose2mesh.cl.K`,
 `pose2mesh.bn.K`, `pose2mesh.fc`; a standalone PoseNet `w1.*`), so one
 loader reads the port's checkpoints and the reference's published ones.
-The JAX package's flax msgpack `.ckpt` files are refused: carry their
-variables across with `parity.from_jax.state_dict_from_flax`.
+The JAX package's flax msgpack `.ckpt` files ({"epoch", "state": {"params",
+"batch_stats", "opt_state", "step"}, "train_log", "test_log"}) load into the
+same payload: `core.flax_msgpack` decodes them without JAX, and
+`parity.from_jax` maps the variables and the optimizer state onto the
+port's names.  The port writes `.pth.tar` only.
 """
 from __future__ import annotations
 
@@ -21,11 +24,17 @@ import pickle
 import warnings
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parity.from_jax import optim_state_from_flax, state_dict_from_flax
+from . import flax_msgpack
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint", "model_family"]
+
+
+_UNUSED_REFERENCE_KEYS = ("pose_lifter.batch_norm1.", "batch_norm1.")
 
 
 def _to_cpu(tree: Any) -> Any:
@@ -120,22 +129,7 @@ def _resolve(path_or_dir: str, pick_best: bool) -> str:
     return path
 
 
-def load_checkpoint(path_or_dir: str, *, pick_best: bool = False,
-                    device: str | torch.device | None = "cuda") -> Dict[str, Any]:
-    """Load a `.pth.tar` / `.pth` checkpoint onto `device`.
-
-    A directory resolves to best / final (best first with pick_best, the
-    posenet-pretrained load path, lib/core/base.py:69), else its latest
-    checkpoint{N}.  Returns {"epoch", "model_state_dict" (DataParallel
-    `module.` prefixes stripped, lib/funcs_utils.py:65-70), "family"
-    (`model_family`), "optim_state_dict", "step", "train_log", "test_log"
-    ({"joint": [...], ...})}."""
-    dev = resolve_device(device)
-    path = _resolve(path_or_dir, pick_best)
-    if path.endswith(".ckpt"):
-        raise ValueError(
-            f"{path} is a JAX package checkpoint (flax msgpack); load its variables "
-            "with flax and convert them with parity.from_jax.state_dict_from_flax")
+def _load_torch(path: str, dev: torch.device) -> Dict[str, Any]:
     try:
         blob = torch.load(path, map_location=dev, weights_only=True)
     except pickle.UnpicklingError as e:
@@ -143,11 +137,58 @@ def load_checkpoint(path_or_dir: str, *, pick_best: bool = False,
                          f"of numbers and strings: {e}") from e
     if not isinstance(blob, dict):
         raise ValueError(f"unrecognized checkpoint: {path}")
+    return blob
+
+
+def _load_flax(path: str, dev: torch.device) -> Dict[str, Any]:
+    """The payload of a JAX package `.ckpt` (JAX core/checkpoint.py's
+    save_checkpoint of core/engine.py's train state)."""
+    with open(path, "rb") as f:
+        blob = flax_msgpack.restore(f.read())
+    if not (isinstance(blob, dict) and isinstance(blob.get("state"), dict)
+            and "params" in blob["state"]):
+        raise ValueError(f"{path}: not a JAX package checkpoint "
+                         "({epoch, state: {params, ...}, ...})")
+    state = blob["state"]
+    step = int(np.asarray(state.get("step", 0)))
+    sd = state_dict_from_flax({"params": state["params"],
+                               "batch_stats": state.get("batch_stats") or {}})
+    opt = state.get("opt_state")
+    return {
+        "epoch": int(blob.get("epoch", 0)),
+        "model_state_dict": {k: v.to(dev) for k, v in sd.items()},
+        "optim_state_dict": ({} if opt is None else
+                             optim_state_from_flax(opt, state["params"], step, dev)),
+        "step": step,
+        "train_log": blob.get("train_log") or [],
+        "test_log": blob.get("test_log") or {"surface": [], "joint": []},
+    }
+
+
+def load_checkpoint(path_or_dir: str, *, pick_best: bool = False,
+                    device: str | torch.device | None = "cuda") -> Dict[str, Any]:
+    """Load a `.pth.tar` / `.pth` checkpoint, or a JAX package `.ckpt`, onto
+    `device`.
+
+    A directory resolves to best / final (best first with pick_best, the
+    posenet-pretrained load path, lib/core/base.py:69), else its latest
+    checkpoint{N}.  Returns {"epoch", "model_state_dict" (DataParallel
+    `module.` prefixes stripped, lib/funcs_utils.py:65-70), "family"
+    (`model_family`), "optim_state_dict", "step", "train_log", "test_log"
+    ({"joint": [...], ...})}; a `.ckpt`'s optimizer state is the port's
+    (`parity.from_jax.optim_state_from_flax`)."""
+    dev = resolve_device(device)
+    path = _resolve(path_or_dir, pick_best)
+    blob = _load_flax(path, dev) if path.endswith(".ckpt") else _load_torch(path, dev)
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in blob.get("model_state_dict", blob).items()}
+    # the reference's PoseNet holds a top-level batch_norm1 its forward never
+    # uses (posenet.py:77-87); the port's PoseNet, as the JAX package's, has none
+    sd = {k: v for k, v in sd.items() if not k.startswith(_UNUSED_REFERENCE_KEYS)}
     test_log = blob.get("test_log", {})
     if not isinstance(test_log, dict):
-        test_log = {"joint": [float(v) for v in torch.as_tensor(test_log).flatten()]}
+        test_log = {"joint": [float(v) for v in
+                              torch.as_tensor(test_log, dtype=torch.float64).flatten()]}
     train_log = blob.get("train_log", [])
     optim = blob.get("optim_state_dict") or {}
     for state in optim.get("state", {}).values():
@@ -160,6 +201,7 @@ def load_checkpoint(path_or_dir: str, *, pick_best: bool = False,
         "family": model_family(sd),
         "optim_state_dict": optim,
         "step": int(blob.get("step", 0)),
-        "train_log": [float(v) for v in torch.as_tensor(train_log).flatten()],
+        "train_log": [float(v) for v in
+                      torch.as_tensor(train_log, dtype=torch.float64).flatten()],
         "test_log": test_log,
     }

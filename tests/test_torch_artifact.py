@@ -129,11 +129,12 @@ def test_port_imports_no_jax():
         "        'body.synthetic', 'body.smpl', 'body.mano', 'data.gt_synth', 'config',\n"
         "        'core.checkpoint', 'core.engine', 'cli.train', 'cli.test', 'cli.demo',\n"
         "        'models.camera', 'utils.metrics_log', 'utils.plots', 'utils.renderer',\n"
-        "        'utils.vis')}\n"
+        "        'utils.vis', 'utils.profiling', 'core.flax_msgpack', 'parity.from_jax',\n"
+        "        'parity.torch_ref', 'data.tools.pw3d_to_coco')}\n"
         "assert mods <= set(names), names\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'pose2mesh_release_tpu',\n"
-        "              'yaml', 'matplotlib'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes',\n"
+        "              'pose2mesh_release_tpu', 'yaml', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

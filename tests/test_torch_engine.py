@@ -303,7 +303,9 @@ def test_lift_trainer_and_tester_match_jax(tmp_path, monkeypatch):
 
 
 def test_refusals(tiny, tmp_path, monkeypatch):
-    """A JAX .ckpt raises (naming the converter); without CUDA the default
+    """A JAX .ckpt of neither a cascade nor a PoseNet raises (naming the
+    trees it reads), as does a file that is not a JAX package checkpoint;
+    without CUDA the default
     device raises; a mesh larger than the processes running raises (naming
     torchrun), as does steps_per_dispatch > 1 on a mesh; on a CUDA request
     (CUDA reported available) a card index beyond the device count and
@@ -316,10 +318,13 @@ def test_refusals(tiny, tmp_path, monkeypatch):
     art_j, art_t, faces = tiny
     ck = tmp_path / "jaxck"
     jax_save_checkpoint(str(ck), 1, {"params": {"w": np.ones(3, np.float32)}})
-    with pytest.raises(ValueError, match="state_dict_from_flax"):
+    with pytest.raises(ValueError, match="neither a Pose2Mesh nor a PoseNet"):
         load_checkpoint(str(ck / "checkpoint1.ckpt"), device="cpu")
-    with pytest.raises(ValueError, match="state_dict_from_flax"):
+    with pytest.raises(ValueError, match="neither a Pose2Mesh nor a PoseNet"):
         load_checkpoint(str(ck), device="cpu")  # the directory's latest
+    (ck / "checkpoint2.ckpt").write_bytes(b"\x81\xa5epoch\x02")  # msgpack {"epoch": 2}
+    with pytest.raises(ValueError, match="not a JAX package checkpoint"):
+        load_checkpoint(str(ck), device="cpu")
 
     def build(cfg, device, **path):
         model = _port_cascade(art_t)
