@@ -119,7 +119,11 @@ Phases (any failure exits non-zero):
      every epilogue, the window conv K6; the band_k = 2 level, K5 also at
      64-row strip tiles) and K4, K5, K6 at MANO's band level, relative L2
      <= 1e-5, K1, K2, K4, K5 and K6 run twice to equal bits, and its ms,
-     plain ms and bound; smpl_deploy_forward(dtype=float32), 4 requests of
+     plain ms, bound, split and, for its hops on the float32 hop engine
+     (csrc/band_hop_f32.cuh), the level's nonzero lists (entries a warp,
+     mean and max; batches) and the launch plan with its reckoned band
+     bytes; the float32 K4 a forward beside torch.sparse.mm's (two calls a
+     conv); smpl_deploy_forward(dtype=float32), 4 requests of
      batch 64, exactly 8 group + 2 commuted convs each, within 1e-4 of the
      plain float32 forward, then the strip, window and unfused paths as in
      phase 3 (the same calls and CUDA launches a forward as bf16, within
@@ -210,9 +214,9 @@ and relative L2 error of each parameter's gradient <= 5e-2, except the
 biases that feed a training BatchNorm, whose exact gradient is zero (they are
 reported, not held).  Matmuls of the plain versions run in full float32
 (TF32 off).  The float32 instances (phase 14) against their plain versions
-on the same float32 inputs: relative L2 <= 1e-5 (the 3xTF32 products keep
-about float32's precision; one TF32 product, about three decimal digits,
-would not).
+on the same float32 inputs: relative L2 <= 1e-5 (exact FMAs in the hops,
+and 3xTF32 products, keep about float32's precision; one TF32 product,
+about three decimal digits, would not).
 
 Bounds: bytes over 3.35 TB/s and operations over 989 TFLOP/s (H100 SXM
 bf16 dense; the float32 instances 495 / 3 TFLOP/s, dense TF32 over the
@@ -300,10 +304,11 @@ PATHS = {
     "window": ({"flat_impl": "window"}, "window_cheby_conv", 10),
     "unfused": ({"fused": False}, "banded_hop", 20),
 }
-# the CUDA launches of the hop engine and the projection GEMM in one forward
-# of each further path: strip 7 basis-order convs x 3 + 3 commuted x 3,
-# window 10 x 3, unfused 10 x 2 hops
-ENGINE_KERNELS = ("band_hop_kernel", "cheby_proj_kernel")
+# the CUDA launches of the hop engine (bf16, or float32: band_hop_f32_kernel,
+# each after its list pass band_hop_f32_lists) and the projection GEMM in one
+# forward of each further path: strip 7 basis-order convs x 3 + 3 commuted x
+# 3, window 10 x 3, unfused 10 x 2 hops
+ENGINE_KERNELS = ("band_hop_kernel", "band_hop_f32_kernel", "cheby_proj_kernel")
 PATH_CUDA_LAUNCHES = {"strip": 30, "window": 30, "unfused": 20}
 TRAIN_KERNELS = ("fused_cheby_conv_train", "fused_cheby_conv_bwd")
 # The SMPL deploy forward's band convs, in forward order:
@@ -405,7 +410,7 @@ def log(*a):
 def kernel_label(mangled: str) -> str:
     """A ptxas entry name, shortened to the last component of its (nested)
     name and its integer template arguments, with `[f32]` for a float32
-    instance: `cheby_proj_kernel<128,1>`, `band_hop_kernel<16,0,0>[f32]`."""
+    instance: `cheby_proj_kernel<128,1>`, `cheby_proj_kernel<64,1>[f32]`."""
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -563,6 +568,10 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag, dtype=None):
         lambda: kernel(band, x, W, b, **kw), lambda: plain(band, x, W, b, **kw),
         lambda: plain(band.float(), x.float(), W.float(), b.float(), **f32),
         ("y",), V, flops, bytes_, dtype=dtype)
+    if dtype == torch.float32:
+        from pose2mesh_release_tpu_torch.ops.hop import band_span
+        f32_hop(row, op, band_span(op.band_k),
+                BATCH * (fin if name == "fused_cheby_conv" else -(-fout // 16) * 16))
     # its launches apart (not counted as launches)
     if name == "fused_cheby_conv":
         run, _ = fc.conv_launcher(band, x, W, b, kw["relu"], skip, skip_w)
@@ -638,6 +647,9 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag, dtype=None):
     run, _ = ft.bwd_launcher(band, g, x, W, in_fold)
     k2["split_ms"] = split_ms(tag, "K2", run, ft.BWD_STAGES, k2["ms"])
     if dtype is not None:  # the ordered, atomic-free reductions: equal bits twice
+        from pose2mesh_release_tpu_torch.ops.hop import band_span
+        f32_hop(k1, op, band_span(op.band_k), BATCH * fin)
+        f32_hop(k2, op, band_span(op.band_k), BATCH * -(-fout // 16) * 16)
         for row, fn in ((k1, lambda: ft.fused_cheby_conv_train(
                             band, x, W, b, in_fold=in_fold, emit_stats=stats)),
                         (k2, lambda: ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=in_fold))):
@@ -771,8 +783,41 @@ def check_hop(op, fin, gen, tag, dtype=None):
         timed=lambda: (hp.hop(band, x), hp.hop(band, g)),
         timed_plain=lambda: (hp.hop_plain(band, x), hp.hop_plain(band, g)), dtype=dtype)
     if dtype is not None:
+        f32_hop(row, op, hp.band_span(op.band_k), BATCH * fin)
         bits_twice(row, tag, lambda: hp.hop(band, x))
     return row
+
+
+_f32_lists = {}
+
+
+def f32_hop(row, op, span: int, C: int) -> None:
+    """On a float32 row: the level's nonzero lists as the float32 hop engine
+    (csrc/band_hop_f32.cuh) builds them (ops.hop.hop_nonzeros: entries a
+    warp, mean and max over the warps with rows, and the most batches) and
+    the engine's launch plan for the row's hops on C columns of a layout of
+    `span` source groups (chunk, grid, run and the band bytes it reckons,
+    for two hops), printed beside the row's bound."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import hop as hp
+    nt = op.band_val.shape[1]
+    key = (op.num_vertices, op.band_k, int(torch.count_nonzero(op.band_val)))
+    if key not in _f32_lists:
+        band, lay = op.band_val.float().cpu(), hp.hop_layout(nt, op.band_k)
+        lists = [hp.hop_nonzeros(lay, band, t, w, op.num_vertices)
+                 for t in range(nt) for w in range(8) if t * 128 + 16 * w < op.num_vertices]
+        counts = [n.roff[-1] for n in lists]
+        _f32_lists[key] = {"entries_mean": sum(counts) / len(counts),
+                           "entries_max": max(counts),
+                           "batches": max(n.batches for n in lists)}
+    plan = hp.hop_plan(nt, span, C, hp.sm_count(torch.device("cuda")), 4)
+    row.update(f32_lists=_f32_lists[key], band_bytes=2 * plan.band_bytes,
+               hop_plan={"cc": plan.cc, "grid": plan.grid, "per_block": plan.per_block})
+    lists = row["f32_lists"]
+    log(f"  {row['tag']:10s} f32 hops: lists a warp mean {lists['entries_mean']:.1f} max "
+        f"{lists['entries_max']}, batches {lists['batches']}; plan cc {plan.cc} grid "
+        f"{plan.grid} per_block {plan.per_block}; band bytes reckoned {row['band_bytes']} "
+        f"beside the bound's {row['bytes']} bytes ({row['bound_ms']:.4f} ms)")
 
 
 def bits_twice(row, tag, fn):
@@ -820,6 +865,8 @@ def check_strip(op, fin, fout, epilogue, gen, tag, dtype=None):
     run, _ = sc.strip_launcher(S, off, h, x, W, b, mode, kw["relu"], skip, skip_w)
     row["split_ms"] = split_ms(tag, f"strip {mode}", run, sc.STRIP_STAGES[mode], row["ms"])
     if dtype is not None:
+        f32_hop(row, op, sc.strip_span(off, h, S.shape[1]),
+                BATCH * (fin if mode == "basis" else -(-fout // 16) * 16))
         bits_twice(row, tag, lambda: sc.strip_cheby_conv(S, off, h, x, W, b, **kw))
     return row
 
@@ -852,6 +899,7 @@ def check_window(op, fin, fout, epilogue, gen, tag, dtype=None):
     run, _ = wc.window_launcher(win, woff, x, W, b, kw["relu"], skip, skip_w)
     row["split_ms"] = split_ms(tag, "window", run, wc.WINDOW_STAGES, row["ms"])
     if dtype is not None:
+        f32_hop(row, op, win.shape[1] // 16, BATCH * fin)
         bits_twice(row, tag, lambda: wc.window_cheby_conv(win, woff, x, W, b, **kw))
     return row
 
@@ -883,6 +931,9 @@ def check_keep_basis(op, fin, fout, gen, tag, dtype=None):
         2 * 2 * nnz * BATCH * fin + 2 * V * BATCH * 3 * fin * fout,
         nbytes(x, W, b) + (V * BATCH * (fout + 2 * fin) + nnz) * x.element_size(),
         dtype=dtype)
+    if dtype is not None:
+        from pose2mesh_release_tpu_torch.ops.hop import band_span
+        f32_hop(row, op, band_span(op.band_k), BATCH * fin)
     row["launches"] = launches
     log(f"  {tag:10s} keep_basis: {launches} launch of the check")
     return row
@@ -959,12 +1010,15 @@ def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=N
     cuda_launches = kernel_launches(lambda: step(art_bf, batches[0]))
     engine = sum(n for name, n in cuda_launches.items()
                  if any(k in name for k in ENGINE_KERNELS))
+    f32_hops, f32_lists = (sum(n for name, n in cuda_launches.items() if k in name)
+                           for k in ("band_hop_f32_kernel", "band_hop_f32_lists"))
     log(f"  {path}: CUDA launches in one forward (torch.profiler): hop engine and "
-        f"projection {engine} (expected {cuda_counts[path]}), all kernels "
-        f"{sum(cuda_launches.values())}")
-    if engine != cuda_counts[path]:
+        f"projection {engine} (expected {cuda_counts[path]}; float32 list passes "
+        f"{f32_lists}), all kernels {sum(cuda_launches.values())}")
+    if engine != cuda_counts[path] or f32_lists != f32_hops:
         raise SystemExit(f"{path}: {engine} hop engine and projection launches per forward, "
-                         f"expected {cuda_counts[path]}: {cuda_launches}")
+                         f"expected {cuda_counts[path]}, and {f32_lists} float32 list passes "
+                         f"for {f32_hops} float32 hops: {cuda_launches}")
     ref, plain_ms = plain_forward(path, step, art_bf, batches[0])
     errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
             "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1]),
@@ -2154,6 +2208,11 @@ def f32_kernels(by_v, mano_op, gen) -> tuple:
     bad = [(r["tag"], r["name"]) for r in rows + train_rows + mano_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"float32 kernel check failed: {bad}")
+    for label, hops in (("SMPL", [r for r in rows if r["tag"].startswith("f32hop")]),
+                        ("MANO", [r for r in mano_rows if r["name"] == "banded_hop"])):
+        log(f"  float32 K4 a forward at {label}: {sum(r['ms'] for r in hops):.4f} ms, "
+            f"torch.sparse.mm (two calls a conv) {sum(r['library_ms'] for r in hops):.4f} ms, "
+            f"bound {sum(r['bound_ms'] for r in hops):.4f} ms")
     return rows, train_rows, mano_rows
 
 
@@ -3511,7 +3570,9 @@ def kernel_table(rows, launches_of, main_tags, suffix="") -> list:
     """The {"kernels": ...} rows of SOURCES' kernels (name + suffix): per
     kernel its launches on its path, ms, plain ms, library ms and bound
     summed over the shapes of one pass of that path (the rows whose tags
-    start with main_tags)."""
+    start with main_tags); for the float32 instances also the split of the
+    kernels launched apart, summed likewise (the lists and the band bytes the
+    hop plans reckon are no measurements: they stay in phase 14's rows)."""
     kernels = []
     for name in SOURCES:
         every = [r for r in rows if r["name"] == name]
@@ -3533,6 +3594,10 @@ def kernel_table(rows, launches_of, main_tags, suffix="") -> list:
             "status": "ok",
             "shapes_per_pass": len(main),
         })
+        splits = [r["split_ms"] for r in main if "split_ms" in r]
+        if splits and all("f32_lists" in r for r in main):
+            kernels[-1]["split_ms"] = {k: sum(s[k] for s in splits if k in s)
+                                       for k in dict.fromkeys(k for s in splits for k in s)}
     return kernels
 
 

@@ -1,6 +1,7 @@
 // The banded hop engine: y[:, cols] = T(act(alpha * (L x)[:, cols] + beta * add[:, cols])
 // (+ post[:, cols])) for the banded Laplacian L, float32 accumulation, one rounding
-// for the bf16 operand type T and none for float32.
+// (the bf16 operand type T; float32 operands go to the float32 engine,
+// band_hop_f32.cuh, through the same launch_band_hop).
 //
 // Used by K4 (csrc/banded_hop.cu: alpha = 1, beta = 0), by the fused training
 // backward K2 (csrc/fused_cheby_bwd.cu: g1 = L g, then h2 = 2 L g1 - g with
@@ -38,15 +39,14 @@
 //               window conv (ops/window_cheby.py window_cat) is this layout
 //               with h = T, Wd = (2k+1) T and off = its window offsets.
 // ops/hop.py hop_layout mirrors this addressing.
-// L, x, add, post, y (V, C) of the operand type T (bf16, or float32: the
-// float32 instances, both layouts) row-major, C a multiple of 16, V <=
-// nt*T.  Rows >= V read as zero and are never written.  The epilogue (the
-// template parameter EPI): kHopAdd an add operand of type T (or none), then
-// the ReLU where `relu` is set; kHopF32Add a float32 add operand (read as
-// float2; 8-byte aligned), then the ReLU (at T = float32 the same as
-// kHopAdd); kHopSkipAdd and kHopSkipProj as kHopAdd, then a T (skip add) or
-// float32 (skip projection) `post` operand added after the activation,
-// before the one rounding (the strip conv's commuted order with a skip).
+// L, x, add, post, y (V, C) of the operand type T row-major, C a multiple
+// of 16, V <= nt*T.  Rows >= V read as zero and are never written.  The
+// epilogue (the template parameter EPI): kHopAdd an add operand of type T
+// (or none), then the ReLU where `relu` is set; kHopF32Add a float32 add
+// operand (read as float2; 8-byte aligned), then the ReLU; kHopSkipAdd and
+// kHopSkipProj as kHopAdd, then a T (skip add) or float32 (skip projection)
+// `post` operand added after the activation, before the one rounding (the
+// strip conv's commuted order with a skip).
 //
 // Design (Hopper; mma.sync m16n8k16 bf16 on tensor cores, cp.async staging):
 //   * Work items are (row tile t, CC-column chunk), t-major.  A persistent
@@ -65,38 +65,19 @@
 //     the nonzero sub-tiles stays in registers; the epilogue writes packed
 //     bf16 pairs (4 bytes per lane, neighbouring lanes on neighbouring
 //     addresses) with no float32 staging.
-//   * float32 (T = float): the same tiles, masks, ring and grid, the
-//     products by 3xTF32 on mma.sync m16n8k8 (each operand split into a
-//     TF32 big and small part, three products; one TF32 product keeps about
-//     three decimal digits), the three summed into a zeroed partial that is
-//     added to the sum with an IEEE float32 add, so the tensor core's
-//     truncating accumulation never runs along the sum.  A sub-tile's A
-//     fragment takes 8 registers (raw float32, split at each use), so fewer
-//     are kept (hop_cap); the operands load with 32-bit shared loads
-//     (ldmatrix moves b16 elements).  The staged row stride CC + 8 keeps
-//     those loads free of bank conflicts.
 // Bound on the H100: at the band's nonzeros the hop does ~1 operation per
 // byte, so device memory bounds it (x read once, y written once).
 #pragma once
 
 #include <cstdint>
 
+#include "band_hop_f32.cuh"
 #include "common.cuh"
 
 namespace p2m {
 
 // nonzero 16 x 16 band sub-tiles whose A fragments a warp keeps in registers
 constexpr int kHopCap = 12;
-// ... at float32, by chunk width (each fragment takes 8 registers; the
-// strip layout's run-time row stride costs the 16-column chunk one slot:
-// with six it spills)
-template <typename T, int CC, bool STRIP = false>
-__host__ __device__ constexpr int hop_cap() {
-  return sizeof(T) == 2 ? kHopCap : (CC <= 16 ? (STRIP ? 5 : 6) : 3);
-}
-// registers of one sub-tile's A fragment
-template <typename T>
-__host__ __device__ constexpr int frag_regs() { return sizeof(T) == 2 ? 4 : 8; }
 // the engine's pipeline depth (x chunks in flight)
 constexpr int kHopStages = 2;
 // blocks the engine keeps on an SM (registers: 65536 / (256 x this))
@@ -233,20 +214,6 @@ __device__ __forceinline__ void load_a_global(unsigned (&a)[4], const bf16* tile
   a[3] = *reinterpret_cast<const unsigned*>(tile + (g + 8) * ld + c + 8);
 }
 
-// The float32 A fragments of a 16 x 16 tile for two m16n8k8 steps: a[4s ..
-// 4s + 4) the columns 8s .. 8s + 8 (rows g, g + 8; columns c, c + 4), raw
-// float32 bits.
-__device__ __forceinline__ void load_a_global(unsigned (&a)[8], const float* tile, int ld) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, c = lane & 3;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    a[4 * s] = __float_as_uint(tile[g * ld + 8 * s + c]);
-    a[4 * s + 1] = __float_as_uint(tile[(g + 8) * ld + 8 * s + c]);
-    a[4 * s + 2] = __float_as_uint(tile[g * ld + 8 * s + c + 4]);
-    a[4 * s + 3] = __float_as_uint(tile[(g + 8) * ld + 8 * s + c + 4]);
-  }
-}
-
 // acc[q] += a @ rows[:, 8q .. 8q+8) for q < NQ, rows 16 x (8 NQ) bf16 in
 // shared memory, row-major with leading dimension ld.
 template <int NQ>
@@ -263,48 +230,13 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NQ][4], const unsigned (&a
   }
 }
 
-// ... float32 rows by 3xTF32 (two k8 steps), B by 32-bit shared loads
-template <int NQ>
-__device__ __forceinline__ void mma_rows(float (&acc)[NQ][4], const unsigned (&a)[8],
-                                         const float* rows, int ld) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, c = lane & 3;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    unsigned ab[4], as[4];
-    split_frag(a + 4 * s, ab, as);
-    const float* p = rows + (8 * s + c) * ld + g;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) mma_f32(acc[q], ab, as, p[q * 8], p[4 * ld + q * 8]);
-  }
-}
-
-// the engine's epilogues (the template parameter EPI)
-constexpr int kHopAdd = 0, kHopF32Add = 1, kHopSkipAdd = 2, kHopSkipProj = 3;
-
-template <typename T>
-struct HopArgsT {
-  const T* band;  // the block band, or the strip form (STRIP)
-  const T* x;
-  const T* add;  // add operand; null: beta is not used (not with kHopF32Add)
-  T* y;
-  float alpha, beta;
-  int V, nt, k, C;               // k: the block band's band_k
-  const float* addf = nullptr;   // kHopF32Add: the float32 add operand (V, C)
-  const int* wrow = nullptr;     // STRIP: v0(t, w), the warps' source rows (nt, 8)
-  int relu = 0;                  // ReLU after the add
-  int ld = 0, span = 0;          // STRIP: Wd, the staged 16-row groups of a row tile
-  const T* post = nullptr;       // kHopSkipAdd: (V, C) added after the activation
-  const float* postf = nullptr;  // kHopSkipProj: float32 (V, C) added after the activation
-};
-using HopArgs = HopArgsT<bf16>;
-
 // 16-row source groups the engine stages for the block band
 __host__ __device__ constexpr int band_span(int k) { return 8 * (2 * k + 1); }
 
-// Shared memory of the engine's x ring for CC-column chunks of `esize`-byte
-// elements and `span` staged 16-row groups (must match ops/hop.py hop_smem).
-__host__ __device__ constexpr size_t band_hop_smem(int CC, int span, int esize = 2) {
-  return (size_t)kHopStages * span * 16 * (CC + 8) * esize;
+// Shared memory of the engine's bf16 x ring for CC-column chunks and `span`
+// staged 16-row groups (must match ops/hop.py hop_smem).
+__host__ __device__ constexpr size_t band_hop_smem(int CC, int span) {
+  return (size_t)kHopStages * span * 16 * (CC + 8) * sizeof(bf16);
 }
 
 template <typename T, int CC, bool STRIP, int EPI>
@@ -314,7 +246,7 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
   constexpr int NQ = CC / 8;  // n8 tiles of a chunk
   constexpr int VE = vec_elems<T>();
   constexpr int VPR = CC / VE;  // 16-byte vectors of a staged row
-  constexpr int CAP = hop_cap<T, CC, STRIP>();
+  constexpr int CAP = kHopCap;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ unsigned long long wmask[kWarps];
   __shared__ int wshift[kWarps];  // STRIP: each warp's staged-row offset into the ring
@@ -340,7 +272,7 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
     const int n = min(it_end, (t + 1) * nch) - it;  // chunks of tile t in this run
     // 1. this warp's nonzero sub-tiles of operator rows t*T + 16*warp .. +16,
     // in batches of 8 (the strip form's last batch may be partial); a lane
-    // reads 8 elements of a sub-tile's row (two 16-byte loads at float32)
+    // reads 8 elements of a sub-tile's row
     const T* brow = a.band + (long)t * kT * ld + warp * 16 * ld;
     const int nsub = STRIP ? a.ld / 16 : 8 * nbd;
     unsigned long long mine = 0;
@@ -352,19 +284,13 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
       for (int cg = 0; cg < 8; ++cg) {
         v[cg] = !STRIP || 8 * d + cg < nsub ? *reinterpret_cast<const uint4*>(bb + cg * 16)
                                             : make_uint4(0u, 0u, 0u, 0u);
-        if constexpr (VE == 4) {  // the sub-tile row's second half, in range as the first
-          if (!STRIP || 8 * d + cg < nsub) {
-            const uint4 w = *reinterpret_cast<const uint4*>(bb + cg * 16 + 4);
-            v[cg].x |= w.x, v[cg].y |= w.y, v[cg].z |= w.z, v[cg].w |= w.w;
-          }
-        }
       }
 #pragma unroll
       for (int cg = 0; cg < 8; ++cg)
         if (__ballot_sync(0xffffffffu, (v[cg].x | v[cg].y | v[cg].z | v[cg].w) != 0u))
           mine |= 1ull << (d * 8 + cg);
     }
-    unsigned af[CAP][frag_regs<T>()];
+    unsigned af[CAP][4];
     {
       unsigned long long rem = mine;
 #pragma unroll
@@ -429,7 +355,7 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
       while (rem) {  // beyond the register slots: fragments from L2
         const int j = __ffsll((long long)rem) - 1;
         rem &= rem - 1;
-        unsigned fa[frag_regs<T>()];
+        unsigned fa[4];
         load_a_global(fa, brow + sub(j), ld);
         mma_rows<NQ>(acc, fa, xb + j * 16 * LD, LD);
       }
@@ -478,6 +404,7 @@ band_hop_kernel(HopArgsT<T> a, int per_block) {
 template <typename T, int CC, bool STRIP, int EPI>
 inline cudaError_t launch_band_hop_cc(const HopArgsT<T>& a, int grid, int per_block,
                                       size_t smem, cudaStream_t stream) {
+  static_assert(sizeof(T) == 2, "float32 hops run on band_hop_f32.cuh");
   cudaError_t err = cudaFuncSetAttribute(band_hop_kernel<T, CC, STRIP, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -485,43 +412,51 @@ inline cudaError_t launch_band_hop_cc(const HopArgsT<T>& a, int grid, int per_bl
   return cudaGetLastError();
 }
 
-// One engine launch over the plan's grid (ops/hop.py hop_plan): cc columns
-// per chunk (16, 32 or 64, dividing C; at float32 16 or 32), grid blocks of
-// per_block items each.  STRIP: L in its strip form (a.wrow, a.ld and
-// a.span set; a.k is not read); otherwise the block band at
-// band_k a.k in {1, 2}, which stages band_span(a.k) groups.  EPI: the
-// epilogue and the operands it reads.
+// The layout's arguments and the operands the epilogue EPI reads, as both
+// engines take them.
+template <bool STRIP, int EPI, typename T>
+inline bool hop_args_ok(const HopArgsT<T>& a) {
+  bool ok = a.V <= a.nt * kT && STRIP == (a.wrow != nullptr) &&
+            (EPI == kHopF32Add) == (a.addf != nullptr) && !(EPI == kHopF32Add && a.add) &&
+            (EPI == kHopSkipAdd) == (a.post != nullptr) &&
+            (EPI == kHopSkipProj) == (a.postf != nullptr);
+  if (STRIP)
+    return ok && a.ld > 0 && a.ld % 16 == 0 && a.ld <= a.nt * kT && a.span >= a.ld / 16 &&
+           a.span <= 64;
+  return ok && a.k >= 1 && a.k <= 2;
+}
+
+// One engine launch over the plan's grid (ops/hop.py hop_plan).  bf16: cc
+// columns per chunk (16, 32 or 64, dividing C); float32: the float32
+// engine (band_hop_f32.cuh), cc 128.  grid blocks of per_block items
+// each.  STRIP: L in its strip form (a.wrow, a.ld and a.span set; a.k is
+// not read); otherwise the block band at band_k a.k in {1, 2}, of which the
+// bf16 engine stages band_span(a.k) groups.  EPI: the epilogue and the
+// operands it reads.
 template <bool STRIP = false, int EPI = kHopAdd, typename T>
 inline cudaError_t launch_band_hop(const HopArgsT<T>& a0, int cc, int grid, int per_block,
                                    cudaStream_t stream) {
-  HopArgsT<T> a = a0;
-  if (!STRIP) a.span = band_span(a.k);
-  const long items = (long)a.nt * (a.C / (cc > 0 ? cc : 1));
-  bool bad = cc <= 0 || a.C % cc || grid <= 0 || per_block <= 0 ||
-             (long)grid * per_block < items || a.V > a.nt * kT ||
-             STRIP != (a.wrow != nullptr) || (EPI == kHopF32Add) != (a.addf != nullptr) ||
-             (EPI == kHopF32Add && a.add) || (EPI == kHopSkipAdd) != (a.post != nullptr) ||
-             (EPI == kHopSkipProj) != (a.postf != nullptr);
-  if (STRIP)
-    bad = bad || a.ld <= 0 || a.ld % 16 || a.ld > a.nt * kT || a.span < a.ld / 16 ||
-          a.span > 64;
-  else
-    bad = bad || a.k < 1 || a.k > 2;
-  if (bad) return cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.y) |
-       reinterpret_cast<uintptr_t>(a.add) | reinterpret_cast<uintptr_t>(a.post)) % 16 ||
-      (reinterpret_cast<uintptr_t>(a.addf) | reinterpret_cast<uintptr_t>(a.postf)) % 8)
-    return cudaErrorMisalignedAddress;
-  const size_t smem = band_hop_smem(cc, a.span, (int)sizeof(T));
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  switch (cc) {
-    case 16: return launch_band_hop_cc<T, 16, STRIP, EPI>(a, grid, per_block, smem, stream);
-    case 32: return launch_band_hop_cc<T, 32, STRIP, EPI>(a, grid, per_block, smem, stream);
-    case 64:
-      if constexpr (sizeof(T) == 2)
-        return launch_band_hop_cc<T, 64, STRIP, EPI>(a, grid, per_block, smem, stream);
+  if (!hop_args_ok<STRIP, EPI>(a0)) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    return launch_band_hop_f32<STRIP, EPI>(a0, cc, grid, per_block, stream);
+  } else {
+    HopArgsT<T> a = a0;
+    if (!STRIP) a.span = band_span(a.k);
+    const long items = (long)a.nt * (a.C / (cc > 0 ? cc : 1));
+    if (cc <= 0 || a.C % cc || grid <= 0 || per_block <= 0 || (long)grid * per_block < items)
       return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.y) |
+         reinterpret_cast<uintptr_t>(a.add) | reinterpret_cast<uintptr_t>(a.post)) % 16 ||
+        (reinterpret_cast<uintptr_t>(a.addf) | reinterpret_cast<uintptr_t>(a.postf)) % 8)
+      return cudaErrorMisalignedAddress;
+    const size_t smem = band_hop_smem(cc, a.span);
+    if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+    switch (cc) {
+      case 16: return launch_band_hop_cc<T, 16, STRIP, EPI>(a, grid, per_block, smem, stream);
+      case 32: return launch_band_hop_cc<T, 32, STRIP, EPI>(a, grid, per_block, smem, stream);
+      case 64: return launch_band_hop_cc<T, 64, STRIP, EPI>(a, grid, per_block, smem, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

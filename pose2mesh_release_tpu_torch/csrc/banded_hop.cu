@@ -6,19 +6,21 @@
 //
 // Layout: band (2k+1, nt, T, T); x and y (V, C) row-major with C = B*F a
 // multiple of 16 and V <= nt*T; all bf16, or all float32 (the float32
-// instances, the `f32` argument: the products by 3xTF32 as in
-// band_hop.cuh, nothing rounded).  Rows >= V read as zero and are never
-// written (the training layout keeps the real row count; the deploy layout
-// has V = nt*T).
+// instances, the `f32` argument: exact float32 FFMA over the band's
+// nonzeros, nothing rounded).  Rows >= V read as zero and are never written
+// (the training layout keeps the real row count; the deploy layout has V =
+// nt*T).
 //
-// The kernel is the banded hop engine of band_hop.cuh with alpha = 1 and no
-// added term: one launch per hop, float32 accumulation, rounded once to bf16
-// as the TPU kernel rounds it.  Its design and bound are in that header.
+// The kernel is the banded hop engine of band_hop.cuh (bf16; float32 on
+// band_hop_f32.cuh, after its list pass) with alpha = 1 and no added term:
+// one launch per hop, float32 accumulation, rounded once to bf16 as the TPU
+// kernel rounds it.
+// Its design and bound are in those headers.
 #include "band_hop.cuh"
 
 using namespace p2m;
 
-// cc: column chunk (16, 32 or 64 dividing C; at float32 16 or 32); grid
+// cc: column chunk (16, 32 or 64 dividing C; at float32 128); grid
 // blocks of per_block (row tile, chunk) items each, from ops/hop.py
 // hop_plan.  f32: the operands are float32, else bf16.  Returns a
 // cudaError_t.

@@ -6,7 +6,7 @@
 // read as the three K-blocks of the basis-major W (3F, Np) = [W0; W1; W2];
 // nothing is concatenated.  The operand type T is bf16 (float32
 // accumulation, one rounding to bf16) or float32 (the float32 instances:
-// 3xTF32 products, see band_hop.cuh, and nothing rounded); every operand and
+// 3xTF32 products, band_hop.cuh mma_tile_f32, and nothing rounded); every operand and
 // output but the float32 scratch and statistics is of type T.
 // Used by the training conv K1 (csrc/fused_cheby_train.cu), the group
 // deploy conv (csrc/fused_cheby.cu) and the strip and window convs in basis

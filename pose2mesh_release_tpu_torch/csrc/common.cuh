@@ -1,6 +1,6 @@
 // Shared pieces of the banded Chebyshev-conv kernels: the operand types
 // (bf16, or float32 for the float32 instances), the row-tile size, the block
-// shape and the element access both types share.
+// shape, the element access both types share and the hop engines' arguments.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +40,27 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
+
+// The hop engines' arguments (band_hop.cuh bf16, band_hop_f32.cuh float32)
+// and their epilogues (the template parameter EPI of launch_band_hop).
+constexpr int kHopAdd = 0, kHopF32Add = 1, kHopSkipAdd = 2, kHopSkipProj = 3;
+
+template <typename T>
+struct HopArgsT {
+  const T* band;  // the block band, or the strip form (STRIP)
+  const T* x;
+  const T* add;  // add operand; null: beta is not used (not with kHopF32Add)
+  T* y;
+  float alpha, beta;
+  int V, nt, k, C;               // k: the block band's band_k
+  const float* addf = nullptr;   // kHopF32Add: the float32 add operand (V, C)
+  const int* wrow = nullptr;     // STRIP: v0(t, w), the warps' source rows (nt, 8)
+  int relu = 0;                  // ReLU after the add
+  int ld = 0, span = 0;          // STRIP: Wd, the staged 16-row groups of a row tile
+  const T* post = nullptr;       // kHopSkipAdd: (V, C) added after the activation
+  const float* postf = nullptr;  // kHopSkipProj: float32 (V, C) added after the activation
+};
+using HopArgs = HopArgsT<bf16>;
 
 }  // namespace p2m
 

@@ -17,8 +17,8 @@
 // = [W0^T; W1^T; W2^T] with each block's rows padded to Fo_pad, Gw = 3*Fo_pad
 // rounded up to 64 and Fp = F rounded up to 64, zero elsewhere; bf16 operands,
 // float32 sums; or float32 operands (the float32 instances, the `f32`
-// argument: g1 and h2 not rounded, every product by 3xTF32 as in
-// band_hop.cuh, A's staged row stride BK + 4 and a two-stage dW ring).
+// argument: g1 and h2 not rounded, the hops by exact FFMA
+// (band_hop_f32.cuh), dx and dW by 3xTF32 (band_hop.cuh mma_tile_f32), A's staged row stride BK + 4 and a two-stage dW ring).
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1-2. g1 and h2: two launches of the banded hop engine (band_hop.cuh) over

@@ -11,8 +11,8 @@
 // zero-padded to Fo_pad (Fo rounded up to 16); bias (Fo,); scratch a and p1
 // (nt*T, B, Fo_pad) float32 (one (2, ...) buffer), p2 and t (nt*T, B, Fo_pad)
 // bf16; out (nt*T, B, Fo_pad) bf16; or every bf16 tensor float32 (the
-// float32 instances, the `f32` argument: nothing rounded, the products by
-// 3xTF32 as in band_hop.cuh).  Where Fo < Fo_pad (no SMPL conv) the wrapper
+// float32 instances, the `f32` argument: nothing rounded, the hops by exact
+// FFMA (band_hop_f32.cuh), the projection by 3xTF32).  Where Fo < Fo_pad (no SMPL conv) the wrapper
 // narrows out to (nt*T, B, Fo) with one copy.
 //
 // Design, in launches on one stream (the wrapper counts them as one call):

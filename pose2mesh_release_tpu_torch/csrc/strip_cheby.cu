@@ -20,8 +20,8 @@
 // Fs), or (Vp, B, fo_pad) for the skip add in commuted order; skip_w (Fs,
 // Np) basis, (Fs, fo_pad) commuted; all bf16, or all float32 (the float32
 // instances, the `f32` argument: nothing rounded between the stages, as the
-// TPU kernel's float32 scratch keeps them; the products by 3xTF32 as in
-// band_hop.cuh).
+// TPU kernel's float32 scratch keeps them; the hops by exact FFMA
+// (band_hop_f32.cuh), the projections by 3xTF32).
 //
 // Design, in launches on one stream (the wrapper counts them as one call),
 // the hops on the banded hop engine (band_hop.cuh, its strip layout: the

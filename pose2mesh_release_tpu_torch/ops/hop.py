@@ -8,11 +8,14 @@ accumulates in float32 and rounds once to x's dtype (bf16, or float32: the
 float32 instance, no rounding; `fused_cheby.KERNEL_DTYPES`).
 
 `hop` is the kernel wrapper: the plain PyTorch version for a tensor on the
-CPU, the CUDA kernel (the banded hop engine, csrc/band_hop.cuh, one launch
-per hop as `hop_plan` lays it out) for a tensor on the card (counted in
-`launches`), and no fallback.  `banded_hop` is differentiable: L is
-symmetric, so its backward is the same hop on the cotangent, and the band
-gets no gradient.
+CPU, the CUDA kernel (the banded hop engine, csrc/band_hop.cuh for bf16 and
+csrc/band_hop_f32.cuh for float32, as `hop_plan` lays it out: one launch
+per hop, two CUDA kernels at float32, its list pass and the stream) for a
+tensor on the card (counted in `launches`), and no fallback.
+`hop_nonzeros` mirrors the float32 engine's list of a warp's nonzeros (its
+order and its batches) for the tests; nothing on the card's path calls it.
+`banded_hop` is differentiable: L is symmetric, so its backward is the same
+hop on the cotangent, and the band gets no gradient.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,8 +33,9 @@ from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _T, _check_cuda, _ptr, _raise_on, _stream
 from .spmm import band_hop
 
-__all__ = ["HopLayout", "HopPlan", "banded_hop", "band_span", "hop", "hop_layout", "hop_plain",
-           "hop_plan", "hop_smem", "launches"]
+__all__ = ["F32HopPlan", "HopLayout", "HopNonzeros", "HopPlan", "banded_hop", "band_span", "hop",
+           "hop_f32_smem", "hop_layout", "hop_nonzeros", "hop_plain", "hop_plan", "hop_smem",
+           "launches"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"banded_hop": 0}
@@ -44,8 +49,8 @@ def hop_plain(band_val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return band_hop(band_val.to(dt), x2).to(dt)[:V].reshape(x.shape)
 
 
-# the engine's constants (csrc/band_hop.cuh): pipeline stages of x chunks,
-# blocks per SM its registers allow, and the shared memory of one SM
+# the bf16 engine's constants (csrc/band_hop.cuh): pipeline stages of x
+# chunks, blocks per SM its registers allow, and the shared memory of one SM
 _HOP_STAGES = 2
 _HOP_BLOCKS_PER_SM = 2  # kHopBlocksPerSm
 HOP_CAP = 12  # nonzero band sub-tiles a warp keeps in registers (kHopCap)
@@ -53,21 +58,34 @@ MAX_SPAN = 64  # staged 16-row groups of a row tile: the bits of the engine's ma
 _SM_SMEM = 233472
 _MAX_BLOCK_SMEM = 232448  # kMaxSmem: the dynamic shared memory one block may use
 _BLOCK_SMEM_RESERVED = 1024 + 128  # the runtime's per-block reserve + static masks
-# the chunk widths the engine's instances take, by operand element size
-# (bf16 2 bytes, float32 4: its 64-column instance would not fit the ring)
-_HOP_CHUNKS = {2: (64, 32, 16), 4: (32, 16)}
+_HOP_CHUNKS = (64, 32, 16)  # the bf16 engine's chunk widths
+# the float32 engine's (csrc/band_hop_f32.cuh): entries of a warp's nonzero
+# list, columns of a chunk
+F32_LIST_CAP = 256  # kF32ListCap
+F32_CHUNK = 128  # kF32Chunk
+_WARPS = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class HopPlan:
     """A launch of the banded hop engine: `cc`-column chunks, `grid` blocks
-    of `per_block` (row tile, chunk) items each, `smem` bytes of dynamic
-    shared memory per block."""
+    of `per_block` (row tile, chunk) items each, `smem` bytes of shared
+    memory per block (the bf16 engine's dynamic x ring, the float32
+    engine's static lists)."""
     cc: int
     grid: int
     per_block: int
     smem: int
     items: int
+
+
+@dataclasses.dataclass(frozen=True)
+class F32HopPlan(HopPlan):
+    """A launch of the float32 engine: also `cap` entries of a warp's
+    nonzero list and `band_bytes`, the band rows its list pass reads, each
+    row tile's once (T rows of `span` x 16 float32 columns)."""
+    cap: int
+    band_bytes: int
 
 
 def band_span(k: int) -> int:
@@ -78,35 +96,56 @@ def band_span(k: int) -> int:
     return (2 * k + 1) * _T // 16
 
 
-def hop_smem(cc: int, span: int, esize: int = 2) -> int:
-    """Dynamic shared memory of the engine's x ring for `span` staged 16-row
-    groups of `esize`-byte elements (band_hop_smem)."""
-    return _HOP_STAGES * span * 16 * (cc + 8) * esize
+def hop_smem(cc: int, span: int) -> int:
+    """Dynamic shared memory of the bf16 engine's x ring for `span` staged
+    16-row groups (band_hop_smem)."""
+    return _HOP_STAGES * span * 16 * (cc + 8) * 2
+
+
+def hop_f32_smem() -> int:
+    """Static shared memory of a float32 engine block: each warp's list of
+    (source row, value) pairs and its 17 row offsets (band_hop_f32_smem)."""
+    return _WARPS * (F32_LIST_CAP * 8 + 17 * 4)
 
 
 def hop_plan(nt: int, span: int, C: int, sms: int, esize: int = 2) -> HopPlan:
     """The engine's launch for C columns of `esize`-byte elements (bf16 2,
-    float32 4) over nt row tiles that stage `span` 16-row groups each
+    float32 4) over nt row tiles of `span` 16-row source groups each
     (`band_span(k)` for the block band, `HopLayout.span` for the strip form)
-    on a card of `sms` SMs: the widest chunk dividing C that keeps
-    `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that fits one (the
-    float32 engine at band_k 2); a persistent grid of that many blocks per SM
-    walking contiguous runs of items.  A span over MAX_SPAN groups, or one no chunk fits, is refused."""
-    if C % 16 or not 0 < span <= MAX_SPAN or esize not in _HOP_CHUNKS:
+    on a card of `sms` SMs.  bf16: the widest chunk dividing C that keeps
+    `_HOP_BLOCKS_PER_SM` blocks on an SM, else the widest that fits one; a
+    persistent grid of that many blocks per SM walking contiguous runs of
+    items.  float32: `_f32_plan`.  A span over MAX_SPAN groups, or one no
+    chunk fits, is refused."""
+    if C % 16 or not 0 < span <= MAX_SPAN or esize not in (2, 4):
         raise ValueError(f"the hop engine takes C % 16 == 0, at most {MAX_SPAN} staged "
                          f"16-row groups and 2- or 4-byte elements, got C={C}, span={span}, "
                          f"esize={esize}")
-    fits = [cc for cc in _HOP_CHUNKS[esize]
-            if C % cc == 0 and hop_smem(cc, span, esize) <= _MAX_BLOCK_SMEM]
-    full = [cc for cc in fits if _HOP_BLOCKS_PER_SM
-            * (hop_smem(cc, span, esize) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
+    if esize == 4:
+        return _f32_plan(nt, span, C)
+    fits = [cc for cc in _HOP_CHUNKS if C % cc == 0 and hop_smem(cc, span) <= _MAX_BLOCK_SMEM]
+    full = [cc for cc in fits
+            if _HOP_BLOCKS_PER_SM * (hop_smem(cc, span) + _BLOCK_SMEM_RESERVED) <= _SM_SMEM]
     if not fits:
-        raise ValueError(f"no chunk of the hop engine fits {span} staged groups of "
-                         f"{esize}-byte elements in one block's shared memory")
+        raise ValueError(f"no chunk of the hop engine fits {span} staged groups in one "
+                         f"block's shared memory")
     cc = (full or fits)[0]
     items = nt * (C // cc)
     per_block = -(-items // min(items, sms * (_HOP_BLOCKS_PER_SM if full else 1)))
-    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, span, esize), items)
+    return HopPlan(cc, -(-items // per_block), per_block, hop_smem(cc, span), items)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_plan(nt: int, span: int, C: int) -> F32HopPlan:
+    """The float32 engine's launch: F32_CHUNK-column chunks (the last masked
+    where they do not divide C), one a block.  With the lists built once a
+    hop by the list pass, a block's copy of its warps' lists costs little,
+    and one chunk a block measured faster than runs of 2, 4 or 8 at every
+    SMPL hop shape (tools/hop_sweep.py): many short blocks balance the rows'
+    unequal lengths."""
+    items = nt * -(-C // F32_CHUNK)
+    return F32HopPlan(F32_CHUNK, items, 1, hop_f32_smem(), items, F32_LIST_CAP,
+                      nt * _T * span * 16 * 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +214,42 @@ def hop_layout(nt: int, k: int = 1, off=None, h: int = _T, wd: Optional[int] = N
         raise ValueError("the offsets of one row tile must be non-decreasing and differ "
                          "by multiples of 16")
     return HopLayout(wd, src, wd // 16, k, True)
+
+
+@dataclasses.dataclass(frozen=True)
+class HopNonzeros:
+    """A warp's nonzero list as the float32 engine builds it: entry i takes
+    source row `src[i]` and value `val[i]`; row r of the warp's 16 holds
+    entries roff[r] .. roff[r + 1]; `batches` lists of F32_LIST_CAP
+    entries (one where they fit)."""
+    src: np.ndarray
+    val: np.ndarray
+    roff: tuple
+    batches: int
+
+
+def hop_nonzeros(layout: HopLayout, band_val, t: int, w: int, V: int) -> HopNonzeros:
+    """The list of warp w in row tile t (csrc/band_hop_f32.cuh hop_list):
+    its operator rows below V in order, each row's band columns in order
+    (the in-range sub-tiles j of `layout` ascending, then their 16 columns),
+    kept where the value is nonzero and the source row lies in [0, V).
+    band_val: the block band (2k+1, nt, T, T) or the strip form (nt*T, Wd),
+    as `layout` addresses it."""
+    flat = np.asarray(band_val.detach().cpu() if torch.is_tensor(band_val) else band_val,
+                      dtype=np.float32).reshape(-1)
+    rows = max(0, min(16, V - (t * _T + 16 * w)))
+    subs = [layout.subtile(t, w, j) for j in layout.subtiles(t)]
+    col = np.arange(16)
+    idx = np.array([[off + r * layout.ld + col for off, _ in subs] for r in range(rows)],
+                   dtype=np.int64).reshape(rows, 16 * len(subs))
+    src = np.broadcast_to(np.concatenate([x0 + col for _, x0 in subs]), idx.shape)
+    val = flat[idx]
+    keep = (val != 0) & (src >= 0) & (src < V)
+    counts = keep.sum(1)
+    roff = tuple(int(v) for v in np.concatenate([[0], np.cumsum(counts)]))
+    roff += (roff[-1],) * (17 - len(roff))
+    return HopNonzeros(src[keep].astype(np.int64), val[keep], roff,
+                       max(1, -(-roff[-1] // F32_LIST_CAP)))
 
 
 @functools.cache

@@ -14,7 +14,8 @@ hop K4, the strip and window convs, K1, K2, K1 with keep_basis), and with
 that the checkout has; K4, K5 and K6 only where its chip_smoke checks them
 in float32), with that checkout's own code.  Prints the card's name, power limit, SM clock, power
 draw and temperature before and after each run, then one line
-`AB {"tree", "ok", "ms": {kernel: ms summed over one pass}}`.  A run that
+`AB {"tree", "ok", "ms": {kernel: ms summed over one pass}, "rows": {"tag
+kernel": ms}}`.  A run that
 fails a kernel check exits non-zero.  Needs the card.
 """
 from __future__ import annotations
@@ -77,7 +78,9 @@ for r in rows:
     ms[r["name"]] = ms.get(r["name"], 0.0) + r["ms"]
 print(subprocess.run(SMI, capture_output=True, text=True).stdout.strip(), flush=True)
 ok = all(r["ok"] for r in rows)
-print("AB " + json.dumps({"tree": os.getcwd(), "ok": ok, "ms": ms}), flush=True)
+print("AB " + json.dumps({"tree": os.getcwd(), "ok": ok, "ms": ms,
+                         "rows": {r["tag"] + " " + r["name"]: r["ms"] for r in rows}}),
+      flush=True)
 sys.exit(0 if ok else 1)
 """
 

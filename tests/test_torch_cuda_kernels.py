@@ -29,10 +29,17 @@ test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Every kernel also runs its float32 instance (3xTF32 products, nothing
-rounded) on the same cases: the group and commuted deploy convs, K1 (with
+Every kernel also runs its float32 instance (nothing rounded: the hops by
+exact FFMA on the float32 hop engine, csrc/band_hop_f32.cuh, the products
+by 3xTF32) on the same cases: the group and commuted deploy convs, K1 (with
 keep_basis), K2, the hop K4, the strip conv (both orders, every epilogue,
-its launches apart) and the window conv (at nt = 2k+1 too).
+its launches apart) and the window conv (at nt = 2k+1 too).  The float32
+hop engine's own cases: K4 at a row count not a multiple of 16 and 16, 48
+and 8208 columns (a chunk masked), and a band_k 2 row tile filled dense
+(lists in batches); each hop epilogue (alpha / beta / add, the ReLU, the
+float32 add, the skip add and the skip projection) through the conv that
+runs it, on both layouts of L, with random and dense bands, run twice to
+equal bits; the halo hop at those widths.
 
 Tolerance: relative L2 error <= 1e-2 of the bf16 kernel against the plain
 version computed in float32 from the same bf16 inputs; <= 1e-5 of the
@@ -406,12 +413,16 @@ def shaped_band(op, kind: str, seed: int = 0) -> torch.Tensor:
     sub-tile skip: "dense" fills row tile 1's diagonal and first neighbour
     blocks (more nonzero 16 x 16 sub-tiles per warp than it keeps in
     registers); "corner" leaves row tile 1 one nonzero in the corner of three
-    sub-tiles; "zero_tile" makes row tile 1 all zero; "random" keeps op's."""
+    sub-tiles; "zero_tile" makes row tile 1 all zero; "dense_all" fills
+    every block of row tile 1 (the float32 engine's lists in batches);
+    "random" keeps op's."""
     band = op.band_val.float().clone()
     k = band.shape[0] // 2
     g = torch.Generator().manual_seed(seed)
     if kind == "dense":
         band[k - 1:k + 1, 1] = torch.randn(2, 128, 128, generator=g) * 0.05
+    elif kind == "dense_all":
+        band[:, 1] = torch.randn(2 * k + 1, 128, 128, generator=g) * 0.05
     elif kind == "corner":
         band[:, 1] = 0.0
         band[k, 1, 15, 15] = 0.7
@@ -433,6 +444,10 @@ def shaped_band(op, kind: str, seed: int = 0) -> torch.Tensor:
     (2, 900, 1, 16, False, "corner"),
     (1, 900, 3, 16, False, "zero_tile"),  # C = 48
     (2, 1849, 4, 48, True, "zero_tile"),  # C = 192
+    (1, 1001, 1, 16, False, "random"),    # V not a multiple of 16, C = 16
+    (2, 1001, 3, 16, True, "random"),     # C = 48
+    (1, 1001, 57, 144, False, "random"),  # C = 8208: the float32 engine's last chunk masked
+    (2, 1001, 2, 64, False, "dense_all"),  # 640 nonzeros a row: float32 lists in batches
 ])
 @DTYPES
 def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind, dtype):
@@ -454,8 +469,74 @@ def test_banded_hop_kernel(cuda, k, V, B, F, deploy, kind, dtype):
         assert not y.detach()[128:256].any()
     if kind == "corner":  # row tile 1 holds three products, each exact to bf16
         assert torch.allclose(y.detach()[128:256].float(), ref[128:256], rtol=1e-2, atol=1e-3)
-    if not deploy:
+    if not deploy or dtype == torch.float32:
         assert torch.equal(hp.hop(band, x), y.detach())  # equal bits run to run
+
+
+# the float32 hop engine's epilogues, each through a conv that runs it: (conv,
+# k, strip_h, band kind).  group: z1 = L x, then alpha 2, beta -1 and the add
+# (kHopAdd); k1 and k2 the same at the training layout's row count;
+# commuted: the float32 add and the ReLU (kHopF32Add); strip commuted with a
+# skip: the post-activation add (kHopSkipAdd) and the float32 skip
+# projection (kHopSkipProj); strip basis and window: the strip layout
+F32_EPILOGUE_CASES = [
+    ("group", 1, 0, "random"), ("group", 2, 0, "dense_all"),
+    ("k1", 1, 0, "random"), ("k2", 2, 0, "dense_all"),
+    ("commuted", 1, 0, "random"), ("commuted", 2, 0, "dense_all"),
+    ("strip_skip_add", 1, 64, "random"), ("strip_skip_proj", 2, 128, "random"),
+    ("strip_basis", 1, 256, "random"), ("window", 2, 0, "dense_all"),
+]
+
+
+def f32_epilogue_case(op, conv, h, band, dev):
+    """(kernel call, plain call) of one float32 conv on op."""
+    Vp, V, B, F, Fout = op.padded_vertices, op.num_vertices, 3, 32, 40
+    x, W, b, skip, skip_w, g = inputs(op, B, [((Vp, B, F), 0.5),
+                                              ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                              ((Fout,), 0.1), ((Vp, B, Fout), 0.5),
+                                              ((2 * Fout, Fout), 1 / math.sqrt(2 * Fout)),
+                                              ((V, B, Fout), 1.0)], dev, 31, torch.float32)
+    if conv == "group":
+        return (lambda: fc.fused_cheby_conv(band, x, W, b, relu=True, skip=skip),
+                lambda: fc.fused_cheby_conv_plain(band, x, W, b, relu=True, skip=skip))
+    if conv == "k1":
+        return (lambda: ft.fused_cheby_conv_train(band, x[:V], W, b, emit_stats=True),
+                lambda: ft.fused_cheby_conv_train_plain(band, x[:V], W, b, emit_stats=True))
+    if conv == "k2":
+        return (lambda: ft.fused_cheby_conv_bwd(band, g, x[:V], W),
+                lambda: ft.fused_cheby_conv_bwd_plain(band, g, x[:V], W))
+    if conv == "commuted":
+        return (lambda: fc.fused_cheby_conv_commuted(band, x, W, b, relu=True),
+                lambda: fc.fused_cheby_conv_commuted_plain(band, x, W, b, relu=True))
+    if conv == "window":
+        win, woff = wc.window_cat(band)
+        return (lambda: wc.window_cheby_conv(win, woff, x, W, b, relu=True),
+                lambda: wc.window_cheby_conv_plain(win, woff, x, W, b, relu=True))
+    S, off = op.strip_val.to(dev), op.strip_off.to(dev)
+    mode = "basis" if conv == "strip_basis" else "commuted"
+    kw = {"mode": mode, "relu": True, "skip": None if mode == "basis" else skip}
+    if conv == "strip_skip_proj":
+        kw.update(skip=torch.cat([skip, skip], -1), skip_w=skip_w)
+    return (lambda: sc.strip_cheby_conv(S, off, h, x, W, b, **kw),
+            lambda: sc.strip_cheby_conv_plain(S, off, h, x, W, b, **kw))
+
+
+@pytest.mark.parametrize("conv,k,h,kind", F32_EPILOGUE_CASES,
+                         ids=[f"{c}-k{k}-h{h}-{kind}" for c, k, h, kind in F32_EPILOGUE_CASES])
+def test_f32_hop_engine_epilogues(cuda, conv, k, h, kind):
+    """Each float32 hop epilogue on its layout, at 1001 rows (not a multiple
+    of 16), with a random band or row tile 1 dense: within 1e-5 of the plain
+    version (the vertex rows below V), equal bits run to run."""
+    op = band_level(k, V=1001, seed=90 + k, strip_h=h)
+    band = shaped_band(op, kind).to(cuda)
+    run, plain = f32_epilogue_case(op, conv, h, band, cuda)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    got, again, want = ((t if isinstance(t, tuple) else (t,)) for t in (got, again, plain()))
+    for a, c, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and torch.equal(a, c)
+        rows = op.num_vertices if a.dim() == 3 else a.shape[0]
+        assert rel_l2(a[:rows], w[:rows]) <= F32_TOL
 
 
 @pytest.mark.parametrize("k,h,mode,F,Fout,epilogue", [
@@ -778,7 +859,8 @@ def test_strip_window_hop_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # the halo hop on 2 graph ranks: (k, V, B, F) of test_banded_hop_kernel's
 # random bands, both dtypes; one spawn of 2 gloo ranks on cuda:0 runs them all
 HALO_CASES = [(k, V, B, F, dt) for k, V, B, F in [(1, 900, 3, 16), (2, 900, 3, 48),
-                                                  (2, 1849, 5, 32), (2, 1000, 3, 16)]
+                                                  (2, 1849, 5, 32), (2, 1000, 3, 16),
+                                                  (1, 1001, 1, 16), (2, 1001, 57, 144)]
               for dt in ("bfloat16", "float32")]
 
 

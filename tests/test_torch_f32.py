@@ -2,16 +2,18 @@
 group and commuted deploy convs, K1, K2, the hop K4, the strip conv K5 and
 the window conv K6 (csrc/, `f32` argument).
 
-- The launch plans at 4-byte operands: the hop engine's x ring, the
-  projection's and dx's tiles fit a block's 227 KB of shared memory, the
-  engine keeps `_HOP_BLOCKS_PER_SM` blocks on an SM where two fit (band_k 1;
-  band_k 2 takes one), the projection tiles at most 64 columns wide.  The
-  bf16 plans stay value for value what they were before the float32
+- The launch plans at 4-byte operands: the float32 hop engine
+  (csrc/band_hop_f32.cuh) in 128-column chunks (the last masked), its
+  static lists within 48 KB, one chunk a block, and the band bytes its
+  list pass reads (the plan's `band_bytes`); the projection's and dx's tiles fit a
+  block's 227 KB of shared memory, the projection tiles at most 64 columns
+  wide.
+  The bf16 plans stay value for value what they were before the float32
   instances (the table below, taken from the bf16-only plans at the SMPL
   train and deploy shapes, and at the strip and window forms' spans of
-  SMPL's and MANO's band levels).  The float32 plans of the hop engine at
-  those spans (K4 and the window form on the block band, the strip form at
-  each level's span) fit a block too.
+  SMPL's and MANO's band levels).  The float32 hop plans at those spans
+  (K4 and the window form on the block band, the strip form at each
+  level's span) hold the same invariants.
 - The wrappers' dtype rule (`fused_cheby.check_dtypes`): bfloat16 and
   float32 taken by every kernel; float16, float64 and mixed dtypes refused,
   also by the K4, strip and window wrappers themselves.
@@ -171,26 +173,31 @@ def test_bf16_plans_unchanged(kind):
         assert _plan(key) == BF16_PLANS[key], key
 
 
+def check_f32_hop_plan(nt: int, span: int, C: int):
+    """The float32 engine's plan for C columns over nt row tiles of `span`
+    source groups: its chunks, its grid of one chunk a block, and the band
+    bytes it reckons."""
+    p = hp.hop_plan(nt, span, C, SMS, 4)
+    assert isinstance(p, hp.F32HopPlan) and p.cap == hp.F32_LIST_CAP
+    assert p.smem == hp.hop_f32_smem() <= 48 * 1024  # static shared memory
+    assert p.cc == hp.F32_CHUNK == 128
+    nch = -(-C // p.cc)
+    assert p.items == nt * nch
+    assert p.per_block == 1 and p.grid == p.items  # one chunk a block
+    assert p.band_bytes == nt * 128 * span * 16 * 4  # the list pass: each row tile once
+    return p
+
+
 @pytest.mark.parametrize("V,fin,fout", CONVS)
 @pytest.mark.parametrize("k", [1, 2])
 def test_f32_plans_fit_shared_memory(V, fin, fout, k):
     """The float32 plans of one SMPL conv (deploy at Vp rows, train at V):
-    every launch fits a block's shared memory; the engine stages float32 x
-    in 16- or 32-column chunks, two blocks an SM at band_k 1 and one at
-    band_k 2; the projection's tiles are at most 64 wide and two of its
-    blocks fit an SM; dx keeps two blocks, dW's static rings stay under
-    48 KB; the float32 plan never takes more columns of a chunk or a tile
-    than the bf16 plan."""
+    the hop engine's plan holds its invariants (check_f32_hop_plan); the
+    projection's tiles are at most 64 wide and two of its blocks fit an SM;
+    dx keeps two blocks, dW's static rings stay under 48 KB."""
     nt = NT[V]
-    span = hp.band_span(k)
     for C in (B * fin, B * -(-fout // 16) * 16):
-        p32, p16 = hp.hop_plan(nt, span, C, SMS, 4), hp.hop_plan(nt, span, C, SMS)
-        assert p32.smem == hp.hop_smem(p32.cc, span, 4) <= BLOCK_SMEM
-        assert p32.cc in (16, 32) and p32.cc <= p16.cc and C % p32.cc == 0
-        blocks = SM_SMEM // (p32.smem + RESERVED)
-        assert blocks >= (hp._HOP_BLOCKS_PER_SM if k == 1 else 1)
-        assert p32.grid <= SMS * min(blocks, hp._HOP_BLOCKS_PER_SM)
-        assert p32.grid * p32.per_block >= p32.items == nt * (C // p32.cc)
+        check_f32_hop_plan(nt, hp.band_span(k), C)
     for M, stats in ((nt * 128 * B, False), (V * B, True)):
         pp = fc.proj_plan(M, fin, fout, SMS, stats=stats, esize=4)
         assert pp.bn <= 64 and pp.np % pp.bn == 0 and pp.np >= fout
@@ -210,23 +217,15 @@ def test_f32_plans_fit_shared_memory(V, fin, fout, k):
 @pytest.mark.parametrize("form", ["band_k1", "band_k2", "strip"])
 def test_f32_engine_plans_at_the_path_spans(V, form):
     """The float32 plans of the hop engine at one level of SMPL or MANO: K4
-    and the window form on the block band (24 staged groups at band_k 1, 40
-    at band_k 2) and the strip form at the level's span: every launch fits a
-    block's shared memory in 16- or 32-column chunks, never wider than the
-    bf16 plan's; two blocks an SM up to the strip form's 30 groups, one at
-    40."""
+    and the window form on the block band (24 source groups at band_k 1, 40
+    at band_k 2) and the strip form at the level's span hold the plan's
+    invariants (check_f32_hop_plan)."""
     nt, strip_span, block_cols, strip_cols = PATH_LEVELS[V]
     span, cols = {"band_k1": (hp.band_span(1), block_cols),
                   "band_k2": (hp.band_span(2), block_cols),
                   "strip": (strip_span, strip_cols)}[form]
     for C in cols:
-        p32, p16 = hp.hop_plan(nt, span, C, SMS, 4), hp.hop_plan(nt, span, C, SMS)
-        assert p32.smem == hp.hop_smem(p32.cc, span, 4) <= BLOCK_SMEM
-        assert p32.cc in (16, 32) and p32.cc <= p16.cc and C % p32.cc == 0
-        blocks = SM_SMEM // (p32.smem + RESERVED)
-        assert blocks >= (hp._HOP_BLOCKS_PER_SM if span <= 30 else 1)
-        assert p32.grid <= SMS * min(blocks, hp._HOP_BLOCKS_PER_SM)
-        assert p32.grid * p32.per_block >= p32.items == nt * (C // p32.cc)
+        check_f32_hop_plan(nt, span, C)
 
 
 @pytest.mark.parametrize("fin,fout,fs", STRIP_CONVS)
@@ -248,16 +247,19 @@ def test_f32_strip_projection_plans(fin, fout, fs):
 
 def test_f32_smem_formulas():
     """The shared-memory formulas at 4-byte elements, as csrc computes them
-    (band_hop_smem, proj_smem<float>, dx_smem<float>, the dW rings); the
-    engine's widest span, 64 groups, fits one block at 16-column chunks."""
-    assert hp.hop_smem(16, 24, 4) == 2 * 24 * 16 * 24 * 4
-    assert hp.hop_smem(32, 40, 4) == 2 * 40 * 16 * 40 * 4
+    (band_hop_f32_smem: 8 warps' lists of 8-byte entries and 17 row
+    offsets; proj_smem<float>, dx_smem<float>, the dW rings); the engine's
+    widest span, 64 groups, plans as any other (no x ring); C not a
+    multiple of 128 masks the last chunk."""
+    assert hp.hop_f32_smem() == 8 * (hp.F32_LIST_CAP * 8 + 17 * 4) == 16928
+    assert hp.hop_smem(16, 24) == 2 * 24 * 16 * 24 * 2
     assert fc.proj_smem(64, 128, False, 4) == 3 * (128 * 36 + 32 * 72) * 4
     assert fc.proj_smem(16, 16, True, 4) == 3 * (128 * 36 + 32 * 24) * 4 + 2 * 8 * 16 * 4
     assert ft.dx_smem(128, 4) == 3 * (128 * 36 + 32 * 72) * 4 + 8 * 128 * 4
     assert ft.dw_smem(4) == 2 * 2 * 32 * 72 * 4 and ft.dw_smem() == 2 * 3 * 32 * 72 * 2
     widest = hp.hop_plan(8, hp.MAX_SPAN, 1024, SMS, 4)
-    assert (widest.cc, widest.smem) == (16, hp.hop_smem(16, 64, 4)) and widest.smem <= BLOCK_SMEM
+    assert (widest.cc, widest.smem) == (128, hp.hop_f32_smem())
+    assert hp.hop_plan(8, 24, 8208, SMS, 4).items == 8 * 65
     with pytest.raises(ValueError):
         hp.hop_plan(8, 24, 64, SMS, esize=8)
     with pytest.raises(ValueError):
