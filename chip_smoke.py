@@ -119,7 +119,10 @@ Phases (any failure exits non-zero):
      every epilogue, the window conv K6; the band_k = 2 level, K5 also at
      64-row strip tiles) and K4, K5, K6 at MANO's band level, relative L2
      <= 1e-5, K1, K2, K4, K5 and K6 run twice to equal bits, and its ms,
-     plain ms, bound, split and, for its hops on the float32 hop engine
+     plain ms, bound, split (each GEMM split, the projection and K2's dx
+     and dW on wgmma, csrc/gemm_f32.cuh, beside the float32 torch.matmul of
+     its shapes with TF32 off and its own bound; summed over one SMPL pass
+     per kernel) and, for its hops on the float32 hop engine
      (csrc/band_hop_f32.cuh), the level's nonzero lists (entries a warp,
      mean and max; batches) and the launch plan with its reckoned band
      bytes; the float32 K4 a forward beside torch.sparse.mm's (two calls a
@@ -305,10 +308,11 @@ PATHS = {
     "unfused": ({"fused": False}, "banded_hop", 20),
 }
 # the CUDA launches of the hop engine (bf16, or float32: band_hop_f32_kernel,
-# each after its list pass band_hop_f32_lists) and the projection GEMM in one
-# forward of each further path: strip 7 basis-order convs x 3 + 3 commuted x
+# each after its list pass band_hop_f32_lists) and the projection GEMM (float32:
+# cheby_proj_f32_kernel) in one forward of each further path: strip 7 basis-order convs x 3 + 3 commuted x
 # 3, window 10 x 3, unfused 10 x 2 hops
-ENGINE_KERNELS = ("band_hop_kernel", "band_hop_f32_kernel", "cheby_proj_kernel")
+ENGINE_KERNELS = ("band_hop_kernel", "band_hop_f32_kernel", "cheby_proj_kernel",
+                  "cheby_proj_f32_kernel")
 PATH_CUDA_LAUNCHES = {"strip": 30, "window": 30, "unfused": 20}
 TRAIN_KERNELS = ("fused_cheby_conv_train", "fused_cheby_conv_bwd")
 # The SMPL deploy forward's band convs, in forward order:
@@ -579,6 +583,9 @@ def check_conv(op, name, fin, fout, epilogue, gen, tag, dtype=None):
     else:
         run, _ = fc.commuted_launcher(band, x, W, b, kw["relu"])
         row["split_ms"] = split_ms(tag, "commuted", run, fc.COMMUTED_STAGES, row["ms"])
+    if dtype == torch.float32:
+        gemm_splits(row, tag, name, x.shape[0] * BATCH, V * BATCH, fin, fout,
+                    fs=0 if skip_w is None else skip.shape[-1])
     return row
 
 
@@ -588,6 +595,61 @@ def split_ms(tag, label, run, stages, whole_ms) -> dict:
     log(f"  {tag:10s} {label} split ms: " + " ".join(f"{n}={t:.4f}" for n, t in ms.items())
         + f" sum={sum(ms.values()):.4f} (whole call {whole_ms:.4f})")
     return ms
+
+
+def gemm_pairs(name, M, fin, fout, mode="basis", fs=0):
+    """{split: [(a_shape, b_shape, a_transposed)]}, each split named as its
+    launches apart (split_ms): the float32 products of one conv over the M
+    rows it computes, as float32 torch.matmul calls would take them: the
+    projection [u | z1 | z2] @ W (commuted order: x @ [W0 - W2 | W1 | W2])
+    plus skip @ skip_w where it has one; K2's dx G @ W^T and dW u^T @ G,
+    G = [g, g1, h2] (u^T given as u's shape, transposed)."""
+    fo = -(-fout // 16) * 16
+    skip = [((M, fs), (fs, fout), False)] if fs else []
+    if name == "fused_cheby_conv_bwd":
+        return {"dx": [((M, 3 * fo), (3 * fo, fin), False)],
+                "dW": [((M, fin), (M, 3 * fo), True)]}
+    if name == "fused_cheby_conv_commuted" or mode == "commuted":
+        return {"proj": [((M, fin), (fin, 3 * fo), False)] + skip}
+    return {"proj": [((M, 3 * fin), (3 * fin, fout), False)] + skip}
+
+
+def gemm_library(pairs) -> float:
+    """ms of the float32 torch.matmul calls (TF32 off) of `pairs` on random
+    operands, timed together over 20 runs; the port never calls them."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ops = [(torch.randn(*a, generator=gen, device="cuda"), torch.randn(*b, generator=gen,
+                                                                        device="cuda"), t)
+           for a, b, t in pairs]
+    ms = cuda_ms(lambda: [torch.matmul(x.t() if t else x, y) for x, y, t in ops], 20)
+    del ops
+    return ms
+
+
+def gemm_bound(pairs, M: int, V_rows: int):
+    """(bound_ms, bound_by) of `pairs` at the 3xTF32 rate, each operand read
+    once and the output written once, the M rows counted at the real V_rows."""
+    flops = bytes_ = 0
+    for (ar, ac), (br, bc), t in pairs:
+        m, k, n = (ac, ar, bc) if t else (ar, ac, bc)
+        scale = lambda d: d * V_rows // M if d == M else d  # noqa: E731
+        flops += 2 * scale(m) * scale(k) * n
+        bytes_ += 4 * (scale(ar) * ac + scale(br) * bc + scale(m) * n)
+    return bound(flops, bytes_, f32=True)
+
+
+def gemm_splits(row, tag, name, M, V_rows, fin, fout, mode="basis", fs=0) -> None:
+    """The float32 row's GEMM splits beside their yardsticks: for each, its
+    launches' ms (row["split_ms"]), the float32 torch.matmul of the same
+    shapes (TF32 off) and the split's own bound; into the row and printed."""
+    row["gemm_library_ms"], row["gemm_bound_ms"] = {}, {}
+    for split, pairs in gemm_pairs(name, M, fin, fout, mode, fs).items():
+        lib = gemm_library(pairs)
+        bms, by = gemm_bound(pairs, M, V_rows)
+        row["gemm_library_ms"][split], row["gemm_bound_ms"][split] = lib, bms
+        log(f"  {tag:10s} float32 {split}: {row['split_ms'][split]:.4f} ms, torch.matmul "
+            f"(TF32 off) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
 def check_train_conv(op, fin, fout, fold, stats, gen, tag, dtype=None):
@@ -648,6 +710,8 @@ def check_train_conv(op, fin, fout, fold, stats, gen, tag, dtype=None):
     k2["split_ms"] = split_ms(tag, "K2", run, ft.BWD_STAGES, k2["ms"])
     if dtype is not None:  # the ordered, atomic-free reductions: equal bits twice
         from pose2mesh_release_tpu_torch.ops.hop import band_span
+        for row in (k1, k2):
+            gemm_splits(row, tag, row["name"], V * BATCH, V * BATCH, fin, fout)
         f32_hop(k1, op, band_span(op.band_k), BATCH * fin)
         f32_hop(k2, op, band_span(op.band_k), BATCH * -(-fout // 16) * 16)
         for row, fn in ((k1, lambda: ft.fused_cheby_conv_train(
@@ -865,6 +929,8 @@ def check_strip(op, fin, fout, epilogue, gen, tag, dtype=None):
     run, _ = sc.strip_launcher(S, off, h, x, W, b, mode, kw["relu"], skip, skip_w)
     row["split_ms"] = split_ms(tag, f"strip {mode}", run, sc.STRIP_STAGES[mode], row["ms"])
     if dtype is not None:
+        gemm_splits(row, tag, "strip_cheby_conv", Vp * BATCH, V * BATCH, fin, fout, mode,
+                    0 if skip_w is None else skip.shape[-1])
         f32_hop(row, op, sc.strip_span(off, h, S.shape[1]),
                 BATCH * (fin if mode == "basis" else -(-fout // 16) * 16))
         bits_twice(row, tag, lambda: sc.strip_cheby_conv(S, off, h, x, W, b, **kw))
@@ -899,6 +965,8 @@ def check_window(op, fin, fout, epilogue, gen, tag, dtype=None):
     run, _ = wc.window_launcher(win, woff, x, W, b, kw["relu"], skip, skip_w)
     row["split_ms"] = split_ms(tag, "window", run, wc.WINDOW_STAGES, row["ms"])
     if dtype is not None:
+        gemm_splits(row, tag, "window_cheby_conv", x.shape[0] * BATCH, V * BATCH, fin, fout,
+                    fs=0 if skip_w is None else skip.shape[-1])
         f32_hop(row, op, win.shape[1] // 16, BATCH * fin)
         bits_twice(row, tag, lambda: wc.window_cheby_conv(win, woff, x, W, b, **kw))
     return row
@@ -2216,6 +2284,29 @@ def f32_kernels(by_v, mano_op, gen) -> tuple:
     return rows, train_rows, mano_rows
 
 
+def gemm_pass(rows) -> dict:
+    """The float32 GEMM splits summed over one SMPL pass of each kernel (the
+    main path's convs, tags f32main / f32strip / f32window / f32train with
+    their index): {kernel: {split: {"ms", "library_ms", "bound_ms"}}},
+    printed; the kernels' criterion is ms <= library_ms."""
+    out = {}
+    for r in rows:
+        if "gemm_library_ms" not in r or not re.fullmatch(
+                r"f32(main|strip|window|train)\d+", r["tag"]):
+            continue
+        for split, lib in r["gemm_library_ms"].items():
+            d = out.setdefault(r["name"], {}).setdefault(
+                split, {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+            d["ms"] += r["split_ms"][split]
+            d["library_ms"] += lib
+            d["bound_ms"] += r["gemm_bound_ms"][split]
+    for name, splits in out.items():
+        log(f"  float32 GEMM splits a pass, {name}: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms (torch.matmul {v['library_ms']:.4f}, bound "
+            f"{v['bound_ms']:.4f})" for k, v in splits.items()))
+    return out
+
+
 def f32_forward(deploy, mano_deploy, card) -> dict:
     """Phase 14.2: the float32 deploy forward, REQUESTS requests of batch
     BATCH on the group path (exactly 8 group + 2 commuted convs each, the
@@ -2574,7 +2665,8 @@ def f32_layer(root: str, card) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(14)
     rows, train_rows, mano_rows = f32_kernels(by_v, mano.art.mesh_ops[0], gen)
     report = {"convs": rows, "train_convs": train_rows, "mano_convs": mano_rows,
-              "mano_kernels": mano_table(mano_rows), "forward": f32_forward(deploy, mano, card)}
+              "mano_kernels": mano_table(mano_rows), "gemm_splits": gemm_pass(rows + train_rows),
+              "forward": f32_forward(deploy, mano, card)}
     del deploy, mano
     torch.cuda.empty_cache()
     setup, report["train"] = f32_train(card)
@@ -3638,7 +3730,7 @@ def main() -> int:
             props = re.search(r"Function properties for (\S+)", line)
             if props:
                 fn = kernel_label(props.group(1))
-            elif "registers" in line or "spill" in line or "error" in line:
+            elif any(w in line for w in ("registers", "spill", "error", "wgmma")):
                 report["ptxas"].append(f"ptxas {stem} {fn}: {line.strip()}")
                 log(f"  {report['ptxas'][-1]}")
 

@@ -97,83 +97,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a (16 x 8 tf32, row-major fragment) @ b (8 x 8 tf32, column-major fragment)
-__device__ __forceinline__ void mma1688(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                        unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = big + small to about 2^-22 of x, both TF32 (round to nearest)
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
-}
-
-// d += a @ b in float32 by 3xTF32: small x big + big x small + big x big (the
-// small x small term is below float32's precision) into a zeroed partial,
-// then added to d with IEEE adds.  The fragments of m16n8k8 leave d in the
-// layout of m16n8k16, so the epilogues serve both operand types.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ab)[4],
-                                           const unsigned (&as)[4], unsigned bb0,
-                                           unsigned bb1, unsigned bs0, unsigned bs1) {
-  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma1688(t, as, bb0, bb1);
-  mma1688(t, ab, bs0, bs1);
-  mma1688(t, ab, bb0, bb1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
-}
-
-// d += a @ b for one float32 k8 step: a the raw float32 A fragment of
-// m16n8k8 (rows g, g + 8, columns c, c + 4), b0 / b1 the B elements at rows
-// c / c + 4 of column g.
-__device__ __forceinline__ void mma_f32(float (&d)[4], const unsigned (&ab)[4],
-                                        const unsigned (&as)[4], float b0, float b1) {
-  unsigned bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_3xtf32(d, ab, as, bb0, bb1, bs0, bs1);
-}
-
-// the big and small TF32 parts of a raw float32 fragment
-__device__ __forceinline__ void split_frag(const unsigned* a, unsigned (&ab)[4],
-                                           unsigned (&as)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ab[i], as[i]);
-}
-
-// acc[mi][ni] += A[16 mi .. +16, 0 .. K) @ B[0 .. K, 8 ni .. +8) for float32
-// tiles in shared memory (the GEMMs' float32 k-loops): A's element (i, k) at
-// a[i * ar + k * ak] (row-major, or transposed for K2's u^T), B's (k, j) at
-// b[k * ldb + j]; 3xTF32 k8 steps, A split once per step, B once per column
-// tile.
-template <int K, int MI, int NI>
-__device__ __forceinline__ void mma_tile_f32(float (&acc)[MI][NI][4], const float* a, int ar,
-                                             int ak, const float* b, int ldb) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, c = lane & 3;
-#pragma unroll 1  // unrolled, the k8 steps' loads spill the 64-column projection
-  for (int k8 = 0; k8 < K; k8 += 8) {
-    unsigned ab[MI][4], as[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const float* r = a + (mi * 16 + g) * ar + (k8 + c) * ak;
-      const unsigned raw[4] = {__float_as_uint(r[0]), __float_as_uint(r[8 * ar]),
-                               __float_as_uint(r[4 * ak]), __float_as_uint(r[8 * ar + 4 * ak])};
-      split_frag(raw, ab[mi], as[mi]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const float* q = b + (k8 + c) * ldb + ni * 8 + g;
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) mma_f32(acc[mi][ni], ab[mi], as[mi], q[0], q[4 * ldb]);
-    }
-  }
-}
-
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

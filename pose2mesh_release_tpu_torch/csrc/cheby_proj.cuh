@@ -6,8 +6,9 @@
 // read as the three K-blocks of the basis-major W (3F, Np) = [W0; W1; W2];
 // nothing is concatenated.  The operand type T is bf16 (float32
 // accumulation, one rounding to bf16) or float32 (the float32 instances:
-// 3xTF32 products, band_hop.cuh mma_tile_f32, and nothing rounded); every operand and
-// output but the float32 scratch and statistics is of type T.
+// 3xTF32 products on wgmma, cheby_proj_f32_kernel, and nothing rounded);
+// every operand and output but the float32 scratch and statistics is of
+// type T.
 // Used by the training conv K1 (csrc/fused_cheby_train.cu), the group
 // deploy conv (csrc/fused_cheby.cu) and the strip and window convs in basis
 // order (csrc/strip_cheby.cu) after two launches of the hop engine
@@ -51,16 +52,20 @@
 //   * The tile is staged in shared memory as T and written with 16-byte
 //     stores where Fout is a multiple of the vector, element by element
 //     otherwise.
-//   * float32: the same tiles (BN at most 64: registers) and ring, A's
-//     staged row stride BK + 4 (32-bit fragment loads free of bank
-//     conflicts), m16n8k8 3xTF32 steps with the partials added in IEEE
-//     float32.
+//   * float32 (cheby_proj_f32_kernel, gemm_f32.cuh): the same 128 x BN
+//     tiles (BN up to 128), one warp-specialized block an SM: a producer
+//     warpgroup copies 32-deep k-tiles of A and W raw into a cp.async ring
+//     and splits each element once into double-buffered TF32 planes (W
+//     transposed to K-major by that pass), two consumer warpgroups (64 rows
+//     each) run three wgmma.m64nBNk8 products a k8 step into a k-tile
+//     partial and one IEEE add a k-tile; the epilogues store from
+//     registers.
 // Bound on the H100: at F, Fout >= 64 the product does ~3 Fout / 2 operations
 // per byte of A, far below the 295 of the tensor cores' balance point, so
 // device memory bounds it: A0-A2 read once (M x 3F bf16), y written once.
 #pragma once
 
-#include "band_hop.cuh"
+#include "gemm_f32.cuh"
 
 namespace p2m {
 
@@ -96,10 +101,23 @@ __host__ __device__ constexpr bool proj_blocks(int epi) {
 // warps across the tile's columns: 2 for BN >= 64, else 1
 __host__ __device__ constexpr int proj_wc(int BN) { return BN >= 64 ? 2 : 1; }
 
+// the float32 instance's producer threads (two warpgroups, beside two
+// consumer warpgroups: registers rebalanced by setmaxnreg)
+constexpr int kProjProducer = 256;
+// the float32 instances' raw ring: 3 stages, 2 where 128-column planes and
+// the statistics' slots would pass a block's 227 KB
+__host__ __device__ constexpr int proj_f32_stages(int BN, bool stats) {
+  return BN == 128 && stats ? 2 : 3;
+}
+
 // Dynamic shared memory of the projection (ops/fused_cheby.py proj_smem):
-// the ring, or the staged output tile if larger, then the statistics slots.
+// the ring, or the staged output tile if larger, then the statistics slots
+// (float32: the planes and the raw ring, then the slots of 8 row groups).
 template <typename T>
 __host__ __device__ constexpr size_t proj_smem(int BN, int Np, bool stats) {
+  if (sizeof(T) == 4)
+    return gemm_f32_smem(kProjBM, BN, proj_f32_stages(BN, stats)) +
+           (stats ? (size_t)2 * kWarps * Np * sizeof(float) : 0);
   const size_t ring =
       (size_t)kProjStages * (kProjBM * proj_ald<T>() + kProjBK * (BN + 8)) * sizeof(T);
   const size_t tile = (size_t)kProjBM * (BN + 8) * sizeof(T);
@@ -178,8 +196,6 @@ __device__ __forceinline__ void proj_kloop(float (&acc)[MI][NI][4], const ProjAr
           }
         }
       }
-    } else {
-      mma_tile_f32<kProjBK>(acc, a_s + wr * WM * ALD, ALD, 1, b_s + wc * WN, LDB);
     }
   }
   cp_async_wait<0>();
@@ -367,22 +383,228 @@ cheby_proj_kernel(ProjArgsT<T> p) {
   }
 }
 
+// The float32 projection, warp-specialized on wgmma (gemm_f32.cuh): the
+// contract of cheby_proj_kernel (every epilogue, the persistent grid over
+// 128 x BN tiles m-major), one block an SM of two consumer warpgroups and
+// a producer warpgroup.  The producer walks the block's tiles' k-tiles in
+// one sequence (the three operands' K-blocks, or x against Wc's block s,
+// then the skip projection's), copies each raw into the ring and splits it
+// into the planes; consumer warp w owns rows 16 w .. +16 of the tile and all
+// BN columns, and stores its results straight from registers.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads + kProjProducer, 1)
+cheby_proj_f32_kernel(ProjArgsT<float> p) {
+  constexpr int NI = BN / 8, S = proj_f32_stages(BN, EPI == kEpiStats);
+  constexpr int NT = kThreads + kProjProducer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const F32Smem sm(smem, kProjBM, BN);
+  float* ssum = reinterpret_cast<float*>(smem + gemm_f32_smem(kProjBM, BN, S));  // (8, Np)
+  float* ssq = ssum + kWarps * p.Np;                                             // (8, Np)
+  if constexpr (EPI == kEpiStats)
+    for (int e = threadIdx.x; e < 2 * kWarps * p.Np; e += NT) ssum[e] = 0.0f;
+  __syncthreads();
+
+  constexpr bool kBlocks = proj_blocks(EPI);
+  const int fo = EPI == kEpiF32 ? p.Np : p.Np / 3;  // a column block of kBlocks
+  const int nn = p.Np / BN, items = (p.M + kProjBM - 1) / kProjBM * nn;
+  const int tiles = (int)blockIdx.x < items ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int K = kBlocks ? p.F : 3 * p.F, KT = (K + kF32BK - 1) / kF32BK;
+  const int KT2 = EPI == kEpiDeploy && p.skip_w ? (p.Fs + kF32BK - 1) / kF32BK : 0;
+  const int T = KT + KT2;  // k-tiles a tile
+
+  if (threadIdx.x >= kThreads) {  // the producer warpgroups
+    regs_producer();
+    const int t = threadIdx.x - kThreads;
+    auto load = [&](int st, int q) {
+      const int w = blockIdx.x + (q / T) * gridDim.x, j = q % T;
+      const int m0 = (w / nn) * kProjBM, n0 = (w % nn) * BN;
+      const bool skip_ops = j >= KT;
+      const int kt = skip_ops ? j - KT : j, s = kBlocks ? n0 / fo : 0;
+      const int lda = skip_ops ? p.Fs : p.F, Kx = skip_ops ? p.Fs : K;
+      const float* Wk = skip_ops ? p.skip_w : p.W + (long)s * p.F * fo;
+      const int ldw = kBlocks && !skip_ops ? fo : p.Np, nl = n0 - s * fo;
+      float* ra = sm.raw_a(st);
+      float* rb = sm.raw_b(st);
+      for (int e = t; e < kProjBM * kF32BK / 4; e += kProjProducer) {
+        const int r = e >> 3, c = (e & 7) * 4, kk = kt * kF32BK + c;
+        const long m = m0 + r;
+        const bool ok = m < p.M && kk < Kx;
+        const int b = ok ? kk / lda : 0;
+        const float* src = skip_ops ? p.skip : proj_operand(p, b);
+        cp_async16(ra + e * 4, ok ? src + m * lda + (kk - b * lda) : Wk, ok);
+      }
+      for (int e = t; e < kF32BK * BN / 4; e += kProjProducer) {
+        const int r = e / (BN / 4), c = (e % (BN / 4)) * 4, kk = kt * kF32BK + r;
+        cp_async16(rb + r * BN + c, kk < Kx ? Wk + (long)kk * ldw + nl + c : Wk, kk < Kx);
+      }
+    };
+    f32_produce<S, kProjProducer>(tiles * T, NT, load, [&](int st, int, int b) {
+      split_rows<kProjBM, kProjProducer>(sm.raw_a(st), sm.a_big(b), sm.a_small(b));
+      split_cols<BN, kProjProducer>(sm.raw_b(st), sm.b_big(b), sm.b_small(b),
+                                   [](float4&, int, int) {});
+    });
+    return;
+  }
+
+  // the consumer warpgroups
+  regs_consumer();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3, a_row0 = (warp / 4) * 64;
+  int q = 0;
+  for (int i = 0; i < tiles; ++i) {
+    const int w = blockIdx.x + i * gridDim.x;
+    const int m0 = (w / nn) * kProjBM, n0 = (w % nn) * BN;
+    const int s = kBlocks ? n0 / fo : 0, nl = n0 - s * fo;
+    float acc[1][NI][4];
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[0][ni][j] = 0.0f;
+    for (int kt = 0; kt < KT; ++kt) f32_consume<BN>(acc, sm, q++, a_row0, NT);
+
+    // bias (and the activation) in registers
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int f = nl + ni * 8 + 2 * cq;
+      const bool has_bias = p.bias && (!kBlocks || s == 0);
+      const float b0 = has_bias && f < p.Fout ? p.bias[f] : 0.0f;
+      const float b1 = has_bias && f + 1 < p.Fout ? p.bias[f + 1] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[0][ni][2 * h] + b0, v1 = acc[0][ni][2 * h + 1] + b1;
+        if (EPI == kEpiDeploy && p.relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        acc[0][ni][2 * h] = v0;
+        acc[0][ni][2 * h + 1] = v1;
+      }
+    }
+    for (int kt = 0; kt < KT2; ++kt) f32_consume<BN>(acc, sm, q++, a_row0, NT);  // + skip @ skip_w
+
+    if constexpr (EPI == kEpiStats) {
+      // column sums over the warp's rows (lanes of equal lane % 4), then into
+      // the (row group, column) slot this lane alone owns
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        float sm0[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (m0 + warp * 16 + gq + 8 * h >= p.M) continue;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float v = acc[0][ni][2 * h + j];
+            sm0[j] += v;
+            sq[j] += v * v;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            sm0[j] += __shfl_xor_sync(0xffffffffu, sm0[j], off);
+            sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], off);
+          }
+        if (gq == 0)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int f = n0 + ni * 8 + 2 * cq + j;
+            if (f < p.Fout) {
+              ssum[warp * p.Np + f] += sm0[j];
+              ssq[warp * p.Np + f] += sq[j];
+            }
+          }
+      }
+    }
+
+    if constexpr (EPI == kEpiDeploy) {  // the skip add in float32, every load before a store
+      if (p.skip && !p.skip_w) {
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int f = n0 + ni * 8 + 2 * cq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long m = m0 + warp * 16 + gq + 8 * h;
+            if (m >= p.M) continue;
+            if (p.Fs % 2 == 0 && f + 1 < p.Fout) {
+              const float2 v = __ldg(reinterpret_cast<const float2*>(p.skip + m * p.Fs + f));
+              acc[0][ni][2 * h] += v.x;
+              acc[0][ni][2 * h + 1] += v.y;
+            } else {
+              if (f < p.Fout) acc[0][ni][2 * h] += __ldg(p.skip + m * p.Fs + f);
+              if (f + 1 < p.Fout) acc[0][ni][2 * h + 1] += __ldg(p.skip + m * p.Fs + f + 1);
+            }
+          }
+        }
+      }
+    }
+
+    // stores straight from registers
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int f = nl + ni * 8 + 2 * cq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + warp * 16 + gq + 8 * h;
+        if (m >= p.M) continue;
+        const float v0 = acc[0][ni][2 * h], v1 = acc[0][ni][2 * h + 1];
+        if constexpr (kBlocks) {
+          if (EPI == kEpiCommutedT)
+            store2(p.y + ((long)s * p.M + m) * fo + f, v0, v1);
+          else if (EPI == kEpiCommuted && s == 2)
+            store2(p.y + m * fo + f, v0, v1);
+          else
+            *reinterpret_cast<float2*>(p.yf + ((long)s * p.M + m) * fo + f) = make_float2(v0, v1);
+        } else {
+          float* y = p.y + m * p.Fout + f;
+          if (p.Fout % 2 == 0 && f + 1 < p.Fout) {
+            *reinterpret_cast<float2*>(y) = make_float2(v0, v1);
+          } else {
+            if (f < p.Fout) y[0] = v0;
+            if (f + 1 < p.Fout) y[1] = v1;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (EPI == kEpiStats) {
+    bar_sync(kBarConsumer, kThreads);
+    for (int f = threadIdx.x; f < p.Fout; f += kThreads) {
+      float s = 0.0f, q2 = 0.0f;
+      for (int i = 0; i < kWarps; ++i) {
+        s += ssum[i * p.Np + f];
+        q2 += ssq[i * p.Np + f];
+      }
+      p.part[(long)blockIdx.x * 2 * p.Fout + f] = s;
+      p.part[(long)blockIdx.x * 2 * p.Fout + p.Fout + f] = q2;
+    }
+  }
+}
+
 template <typename T, int BN, int EPI>
 inline cudaError_t launch_proj_bn(const ProjArgsT<T>& p, int grid, cudaStream_t stream) {
   const size_t smem = proj_smem<T>(BN, p.Np, EPI == kEpiStats);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(cheby_proj_kernel<T, BN, EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cheby_proj_kernel<T, BN, EPI><<<grid, kThreads, smem, stream>>>(p);
+  if constexpr (sizeof(T) == 4) {
+    cudaError_t err = cudaFuncSetAttribute(cheby_proj_f32_kernel<BN, EPI>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    cheby_proj_f32_kernel<BN, EPI><<<grid, kThreads + kProjProducer, smem, stream>>>(p);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(cheby_proj_kernel<T, BN, EPI>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    cheby_proj_kernel<T, BN, EPI><<<grid, kThreads, smem, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
 // One projection launch over the plan's grid (ops/fused_cheby.py proj_plan,
-// commuted_plan): bn columns per tile (16, 32, 64 or 128, at float32 at
-// most 64, dividing Np, and with kEpiCommuted or kEpiCommutedT dividing
-// Np / 3); with kEpiStats also the ordered reduction of the blocks' partials
-// into stats (2, Fout).
+// commuted_plan): bn columns per tile (16, 32, 64 or 128, dividing Np, and
+// with kEpiCommuted or kEpiCommutedT dividing Np / 3); with kEpiStats also
+// the ordered reduction of the blocks' partials into stats (2, Fout).
 template <int EPI, typename T>
 inline cudaError_t launch_proj(const ProjArgsT<T>& p, int bn, int grid, float* stats,
                                cudaStream_t stream) {
@@ -406,12 +628,7 @@ inline cudaError_t launch_proj(const ProjArgsT<T>& p, int bn, int grid, float* s
     case 16: err = launch_proj_bn<T, 16, EPI>(p, grid, stream); break;
     case 32: err = launch_proj_bn<T, 32, EPI>(p, grid, stream); break;
     case 64: err = launch_proj_bn<T, 64, EPI>(p, grid, stream); break;
-    case 128:
-      if constexpr (sizeof(T) == 2) {
-        err = launch_proj_bn<T, 128, EPI>(p, grid, stream);
-        break;
-      }
-      return cudaErrorInvalidValue;
+    case 128: err = launch_proj_bn<T, 128, EPI>(p, grid, stream); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || EPI != kEpiStats) return err;

@@ -9,7 +9,8 @@
 // zero-padded to Np columns, bias (Fout,), skip (nt*T, B, Fs), skip_w (Fs,
 // Np), z1 and z2 (nt*T, B, F) scratch, out (nt*T, B, Fout); all bf16, or all
 // float32 (the float32 instances, the `f32` argument: nothing rounded, the
-// hops by exact FFMA (band_hop_f32.cuh), the projection by 3xTF32).
+// hops by exact FFMA (band_hop_f32.cuh), the projection by 3xTF32 on wgmma,
+// gemm_f32.cuh).
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1-2. z1 = L x and z2 = 2 L z1 - x: two launches of the banded hop engine

@@ -13,12 +13,13 @@
 //
 // Layout: band (2k+1, nt, T, T); g (V, B, Fo_pad) and x (V, B, F) at the real
 // row count V (the wrapper pads g's channels to Fo_pad, a multiple of 16, only
-// where Fout is not one); g1 and h2 (V, B, Fo_pad) in g's layout; Wt (Gw, Fp)
+// where Fout is not one); g1 and h2 (V, B, Fo_pad) in g's layout; bf16: Wt (Gw, Fp)
 // = [W0^T; W1^T; W2^T] with each block's rows padded to Fo_pad, Gw = 3*Fo_pad
 // rounded up to 64 and Fp = F rounded up to 64, zero elsewhere; bf16 operands,
 // float32 sums; or float32 operands (the float32 instances, the `f32`
 // argument: g1 and h2 not rounded, the hops by exact FFMA
-// (band_hop_f32.cuh), dx and dW by 3xTF32 (band_hop.cuh mma_tile_f32), A's staged row stride BK + 4 and a two-stage dW ring).
+// (band_hop_f32.cuh), dx and dW by 3xTF32 on wgmma (gemm_f32.cuh), and W
+// read in its own basis-major layout (3F, Fo_pad) in place of Wt).
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1-2. g1 and h2: two launches of the banded hop engine (band_hop.cuh) over
@@ -39,6 +40,17 @@
 //      also sum them for db, rows in order.
 //   5. the partials are added in a fixed order (dW into the basis-major
 //      (3F, Fout) layout; db; ds and dc).  No atomics: equal bits run to run.
+//   float32 (gemm_f32.cuh): warp-specialized blocks on wgmma, a producer
+//      warpgroup copying 32-deep k-tiles raw into a cp.async ring and
+//      splitting them once into double-buffered TF32 planes, consumer
+//      warpgroups multiplying (three products a k8 step, a k-tile partial,
+//      one IEEE add a k-tile) and storing from registers.  dx: 128 x DN
+//      tiles (DN = 128 where Fp is a multiple of 128, else 64), two
+//      consumers, one block an SM, W read as (3F, Fo_pad): each basis
+//      block's rows f hold its k contiguously, K-major as it lies.  dW: 64 x
+//      64 tiles, one consumer; u and G M-major, transposed to K-major and u
+//      folded by the split pass, db from G's raw rows in order.  The
+//      reductions as in bf16.
 // The TPU kernel keeps G = [g, g1, h2] in VMEM and carries dW across its
 // ordered grid; here g1 and h2 go through device memory once (about 2 x the
 // bytes of g written and read again), and the products are separate passes.
@@ -47,7 +59,7 @@
 // dW products (3*Fout x F per row each) over V*B rows; at F, Fout >= 64 the
 // products' operations about match the bytes of g, x and dx, so the bound is
 // near the balance point.
-#include "band_hop.cuh"
+#include "gemm_f32.cuh"
 
 using namespace p2m;
 
@@ -66,26 +78,41 @@ __device__ __forceinline__ const T* operand(const Cot<T>& cot, int b) {
 }
 
 constexpr int kBK = 32;                       // k-tile rows of both products
-constexpr int kStages = 3;                    // cp.async ring depth
-constexpr int kDxBM = 128, kDxBN = 64;        // dx output tile
+constexpr int kStages = 3;                    // cp.async ring depth (bf16)
+constexpr int kDxBM = 128, kDxBN = 64;        // dx output tile (bf16)
 constexpr int kBLd = kDxBN + 8, kOLd = kDxBN + 8;
 constexpr int kStageB = kBK * kBLd;           // elements
 constexpr int kDwThreads = 128;               // dW: 4 warps on a 64 x 64 tile
-constexpr int kTLd = 64 + 8;                  // dW staged row stride
-// dx's staged A row stride (16 bytes of pad, or 4 float32: conflict-free
-// 32-bit fragment loads) and stage; dW's ring depth (static shared memory)
-template <typename T>
-__host__ __device__ constexpr int dx_ald() { return kBK + (sizeof(T) == 2 ? 8 : 4); }
-template <typename T>
-__host__ __device__ constexpr int dx_stage_a() { return kDxBM * dx_ald<T>(); }
-template <typename T>
-__host__ __device__ constexpr int dw_stages() { return sizeof(T) == 2 ? kStages : 2; }
+constexpr int kTLd = 64 + 8;                  // dW staged row stride (bf16)
+constexpr int kALd = kBK + 8;                 // dx staged A row stride: 16 bytes of pad
+constexpr int kStageA = kDxBM * kALd;         // elements
 
-// Shared memory of the dx kernel (ops/fused_cheby_train.py dx_smem).
+// dx's float32 tile width: 128 where Fp is a multiple of 128, else 64; its
+// raw ring depth (2 at 128 columns, where the ds / dc slots beside 3 stages
+// would pass 227 KB) and dW's (3)
+__host__ __device__ constexpr int dx_f32_bn(int Fp) { return Fp % 128 ? 64 : 128; }
+__host__ __device__ constexpr int dx_f32_stages(int DN) { return DN == 128 ? 2 : 3; }
+constexpr int kDwF32Stages = 3;
+// the float32 producers: two warpgroups, beside dx's two consumers
+// (registers rebalanced by setmaxnreg) and dW's one
+constexpr int kDxProducer = 256, kDwProducer = 256;
+
+// Shared memory of the dx kernel (ops/fused_cheby_train.py dx_smem): the ring
+// (float32: the planes and the raw ring), then the ds / dc slots of each row
+// group (bf16 4, float32 8).
 template <typename T>
 __host__ __device__ constexpr size_t dx_smem(int Fp) {
-  return (size_t)kStages * (dx_stage_a<T>() + kStageB) * sizeof(T) +
-         8 * (size_t)Fp * sizeof(float);
+  if (sizeof(T) == 2)
+    return (size_t)kStages * (kStageA + kStageB) * sizeof(T) + 8 * (size_t)Fp * sizeof(float);
+  return gemm_f32_smem(kDxBM, dx_f32_bn(Fp), dx_f32_stages(dx_f32_bn(Fp))) +
+         2 * kWarps * (size_t)Fp * sizeof(float);
+}
+
+// Shared memory of the dW kernel (dw_smem): bf16 static, float32 dynamic.
+template <typename T>
+__host__ __device__ constexpr size_t dw_smem() {
+  return sizeof(T) == 2 ? 2 * (size_t)kStages * kBK * kTLd * sizeof(T)
+                        : gemm_f32_smem(64, 64, kDwF32Stages);
 }
 
 // dx = [g, g1, h2] @ Wt over M = V*B rows; fold epilogue and ds/dc partials.
@@ -97,7 +124,7 @@ bwd_dx_kernel(Cot<T> cot, const T* __restrict__ Wt, const T* __restrict__ x,
               const T* __restrict__ fold_s, const T* __restrict__ fold_c,
               T* __restrict__ dx, float* __restrict__ part, int M, int F, int Fo_pad,
               int Gw, int Fp) {
-  constexpr int kALd = dx_ald<T>(), kStageA = dx_stage_a<T>(), VE = vec_elems<T>();
+  constexpr int VE = vec_elems<T>();
   extern __shared__ __align__(128) unsigned char smem[];
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = As + kStages * kStageA;
@@ -147,28 +174,24 @@ bwd_dx_kernel(Cot<T> cot, const T* __restrict__ Wt, const T* __restrict__ x,
       cp_async_commit();
       const T* a_s = As + (kt % kStages) * kStageA;
       const T* b_s = Bs + (kt % kStages) * kStageB;
-      if constexpr (sizeof(T) == 2) {
 #pragma unroll
-        for (int k16 = 0; k16 < kBK; k16 += 16) {
-          unsigned af[2][4];
+      for (int k16 = 0; k16 < kBK; k16 += 16) {
+        unsigned af[2][4];
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            ldmatrix_x4(af[mi], a_s + (wr * 32 + mi * 16 + lane % 16) * kALd + k16 +
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4(af[mi], a_s + (wr * 32 + mi * 16 + lane % 16) * kALd + k16 +
+                                  (lane / 16) * 8);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * kBLd + wc * 32 + p * 16 +
                                     (lane / 16) * 8);
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            unsigned bq[4];
-            ldmatrix_x4_trans(bq, b_s + (k16 + lane % 16) * kBLd + wc * 32 + p * 16 +
-                                      (lane / 16) * 8);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
-              mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
-            }
+          for (int mi = 0; mi < 2; ++mi) {
+            mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
+            mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
           }
         }
-      } else {
-        mma_tile_f32<kBK>(acc, a_s + wr * 32 * kALd, kALd, 1, b_s + wc * 32, kBLd);
       }
     }
     cp_async_wait<0>();
@@ -261,7 +284,7 @@ bwd_dw_kernel(Cot<T> cot, const T* __restrict__ x, const T* __restrict__ fold_s,
               const T* __restrict__ fold_c, float* __restrict__ part,
               float* __restrict__ part_db, int M, int F, int Fout, int Fo_pad, int Fp, int Gw,
               int S, int slice_rows) {
-  constexpr int NS = dw_stages<T>(), VE = vec_elems<T>(), VPR = 64 / VE;
+  constexpr int NS = kStages, VE = vec_elems<T>(), VPR = 64 / VE;
   __shared__ __align__(128) T us[NS][kBK * kTLd];  // u rows of the k-tile, f tile
   __shared__ __align__(128) T gs[NS][kBK * kTLd];  // G rows of the k-tile, column tile
   const int ng = Gw / 64;
@@ -318,19 +341,13 @@ bwd_dw_kernel(Cot<T> cot, const T* __restrict__ x, const T* __restrict__ fold_s,
         if (mb + r >= r_end) continue;
         uint4* u = reinterpret_cast<uint4*>(&us[buf][r * kTLd + fc0]);
         uint4 v = *u;
-        if constexpr (sizeof(T) == 4) {
-          float* h = reinterpret_cast<float*>(&v);
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) h[i] = fmaxf(__fadd_rn(__fmul_rn(h[i], sf[i]), cf[i]), 0.0f);
-        } else {
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 f = __bfloat1622float2(h[i]);
-            h[i] = __floats2bfloat162_rn(
-                fmaxf(__fadd_rn(__fmul_rn(f.x, sf[2 * i]), cf[2 * i]), 0.0f),
-                fmaxf(__fadd_rn(__fmul_rn(f.y, sf[2 * i + 1]), cf[2 * i + 1]), 0.0f));
-          }
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(h[i]);
+          h[i] = __floats2bfloat162_rn(
+              fmaxf(__fadd_rn(__fmul_rn(f.x, sf[2 * i]), cf[2 * i]), 0.0f),
+              fmaxf(__fadd_rn(__fmul_rn(f.y, sf[2 * i + 1]), cf[2 * i + 1]), 0.0f));
         }
         *u = v;
       }
@@ -340,27 +357,22 @@ bwd_dw_kernel(Cot<T> cot, const T* __restrict__ x, const T* __restrict__ fold_s,
     cp_async_commit();
     if (do_db)
       for (int r = 0; r < kBK; ++r) dbs += to_f(gs[buf][r * kTLd + threadIdx.x]);
-    if constexpr (sizeof(T) == 4) {
-      // A = u^T: element (f, m) at us[m][f], so the fragment's rows step by 1
-      mma_tile_f32<kBK>(acc, &us[buf][wf * 32], 1, kTLd, &gs[buf][wn * 32], kTLd);
-    } else {
 #pragma unroll
-      for (int k16 = 0; k16 < kBK; k16 += 16) {
-        unsigned af[2][4];  // A = u^T: ldmatrix.trans of u's (m, f) rows
+    for (int k16 = 0; k16 < kBK; k16 += 16) {
+      unsigned af[2][4];  // A = u^T: ldmatrix.trans of u's (m, f) rows
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4_trans(af[mi], &us[buf][(k16 + lane % 8 + 8 * (lane / 16)) * kTLd +
-                                             wf * 32 + mi * 16 + 8 * ((lane / 8) % 2)]);
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4_trans(af[mi], &us[buf][(k16 + lane % 8 + 8 * (lane / 16)) * kTLd +
+                                           wf * 32 + mi * 16 + 8 * ((lane / 8) % 2)]);
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          unsigned bq[4];
-          ldmatrix_x4_trans(bq, &gs[buf][(k16 + lane % 16) * kTLd + wn * 32 + p * 16 +
-                                         (lane / 16) * 8]);
+      for (int p = 0; p < 2; ++p) {
+        unsigned bq[4];
+        ldmatrix_x4_trans(bq, &gs[buf][(k16 + lane % 16) * kTLd + wn * 32 + p * 16 +
+                                       (lane / 16) * 8]);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
-            mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
-          }
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * p], af[mi], bq[0], bq[1]);
+          mma16816(acc[mi][2 * p + 1], af[mi], bq[2], bq[3]);
         }
       }
     }
@@ -378,6 +390,223 @@ bwd_dw_kernel(Cot<T> cot, const T* __restrict__ x, const T* __restrict__ fold_s,
             make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
     }
   if (do_db && n0 + (int)threadIdx.x < Fout) part_db[(long)s * Fout + n0 + threadIdx.x] = dbs;
+}
+
+// The float32 dx: dx = [g, g1, h2] @ W^T in 128 x DN tiles, warp-specialized
+// on wgmma (gemm_f32.cuh): a producer warpgroup copies G's and W's 32-deep
+// k-tiles raw into the ring (W read as (3F, Fo_pad) basis-major: each
+// block's rows f hold that block's k contiguously) and splits them into the
+// planes; two consumer warpgroups multiply, then apply the fold's mask and
+// scale and keep the ds / dc partials as in bf16 (8 row groups: warp w owns
+// rows 16 w .. +16), storing dx straight from registers.
+template <int DN>
+__global__ void __launch_bounds__(kThreads + kDxProducer, 1)
+bwd_dx_f32_kernel(Cot<float> cot, const float* __restrict__ W, const float* __restrict__ x,
+                  const float* __restrict__ fold_s, const float* __restrict__ fold_c,
+                  float* __restrict__ dx, float* __restrict__ part, int M, int F, int Fo_pad,
+                  int Fp) {
+  constexpr int S = dx_f32_stages(DN), NT = kThreads + kDxProducer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const F32Smem sm(smem, kDxBM, DN);
+  float* sds = reinterpret_cast<float*>(smem + gemm_f32_smem(kDxBM, DN, S));  // (8, Fp)
+  float* sdc = sds + kWarps * Fp;                                               // (8, Fp)
+  const bool fold = fold_s != nullptr;
+  for (int e = threadIdx.x; e < 2 * kWarps * Fp; e += NT) sds[e] = 0.0f;
+  __syncthreads();
+
+  const int K = 3 * Fo_pad, KT = (K + kBK - 1) / kBK;
+  const int nn = Fp / DN, items = (M + kDxBM - 1) / kDxBM * nn;
+  const int tiles = (int)blockIdx.x < items ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  if (threadIdx.x >= kThreads) {  // the producer warpgroups
+    regs_producer();
+    const int t = threadIdx.x - kThreads;
+    auto load = [&](int st, int q) {
+      const int w = blockIdx.x + (q / KT) * gridDim.x, kt = q % KT;
+      const int m0 = (w / nn) * kDxBM, n0 = (w % nn) * DN;
+      float* ra = sm.raw_a(st);
+      float* rb = sm.raw_b(st);
+      for (int e = t; e < kDxBM * kBK / 4; e += kDxProducer) {
+        const int r = e >> 3, kk = kt * kBK + (e & 7) * 4, b = kk / Fo_pad, o = kk % Fo_pad;
+        const long m = m0 + r;
+        const bool ok = m < M && b < 3;
+        cp_async16(ra + e * 4, ok ? operand(cot, b) + m * Fo_pad + o : W, ok);
+      }
+      for (int e = t; e < DN * kBK / 4; e += kDxProducer) {
+        const int n = e >> 3, kk = kt * kBK + (e & 7) * 4, b = kk / Fo_pad, o = kk % Fo_pad;
+        const bool ok = n0 + n < F && b < 3;
+        cp_async16(rb + e * 4, ok ? W + ((long)b * F + n0 + n) * Fo_pad + o : W, ok);
+      }
+    };
+    f32_produce<S, kDxProducer>(tiles * KT, NT, load, [&](int st, int, int b) {
+      split_rows<kDxBM, kDxProducer>(sm.raw_a(st), sm.a_big(b), sm.a_small(b));
+      split_rows<DN, kDxProducer>(sm.raw_b(st), sm.b_big(b), sm.b_small(b));
+    });
+    return;
+  }
+
+  // the consumer warpgroups
+  regs_consumer();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3, a_row0 = (warp / 4) * 64;
+  int q = 0;
+  for (int i = 0; i < tiles; ++i) {
+    const int w = blockIdx.x + i * gridDim.x;
+    const int m0 = (w / nn) * kDxBM, n0 = (w % nn) * DN;
+    float acc[1][DN / 8][4];
+#pragma unroll
+    for (int ni = 0; ni < DN / 8; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[0][ni][j] = 0.0f;
+    for (int kt = 0; kt < KT; ++kt) f32_consume<DN>(acc, sm, q++, a_row0, NT);
+
+    if (fold) {
+      // the mask and scale in registers, every load before a store; the
+      // column sums over the warp's 16 rows (lanes of equal lane % 4), then
+      // into the (row group, column) slot this lane alone owns
+#pragma unroll
+      for (int ni = 0; ni < DN / 8; ++ni) {
+        const int f = n0 + ni * 8 + 2 * cq;
+        float ps[2] = {0.0f, 0.0f}, pc[2] = {0.0f, 0.0f};
+        if (f < F) {
+          const float2 sv = load2(fold_s + f), cv = load2(fold_c + f);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long m = m0 + warp * 16 + gq + 8 * h;
+            if (m >= M) continue;
+            const float2 xv = __ldg(reinterpret_cast<const float2*>(x + m * F + f));
+            float d0 = acc[0][ni][2 * h], d1 = acc[0][ni][2 * h + 1];
+            d0 = __fadd_rn(__fmul_rn(xv.x, sv.x), cv.x) > 0.0f ? d0 : 0.0f;
+            d1 = __fadd_rn(__fmul_rn(xv.y, sv.y), cv.y) > 0.0f ? d1 : 0.0f;
+            ps[0] += d0 * xv.x;
+            ps[1] += d1 * xv.y;
+            pc[0] += d0;
+            pc[1] += d1;
+            acc[0][ni][2 * h] = d0 * sv.x;
+            acc[0][ni][2 * h + 1] = d1 * sv.y;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            ps[j] += __shfl_xor_sync(0xffffffffu, ps[j], off);
+            pc[j] += __shfl_xor_sync(0xffffffffu, pc[j], off);
+          }
+        if (gq == 0 && f < F)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            sds[warp * Fp + f + j] += ps[j];
+            sdc[warp * Fp + f + j] += pc[j];
+          }
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < DN / 8; ++ni) {
+      const int f = n0 + ni * 8 + 2 * cq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + warp * 16 + gq + 8 * h;
+        if (m < M && f < F)
+          *reinterpret_cast<float2*>(dx + m * F + f) =
+              make_float2(acc[0][ni][2 * h], acc[0][ni][2 * h + 1]);
+      }
+    }
+  }
+  if (fold) {
+    bar_sync(kBarConsumer, kThreads);
+    for (int f = threadIdx.x; f < F; f += kThreads) {
+      float a = 0.0f, b = 0.0f;
+      for (int i = 0; i < kWarps; ++i) {
+        a += sds[i * Fp + f];
+        b += sdc[i * Fp + f];
+      }
+      part[(long)blockIdx.x * 2 * F + f] = a;
+      part[(long)blockIdx.x * 2 * F + F + f] = b;
+    }
+  }
+}
+
+// The float32 dW: one K-slice of dW_cf = u^T [g, g1, h2] as bwd_dw_kernel's,
+// warp-specialized on wgmma (gemm_f32.cuh): a producer warpgroup copies the
+// u (x) and G k-tiles (M-major) raw into the ring, sums db from G's raw rows
+// in order, and splits both into K-major planes, applying the fold to u
+// (thread t always splits u column f0 + t % 64, so its s and c stay in
+// registers); one consumer warpgroup multiplies, warp w owning f rows
+// 16 w .. +16 and all 64 G columns of the tile.
+__global__ void __launch_bounds__(kDwThreads + kDwProducer, 1)
+bwd_dw_f32_kernel(Cot<float> cot, const float* __restrict__ x, const float* __restrict__ fold_s,
+                  const float* __restrict__ fold_c, float* __restrict__ part,
+                  float* __restrict__ part_db, int M, int F, int Fout, int Fo_pad, int Fp,
+                  int Gw, int S, int slice_rows) {
+  constexpr int NS = kDwF32Stages, NT = kDwThreads + kDwProducer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const F32Smem sm(smem, 64, 64);
+  const int ng = Gw / 64;
+  const int s = blockIdx.x % S, nn = (blockIdx.x / S) % ng, fm = blockIdx.x / (S * ng);
+  const int f0 = fm * 64, n0 = nn * 64;
+  const int r_begin = s * slice_rows, r_end = min(M, r_begin + slice_rows);
+  const int KT = r_end > r_begin ? (r_end - r_begin + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x >= kDwThreads) {  // the producer warpgroups
+    const int t = threadIdx.x - kDwThreads;
+    const bool do_db = fm == 0 && n0 < Fo_pad && t < 64;
+    float dbs = 0.0f;
+    const int fu = f0 + t % 64;  // the u column this thread splits
+    const bool folds = fold_s != nullptr && fu < F;
+    const float sf = folds ? fold_s[fu] : 0.0f, cf = folds ? fold_c[fu] : 0.0f;
+    auto load = [&](int st, int kt) {
+      float* ru = sm.raw_a(st);
+      float* rg = sm.raw_b(st);
+      const int mb = r_begin + kt * kBK;
+      for (int e = t; e < kBK * 16; e += kDwProducer) {
+        const int r = e / 16, c = (e % 16) * 4;
+        const long m = mb + r;
+        const bool ok = m < r_end && f0 + c < F;
+        cp_async16(ru + r * 64 + c, ok ? x + m * F + f0 + c : x, ok);
+        const int j = n0 + c, b = j / Fo_pad, o = j % Fo_pad;
+        const bool okg = m < r_end && b < 3;
+        cp_async16(rg + r * 64 + c, okg ? operand(cot, b) + m * Fo_pad + o : x, okg);
+      }
+    };
+    f32_produce<NS, kDwProducer>(KT, NT, load, [&](int st, int kt, int b) {
+      const int mb = r_begin + kt * kBK;
+      const float* rg = sm.raw_b(st);
+      if (do_db)  // db: g's columns summed over the k-tile's rows, in order
+        for (int r = 0; r < kBK; ++r) dbs += rg[r * 64 + t];
+      split_cols<64, kDwProducer>(sm.raw_a(st), sm.a_big(b), sm.a_small(b),
+                                 [&](float4& v, int, int c) {
+                                   if (!folds) return;  // u = x (or zero columns)
+                                   float* h = reinterpret_cast<float*>(&v);
+#pragma unroll
+                                   for (int i = 0; i < 4; ++i)
+                                     if (mb + 4 * c + i < r_end)
+                                       h[i] = fmaxf(__fadd_rn(__fmul_rn(h[i], sf), cf), 0.0f);
+                                 });
+      split_cols<64, kDwProducer>(rg, sm.b_big(b), sm.b_small(b), [](float4&, int, int) {});
+    });
+    if (do_db && n0 + t < Fout) part_db[(long)s * Fout + n0 + t] = dbs;
+    return;
+  }
+
+  // the consumer warpgroup
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, cq = lane & 3;
+  float acc[1][8][4];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[0][ni][j] = 0.0f;
+  for (int kt = 0; kt < KT; ++kt) f32_consume<64>(acc, sm, kt, 0, NT);
+  float* out = part + (long)s * Fp * Gw;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + warp * 16 + gq + 8 * h;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+      *reinterpret_cast<float2*>(out + (long)f * Gw + n0 + ni * 8 + 2 * cq) =
+          make_float2(acc[0][ni][2 * h], acc[0][ni][2 * h + 1]);
+  }
 }
 
 // dW[(b*F + f)*Fout + o] = sum over s of part[s][f][b*Fo_pad + o], s in order.
@@ -422,20 +651,40 @@ cudaError_t fused_bwd(const void* band, const void* g, const void* x, const void
   if (stages & 2) {
     const size_t smem_dx = dx_smem<T>(Fp);
     if (smem_dx > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_dx);
-    if (err != cudaSuccess) return err;
-    bwd_dx_kernel<T><<<grid_dx, kThreads, smem_dx, st>>>(
-        cot, static_cast<const T*>(Wt), xb, fs, fc, static_cast<T*>(dx),
-        static_cast<float*>(part_dx), M, F, Fo_pad, Gw, Fp);
+    if constexpr (sizeof(T) == 4) {
+      auto kernel = dx_f32_bn(Fp) == 128 ? bwd_dx_f32_kernel<128> : bwd_dx_f32_kernel<64>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem_dx);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid_dx, kThreads + kDxProducer, smem_dx, st>>>(
+          cot, static_cast<const float*>(Wt), xb, fs, fc, static_cast<float*>(dx),
+          static_cast<float*>(part_dx), M, F, Fo_pad, Fp);
+    } else {
+      err = cudaFuncSetAttribute(bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem_dx);
+      if (err != cudaSuccess) return err;
+      bwd_dx_kernel<T><<<grid_dx, kThreads, smem_dx, st>>>(
+          cot, static_cast<const T*>(Wt), xb, fs, fc, static_cast<T*>(dx),
+          static_cast<float*>(part_dx), M, F, Fo_pad, Gw, Fp);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (!(stages & 4)) return cudaSuccess;
 
   float* pw = static_cast<float*>(part_dw);
   float* pdb = static_cast<float*>(part_db);
-  bwd_dw_kernel<T><<<(Fp / 64) * (Gw / 64) * S, kDwThreads, 0, st>>>(
-      cot, xb, fs, fc, pw, pdb, M, F, Fout, Fo_pad, Fp, Gw, S, slice_rows);
+  const int dw_grid = (Fp / 64) * (Gw / 64) * S;
+  if constexpr (sizeof(T) == 4) {
+    const size_t smem_dw = dw_smem<float>();
+    err = cudaFuncSetAttribute(bwd_dw_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_dw);
+    if (err != cudaSuccess) return err;
+    bwd_dw_f32_kernel<<<dw_grid, kDwThreads + kDwProducer, smem_dw, st>>>(
+        cot, xb, fs, fc, pw, pdb, M, F, Fout, Fo_pad, Fp, Gw, S, slice_rows);
+  } else {
+    bwd_dw_kernel<T><<<dw_grid, kDwThreads, 0, st>>>(cot, xb, fs, fc, pw, pdb, M, F, Fout,
+                                                     Fo_pad, Fp, Gw, S, slice_rows);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n = 3 * F * Fout;
   dw_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(pw, S, F, Fp, Gw, Fout, Fo_pad,
@@ -451,16 +700,16 @@ cudaError_t fused_bwd(const void* band, const void* g, const void* x, const void
 
 }  // namespace
 
-// Pointers: band, g (V, B, Fo_pad), x, Wt, fold_s, fold_c (null without the
-// fold) in; g1, h2 (V, B, Fo_pad) scratch; dx (V, B, F) out, all bf16 or
-// all float32 (f32); dW (3F, Fout), db (Fout,) and dsdc (2, F) [ds; dc]
-// float32 out; part_db (S, Fout), part_dx (grid_dx, 2F) and part_dw (S, Fp,
-// Gw) float32 scratch.  The launch plan (ops/fused_cheby_train.py
-// bwd_plan): the hop engine's chunk, grid and items per block; grid_dx; S
-// row slices of slice_rows rows (a multiple of 32) for dW.  stages: which
-// launches run, 1 the two hops, 2 dx (and the ds/dc partials), 4 dW, db and
-// every reduction; 7 is the whole backward (the parts alone only time the
-// split).  Returns a cudaError_t.
+// Pointers: band, g (V, B, Fo_pad), x, Wt (bf16: Wt (Gw, Fp); float32: W
+// itself, (3F, Fo_pad)), fold_s, fold_c (null without the fold) in; g1, h2
+// (V, B, Fo_pad) scratch; dx (V, B, F) out, all bf16 or all float32 (f32);
+// dW (3F, Fout), db (Fout,) and dsdc (2, F) [ds; dc] float32 out; part_db
+// (S, Fout), part_dx (grid_dx, 2F) and part_dw (S, Fp, Gw) float32 scratch.
+// The launch plan (ops/fused_cheby_train.py bwd_plan): the hop engine's
+// chunk, grid and items per block; grid_dx; S row slices of slice_rows rows
+// (a multiple of 32) for dW.  stages: which launches run, 1 the two hops, 2
+// dx (and the ds/dc partials), 4 dW, db and every reduction; 7 is the whole
+// backward (the parts alone only time the split).  Returns a cudaError_t.
 extern "C" int p2m_fused_cheby_bwd(const void* band, const void* g, const void* x,
                                    const void* Wt, const void* fold_s, const void* fold_c,
                                    void* g1, void* h2, void* dx, void* dW, void* db,

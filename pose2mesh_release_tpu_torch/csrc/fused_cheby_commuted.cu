@@ -12,8 +12,9 @@
 // (nt*T, B, Fo_pad) float32 (one (2, ...) buffer), p2 and t (nt*T, B, Fo_pad)
 // bf16; out (nt*T, B, Fo_pad) bf16; or every bf16 tensor float32 (the
 // float32 instances, the `f32` argument: nothing rounded, the hops by exact
-// FFMA (band_hop_f32.cuh), the projection by 3xTF32).  Where Fo < Fo_pad (no SMPL conv) the wrapper
-// narrows out to (nt*T, B, Fo) with one copy.
+// FFMA (band_hop_f32.cuh), the projection by 3xTF32 on wgmma, gemm_f32.cuh).
+// Where Fo < Fo_pad (no SMPL conv) the wrapper narrows out to (nt*T, B, Fo)
+// with one copy.
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1. the projection GEMM (cheby_proj.cuh, epilogue kEpiCommuted) over

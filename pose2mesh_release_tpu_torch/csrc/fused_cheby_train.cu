@@ -13,8 +13,9 @@
 // and shift (F,); u, z1, z2 (V, B, F) scratch (z1, z2 the keep_basis
 // outputs); y (V, B, Fout); all bf16, or all float32 (the float32 instances,
 // the `f32` argument: nothing rounded, the hops by exact FFMA
-// (band_hop_f32.cuh), the projection by 3xTF32).  Rows >= V read as zero and are never written, so nothing
-// of a pad row reaches the statistics or, in the backward, the gradients.
+// (band_hop_f32.cuh), the projection by 3xTF32 on wgmma, gemm_f32.cuh).
+// Rows >= V read as zero and are never written, so nothing of a pad row
+// reaches the statistics or, in the backward, the gradients.
 //
 // Design, in launches on one stream (the wrapper counts them as one call):
 //   1. with the fold: u = bf16(relu(x*s + c)) in float32 without FMA, as the

@@ -21,7 +21,7 @@
 // Np) basis, (Fs, fo_pad) commuted; all bf16, or all float32 (the float32
 // instances, the `f32` argument: nothing rounded between the stages, as the
 // TPU kernel's float32 scratch keeps them; the hops by exact FFMA
-// (band_hop_f32.cuh), the projections by 3xTF32).
+// (band_hop_f32.cuh), the projections by 3xTF32 on wgmma, gemm_f32.cuh).
 //
 // Design, in launches on one stream (the wrapper counts them as one call),
 // the hops on the banded hop engine (band_hop.cuh, its strip layout: the

@@ -41,12 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
+from .gemm_f32 import gemm_f32_smem, proj_f32_stages
 from .spmm import band_hop
 
 __all__ = ["COMMUTED_STAGES", "CONV_STAGES", "KERNEL_DTYPES", "ProjPlan", "check_dtypes",
            "commuted_launcher", "commuted_plan", "conv_launcher", "fused_cheby_conv",
            "fused_cheby_conv_commuted", "fused_cheby_conv_plain",
-           "fused_cheby_conv_commuted_plain", "launches", "proj_plan", "proj_smem"]
+           "fused_cheby_conv_commuted_plain", "launches", "proj_blocks_per_sm", "proj_plan",
+           "proj_smem"]
 
 # kernel launches since the last reset, by wrapper name
 launches = {"fused_cheby_conv": 0, "fused_cheby_conv_commuted": 0}
@@ -195,9 +197,16 @@ def _commuted_lib():
     return lib
 
 
-# the projection GEMM's tiles (csrc/cheby_proj.cuh)
+# the projection GEMM's tiles (csrc/cheby_proj.cuh; bf16 ring depth)
 _PROJ_BM, _PROJ_BK, _PROJ_STAGES = 128, 32, 3
-_PROJ_BLOCKS_PER_SM = 2  # kProjBlocksPerSm
+
+
+def proj_blocks_per_sm(esize: int = 2) -> int:
+    """The projection's blocks on an SM (csrc kProjBlocksPerSm; the float32
+    kernel's launch bounds): bf16 2 (registers: at most 128 a thread),
+    float32 1 (512 threads, their registers rebalanced between consumers
+    and producers)."""
+    return 2 if esize == 2 else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,8 +214,9 @@ class ProjPlan:
     """A launch of the projection GEMM: `bn`-column output tiles of 128 rows
     over W padded to `np` columns (Fout rounded up to 16, then to `bn`), a
     persistent grid of `grid` blocks walking `items` tiles, `smem` bytes of
-    dynamic shared memory per block.  The float32 instances take bn <= 64
-    (registers)."""
+    dynamic shared memory per block.  bf16 keeps two blocks on an SM,
+    float32 one (warp-specialized on wgmma: two consumer and two producer
+    warpgroups)."""
     bn: int
     np: int
     items: int
@@ -216,22 +226,27 @@ class ProjPlan:
 
 def proj_smem(bn: int, np_: int, stats: bool, esize: int = 2) -> int:
     """Dynamic shared memory of the projection (csrc proj_smem) for
-    `esize`-byte operands: the cp.async ring (A's row stride 8 elements of
-    pad in bf16, 4 in float32) or the staged output tile, and with the
-    statistics one float32 sum and sum of squares per (warp row group,
-    column)."""
-    ald = _PROJ_BK + (8 if esize == 2 else 4)
-    ring = _PROJ_STAGES * (_PROJ_BM * ald + _PROJ_BK * (bn + 8)) * esize
-    tile = _PROJ_BM * (bn + 8) * esize
-    row_groups = 8 // (2 if bn >= 64 else 1)
-    return max(ring, tile) + (2 * row_groups * np_ * 4 if stats else 0)
+    `esize`-byte operands: bf16 the cp.async ring (A's row stride 8 elements
+    of pad) or the staged output tile, whichever is larger; float32 the
+    GEMM's planes and raw ring (gemm_f32_smem, proj_f32_stages); then with
+    the statistics one float32 sum and sum of squares per (warp row group,
+    column): bf16 4 row groups at bn >= 64, else 8; float32 8 (16-row
+    warps)."""
+    if esize == 2:
+        ring = _PROJ_STAGES * (_PROJ_BM * (_PROJ_BK + 8) + _PROJ_BK * (bn + 8)) * esize
+        base = max(ring, _PROJ_BM * (bn + 8) * esize)
+        row_groups = 8 // (2 if bn >= 64 else 1)
+    else:
+        base, row_groups = gemm_f32_smem(_PROJ_BM, bn, proj_f32_stages(bn, stats)), 8
+    return base + (2 * row_groups * np_ * 4 if stats else 0)
 
 
 def _proj_widths(esize: int) -> tuple:
-    """The tile widths of the projection's instances, widest first."""
+    """The tile widths of the projection's instances, widest first (bf16 and
+    float32 alike)."""
     if esize not in (2, 4):
         raise ValueError(f"the projection takes 2- or 4-byte elements, got {esize}")
-    return (128, 64, 32, 16) if esize == 2 else (64, 32, 16)
+    return (128, 64, 32, 16)
 
 
 def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False,
@@ -250,7 +265,7 @@ def proj_plan(M: int, F: int, Fout: int, sms: int, stats: bool = False,
         bn = 128 if fo_pad % 128 == 0 and widest == 128 else 64
     np_ = -(-fo_pad // bn) * bn
     items = -(-M // _PROJ_BM) * (np_ // bn)
-    return ProjPlan(bn, np_, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
+    return ProjPlan(bn, np_, items, min(items, proj_blocks_per_sm(esize) * sms),
                     proj_smem(bn, np_, stats, esize))
 
 
@@ -268,7 +283,7 @@ def commuted_plan(M: int, F: int, Fo: int, sms: int, blocks: int = 3,
     fo_pad = -(-Fo // 16) * 16
     bn = next(b for b in _proj_widths(esize) if fo_pad % b == 0)
     items = -(-M // _PROJ_BM) * (blocks * fo_pad // bn)
-    return ProjPlan(bn, blocks * fo_pad, items, min(items, _PROJ_BLOCKS_PER_SM * sms),
+    return ProjPlan(bn, blocks * fo_pad, items, min(items, proj_blocks_per_sm(esize) * sms),
                     proj_smem(bn, blocks * fo_pad, False, esize))
 
 

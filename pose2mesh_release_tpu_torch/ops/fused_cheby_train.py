@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, _stream, \
     proj_plan
+from .gemm_f32 import DW_F32_STAGES, dx_f32_stages, gemm_f32_smem
 from .hop import _BLOCK_SMEM_RESERVED, _SM_SMEM, HopPlan, band_span, banded_hop, hop_plan, \
     sm_count
 from .spmm import band_hop
@@ -161,24 +162,35 @@ def _fold_args(in_fold: Fold, Fin: int, x):
     return {"fold_s": s.to(x.dtype).contiguous(), "fold_c": c.to(x.dtype).contiguous()}
 
 
-# the dx and dW kernels' tiles (csrc/fused_cheby_bwd.cu)
+# the dx and dW kernels' tiles (csrc/fused_cheby_bwd.cu; bf16 ring depth and
+# dx tile width, dx blocks an SM where their shared memory fits)
 _BK, _STAGES, _DX_BM, _DX_BN = 32, 3, 128, 64
 _DX_BLOCKS_PER_SM = 3
 _DW_BLOCKS_PER_SM = 4
 
 
+def dx_bn(fp: int, esize: int = 2) -> int:
+    """dx's tile width: bf16 64; float32 128 where fp is a multiple of 128,
+    else 64 (csrc dx_f32_bn)."""
+    return _DX_BN if esize == 2 or fp % 128 else 128
+
+
 def dw_smem(esize: int = 2) -> int:
-    """Static shared memory of the dW kernel: its u and G rings, 3 stages of
-    bf16 or 2 of float32 (dw_stages)."""
-    return 2 * (_STAGES if esize == 2 else 2) * _BK * (64 + 8) * esize
+    """Shared memory of the dW kernel: bf16 its static u and G rings of 3
+    stages; float32 the dynamic planes and the 3-stage raw ring of a 64 x 64
+    tile (gemm_f32_smem), one warp-specialized block an SM."""
+    if esize == 2:
+        return 2 * _STAGES * _BK * (64 + 8) * esize
+    return gemm_f32_smem(64, 64, DW_F32_STAGES)
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """The launches of K2 for one shape: the channel padding, the two hop
     engine launches (`hop`), the dx GEMM's persistent grid over `dx_items`
-    128 x 64 tiles with `dx_smem` bytes, and dW's `slices` row slices of
-    `slice_rows` rows over (Fp/64) x (gw/64) tiles, `dw_grid` blocks."""
+    128 x `dx_bn` tiles with `dx_smem` bytes, and dW's `slices` row slices of
+    `slice_rows` rows over (Fp/64) x (gw/64) tiles, `dw_grid` blocks with
+    `dw_smem` bytes."""
     fo_pad: int
     gw: int
     fp: int
@@ -190,35 +202,45 @@ class BwdPlan:
     slice_rows: int
     dw_grid: int
     dw_smem: int
+    dx_bn: int = _DX_BN
 
 
 def dx_smem(fp: int, esize: int = 2) -> int:
     """Dynamic shared memory of the dx kernel (csrc dx_smem) for `esize`-byte
-    operands (A's row stride 8 elements of pad in bf16, 4 in float32)."""
-    ald = _BK + (8 if esize == 2 else 4)
-    return _STAGES * (_DX_BM * ald + _BK * (_DX_BN + 8)) * esize + 8 * fp * 4
+    operands: bf16 its ring (A's row stride 8 elements of pad) and 4 row
+    groups' ds / dc slots; float32 the planes and raw ring of a 128 x dx_bn
+    tile (dx_f32_stages) and 8 row groups' slots."""
+    if esize == 2:
+        return _STAGES * (_DX_BM * (_BK + 8) + _BK * (_DX_BN + 8)) * esize + 8 * fp * 4
+    bn = dx_bn(fp, esize)
+    return gemm_f32_smem(_DX_BM, bn, dx_f32_stages(bn)) + 2 * 8 * fp * 4
 
 
 def bwd_plan(V: int, B: int, nt: int, k: int, Fin: int, Fout: int, sms: int,
              esize: int = 2) -> BwdPlan:
     """K2's launch plan at V rows, batch B, Fin -> Fout of `esize`-byte
-    operands on a card of `sms` SMs: dx keeps _DX_BLOCKS_PER_SM blocks on an
-    SM where their shared memory fits (float32: two)."""
+    operands on a card of `sms` SMs: bf16 dx keeps _DX_BLOCKS_PER_SM blocks
+    on an SM where their shared memory fits, float32 dx one (warp-specialized
+    on wgmma: two consumer and two producer warpgroups)."""
+    if esize not in (2, 4):
+        raise ValueError(f"K2 takes 2- or 4-byte elements, got {esize}")
     M = V * B
     fo_pad = _cdiv(Fout, 16) * 16
     gw = _cdiv(3 * fo_pad, 64) * 64
     fp = _cdiv(Fin, 64) * 64
-    dx_items = _cdiv(M, _DX_BM) * (fp // _DX_BN)
+    bn = dx_bn(fp, esize)
+    dx_items = _cdiv(M, _DX_BM) * (fp // bn)
     tiles = (fp // 64) * (gw // 64)
     k_tiles = _cdiv(M, _BK)
     slices = min(k_tiles, max(1, _cdiv(_DW_BLOCKS_PER_SM * sms, tiles)))
     slice_rows = _cdiv(k_tiles, slices) * _BK
     slices = _cdiv(M, slice_rows)
     dxs = dx_smem(fp, esize)
-    dx_blocks = min(_DX_BLOCKS_PER_SM, _SM_SMEM // (dxs + _BLOCK_SMEM_RESERVED))
+    dx_blocks = (1 if esize == 4
+                 else min(_DX_BLOCKS_PER_SM, _SM_SMEM // (dxs + _BLOCK_SMEM_RESERVED)))
     return BwdPlan(fo_pad, gw, fp, hop_plan(nt, band_span(k), B * fo_pad, sms, esize),
                    dx_items, min(dx_items, dx_blocks * sms), dxs, slices, slice_rows,
-                   tiles * slices, dw_smem(esize))
+                   tiles * slices, dw_smem(esize), bn)
 
 
 @functools.cache
@@ -342,10 +364,12 @@ def bwd_launcher(band_val, g, x, W, in_fold: Fold):
     fo_pad, gw, fp = p.fo_pad, p.gw, p.fp
     # g at fo_pad channels (a copy only where Fout is not a multiple of 16)
     gp = _pad_cols(g, fo_pad).contiguous()
-    # [W0^T; W1^T; W2^T], each block's rows padded to fo_pad, columns to fp
-    Wt = torch.zeros((gw, fp), dtype=W.dtype, device=dev)
-    Wt[:3 * fo_pad].view(3, fo_pad, fp)[:, :Fout, :Fin] = \
-        W.view(3, Fin, Fout).transpose(1, 2)
+    if es == 4:  # float32 dx reads W as it lies, (3F, fo_pad): K-major by block
+        Wt = _pad_cols(W, fo_pad).contiguous()
+    else:  # [W0^T; W1^T; W2^T], each block's rows padded to fo_pad, columns to fp
+        Wt = torch.zeros((gw, fp), dtype=W.dtype, device=dev)
+        Wt[:3 * fo_pad].view(3, fo_pad, fp)[:, :Fout, :Fin] = \
+            W.view(3, Fin, Fout).transpose(1, 2)
     g1, h2 = torch.empty_like(gp), torch.empty_like(gp)
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=dev)

@@ -14,8 +14,10 @@ hop K4, the strip and window convs, K1, K2, K1 with keep_basis), and with
 that the checkout has; K4, K5 and K6 only where its chip_smoke checks them
 in float32), with that checkout's own code.  Prints the card's name, power limit, SM clock, power
 draw and temperature before and after each run, then one line
-`AB {"tree", "ok", "ms": {kernel: ms summed over one pass}, "rows": {"tag
-kernel": ms}}`.  A run that
+`AB {"tree", "ok", "ms": {kernel: ms summed over one pass}, "splits":
+{kernel: {launch: ms summed over one pass}}, "rows": {"tag kernel": ms}}`
+(the splits: each kernel's launches apart, chip_smoke's split_ms; the
+float32 GEMM splits among them).  A run that
 fails a kernel check exits non-zero.  Needs the card.
 """
 from __future__ import annotations
@@ -73,12 +75,15 @@ if F32:
     for r in extra:
         r["name"] += "[f32]"
     rows += extra
-ms = {}
+ms, splits = {}, {}
 for r in rows:
     ms[r["name"]] = ms.get(r["name"], 0.0) + r["ms"]
+    for k, t in r.get("split_ms", {}).items():
+        d = splits.setdefault(r["name"], {})
+        d[k] = d.get(k, 0.0) + t
 print(subprocess.run(SMI, capture_output=True, text=True).stdout.strip(), flush=True)
 ok = all(r["ok"] for r in rows)
-print("AB " + json.dumps({"tree": os.getcwd(), "ok": ok, "ms": ms,
+print("AB " + json.dumps({"tree": os.getcwd(), "ok": ok, "ms": ms, "splits": splits,
                          "rows": {r["tag"] + " " + r["name"]: r["ms"] for r in rows}}),
       flush=True)
 sys.exit(0 if ok else 1)

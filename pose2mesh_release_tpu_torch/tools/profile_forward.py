@@ -27,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..deploy import smpl_deploy_forward
 
-GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel")),
+GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel", "cheby_proj_f32_kernel")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 

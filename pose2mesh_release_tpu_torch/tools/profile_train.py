@@ -38,8 +38,10 @@ from ..train_setup import smpl_train_setup
 
 LR = 1e-3
 ENGINE = "hop engine (K1 and K2)"
-GROUPS = (("K1 fused_cheby_conv_train", ("cheby_proj_kernel", "fold_kernel")),
-          ("K2 fused_cheby_conv_bwd", ("bwd_dx_kernel", "bwd_dw_kernel", "dw_reduce_kernel")),
+GROUPS = (("K1 fused_cheby_conv_train", ("cheby_proj_kernel", "cheby_proj_f32_kernel",
+                                         "fold_kernel")),
+          ("K2 fused_cheby_conv_bwd", ("bwd_dx_kernel", "bwd_dw_kernel", "bwd_dx_f32_kernel",
+                                      "bwd_dw_f32_kernel", "dw_reduce_kernel")),
           (ENGINE, ("band_hop_kernel",)),
           ("K1/K2 partial-sum passes", ("reduce_partials",)),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))

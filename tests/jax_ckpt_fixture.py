@@ -20,18 +20,25 @@ The pyramid is packed as the CPU parity tests pack it for both packages
 (the seeded Fiedler start vector, `test_torch_artifact.fixed_eigsh_start`).
 Regenerate the committed files with
 
-    JAX_PLATFORMS=cpu python tests/jax_ckpt_fixture.py
+    python tests/jax_ckpt_fixture.py [OUT_DIR]
 
 tests/test_torch_jax_ckpt.py regenerates them into a temporary directory
-and holds the committed ones against the result.  Some values are rounding:
-the biases that feed a BatchNorm have an exact gradient of zero, which
-RMSprop scales up to a step of the learning rate's size, and the eval
-outputs and the second step depend on those biases.  So the files are
-reproducible bit for bit only under the XLA CPU client of
-tests/conftest.py (8 virtual devices), which the script sets too.
+(`regenerate`) and holds the committed ones against the result.  Some
+values are rounding: the biases that feed a BatchNorm have an exact
+gradient of zero, which RMSprop scales up to a step of the learning rate's
+size, and the eval outputs and the second step depend on those biases.  So
+the files are reproducible bit for bit only from one packed pyramid and
+one XLA CPU arithmetic.  The packer's Fiedler ordering (an ARPACK eigsh,
+whose default start vector scipy draws afresh in every process) runs under
+the seeded start vector too, and `regenerate` runs `write_fixture` in a
+fresh process under PINNED_ENV (8 virtual devices, as tests/conftest.py;
+XLA's Eigen pool, OpenMP, OpenBLAS and MKL at one thread) bound to one CPU,
+so that no reduction splits by the machine's core count; the script, run
+directly, does the same.
 """
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -47,6 +54,24 @@ CONFIG = {
     "posenet_hidden": 32, "batch": 16, "eval_batch": 4, "lr": 1e-3,
     "use_edge_loss": True, "seed": 3,
 }
+
+
+# The environment of every regeneration (with the process bound to one CPU):
+# the XLA CPU client of tests/conftest.py (8 virtual devices) with its Eigen
+# thread pool off, and one thread for OpenMP, OpenBLAS and MKL, so that no
+# reduction's order depends on the threads a loaded machine gives the process.
+PINNED_ENV = {
+    "JAX_PLATFORMS": "cpu",
+    "XLA_FLAGS": "--xla_force_host_platform_device_count=8 --xla_cpu_multi_thread_eigen=false",
+    "OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+}
+
+
+def regenerate(out_dir: str) -> None:
+    """`write_fixture(out_dir)` in a fresh Python process under PINNED_ENV."""
+    env = {**os.environ, **PINNED_ENV}
+    subprocess.run([sys.executable, os.path.abspath(__file__), out_dir], env=env, check=True,
+                   cwd=os.path.dirname(HERE))
 
 
 def flatten(tree, prefix=""):
@@ -86,10 +111,10 @@ def write_fixture(out_dir: str) -> None:
     c = CONFIG
     os.makedirs(out_dir, exist_ok=True)
     verts, faces = uv_sphere(c["num_vertices"])
-    with fixed_eigsh_start():
+    with fixed_eigsh_start():  # the coarsening's and the packer's Fiedler vectors
         pyr = build_pyramid(faces, joint_num=c["joint_num"],
                             skeleton=[tuple(e) for e in c["skeleton"]], levels=c["levels"])
-    art = pack_pyramid(pyr, faces, dense_threshold=c["dense_threshold"])
+        art = pack_pyramid(pyr, faces, dense_threshold=c["dense_threshold"])
     rng = np.random.default_rng(c["seed"])
     jreg = rng.random((c["joint_num"], c["num_vertices"])).astype(np.float32)
     jreg /= jreg.sum(1, keepdims=True)
@@ -127,14 +152,17 @@ def write_fixture(out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, os.path.dirname(HERE))
-    # the XLA CPU client of tests/conftest.py: the step's arithmetic (and so
-    # the files) is the same bit for bit only under the same flags
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + " --xla_force_host_platform_device_count=8").strip()
-    import jax
+    out = sys.argv[1] if len(sys.argv) > 1 else FIXTURE_DIR
+    if any(os.environ.get(k) != v for k, v in PINNED_ENV.items()):
+        regenerate(out)  # the same script, under the pinned thread counts
+    else:
+        # one CPU: every thread pool XLA sizes from the machine holds one thread
+        cpus = sorted(os.sched_getaffinity(0))
+        os.sched_setaffinity(0, {cpus[os.getpid() % len(cpus)]})
+        sys.path.insert(0, os.path.dirname(HERE))
+        import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    write_fixture(FIXTURE_DIR)
-    for name in sorted(os.listdir(FIXTURE_DIR)):
-        print(name, os.path.getsize(os.path.join(FIXTURE_DIR, name)), "bytes")
+        jax.config.update("jax_platforms", "cpu")
+        write_fixture(out)
+        for name in sorted(os.listdir(out)):
+            print(name, os.path.getsize(os.path.join(out, name)), "bytes")

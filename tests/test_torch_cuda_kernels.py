@@ -355,6 +355,93 @@ def test_train_kernels_are_deterministic(cuda, dtype):
         assert torch.equal(a, b2), name
 
 
+# the float32 GEMMs' tile edges (csrc/gemm_f32.cuh): (kernel, k, V, B, F,
+# Fout, variant); V*B rows not a multiple of 128 (a ragged last tile), Fout 3
+# and 16 (one 16-column tile), F 16 and 48 (K 48 and 144: ragged k-tiles),
+# 128- and 256-wide outputs (128-column tiles, two of them), every epilogue
+F32_GEMM_CASES = [
+    ("group", 1, 900, 3, 16, 16, "relu"),
+    ("group", 1, 900, 3, 48, 3, "final"),
+    ("group", 2, 900, 5, 48, 16, "skip_proj"),
+    ("group", 1, 900, 3, 128, 128, "skip_add"),
+    ("group", 1, 900, 2, 256, 256, "relu"),
+    ("commuted", 1, 900, 3, 16, 16, "relu"),
+    ("commuted", 2, 900, 3, 256, 128, "relu"),
+    ("strip", 1, 900, 3, 48, 16, "skip_proj"),   # commuted order: kEpiCommutedT, kEpiF32
+    ("strip", 2, 900, 3, 128, 128, "skip_proj"),  # basis order with the skip projection
+    ("window", 1, 900, 3, 16, 3, "final"),
+    ("train", 1, 900, 3, 16, 16, "fold_stats"),
+    ("train", 1, 900, 3, 48, 3, "fold"),
+    ("train", 2, 900, 5, 128, 128, "stats"),
+    ("train", 1, 900, 2, 256, 256, "fold_stats"),
+    ("bwd", 1, 900, 3, 16, 3, "fold"),
+    ("bwd", 1, 900, 3, 48, 16, "plain"),
+    ("bwd", 2, 900, 5, 128, 128, "fold"),         # dx 128-column tiles
+    ("bwd", 1, 900, 2, 64, 256, "plain"),         # dx 64-column tiles, G 768 wide
+    ("bwd", 1, 900, 2, 256, 64, "fold"),          # dx two 128-column tiles
+]
+
+
+@pytest.mark.parametrize("kernel,k,V,B,F,Fout,variant", F32_GEMM_CASES,
+                         ids=["-".join(map(str, c)) for c in F32_GEMM_CASES])
+def test_f32_gemm_tile_edges(cuda, kernel, k, V, B, F, Fout, variant):
+    """Each float32 instance through the wgmma GEMMs at a tile edge: within
+    F32_TOL of its plain version on the same float32 inputs, and two runs
+    equal bits."""
+    dt = torch.float32
+    op = band_level(k, V=V, seed=90 + k, strip_h=128)
+    band = op.band_val.to(cuda, dt)
+    Vp = op.padded_vertices
+    if kernel in ("train", "bwd"):
+        x, W, b, s, c, g = train_inputs(op, B, F, Fout, cuda, 91, dt)
+        fold = (s, c) if "fold" in variant else None
+        if kernel == "train":
+            stats = "stats" in variant
+            run = lambda: ft.fused_cheby_conv_train(band, x, W, b, in_fold=fold,  # noqa: E731
+                                                    emit_stats=stats)
+            ref = ft.fused_cheby_conv_train_plain(band, x, W, b, in_fold=fold, emit_stats=stats)
+        else:
+            run = lambda: ft.fused_cheby_conv_bwd(band, g, x, W, in_fold=fold)  # noqa: E731
+            ref = ft.fused_cheby_conv_bwd_plain(band, g, x, W, in_fold=fold)
+        rows = op.num_vertices
+    else:
+        Fs = 2 * Fout if variant == "skip_proj" else Fout
+        x, W, b, skip, skip_w = inputs(op, B, [((Vp, B, F), 0.5),
+                                               ((3 * F, Fout), 1 / math.sqrt(3 * F)),
+                                               ((Fout,), 0.1), ((Vp, B, Fs), 0.5),
+                                               ((Fs, Fout), 1 / math.sqrt(Fs))], cuda, 92, dt)
+        kw = {"relu": variant != "final"}
+        if variant in ("skip_add", "skip_proj"):
+            kw["skip"] = skip
+        if variant == "skip_proj":
+            kw["skip_w"] = skip_w
+        if kernel == "group":
+            run = lambda: fc.fused_cheby_conv(band, x, W, b, **kw)  # noqa: E731
+            ref = fc.fused_cheby_conv_plain(band, x, W, b, **kw)
+        elif kernel == "commuted":
+            run = lambda: fc.fused_cheby_conv_commuted(band, x, W, b, **kw)  # noqa: E731
+            ref = fc.fused_cheby_conv_commuted_plain(band, x, W, b, **kw)
+        elif kernel == "strip":
+            S, off = op.strip_val.to(cuda, dt), op.strip_off.to(cuda)
+            kw["mode"] = sc.strip_mode(F, Fout)
+            run = lambda: sc.strip_cheby_conv(S, off, 128, x, W, b, **kw)  # noqa: E731
+            ref = sc.strip_cheby_conv_plain(S, off, 128, x, W, b, **kw)
+        else:
+            win, woff = wc.window_cat(band)
+            run = lambda: wc.window_cheby_conv(win, woff, x, W, b, **kw)  # noqa: E731
+            ref = wc.window_cheby_conv_plain(win, woff, x, W, b, **kw)
+        rows = op.num_vertices
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    first, second, ref = ((t,) if torch.is_tensor(t) else t for t in (first, second, ref))
+    assert len(first) == len(ref)
+    for i, (a, a2, r) in enumerate(zip(first, second, ref)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), i
+        assert torch.equal(a, a2), i
+        cut = rows if a.dim() == 3 else None
+        assert rel_l2(a[:cut], r[:cut]) <= F32_TOL, i
+
+
 def test_train_autograd_function_runs_the_fused_backward(cuda):
     """The folded, stats-emitting conv's backward is one K2 launch, equal to
     K2 on the cotangent g = gy + gs + 2 y gs2 folded in float32."""

@@ -5,9 +5,10 @@ the window conv K6 (csrc/, `f32` argument).
 - The launch plans at 4-byte operands: the float32 hop engine
   (csrc/band_hop_f32.cuh) in 128-column chunks (the last masked), its
   static lists within 48 KB, one chunk a block, and the band bytes its
-  list pass reads (the plan's `band_bytes`); the projection's and dx's tiles fit a
-  block's 227 KB of shared memory, the projection tiles at most 64 columns
-  wide.
+  list pass reads (the plan's `band_bytes`); the projection's and dx's tiles
+  (the float32 GEMMs on wgmma, csrc/gemm_f32.cuh: up to 128 columns, one
+  block an SM) fit a block's 227 KB of shared memory, and dW's two blocks an
+  SM's (tests/test_torch_f32_gemm.py holds them at every phase-14 shape).
   The bf16 plans stay value for value what they were before the float32
   instances (the table below, taken from the bf16-only plans at the SMPL
   train and deploy shapes, and at the strip and window forms' spans of
@@ -193,23 +194,24 @@ def check_f32_hop_plan(nt: int, span: int, C: int):
 def test_f32_plans_fit_shared_memory(V, fin, fout, k):
     """The float32 plans of one SMPL conv (deploy at Vp rows, train at V):
     the hop engine's plan holds its invariants (check_f32_hop_plan); the
-    projection's tiles are at most 64 wide and two of its blocks fit an SM;
-    dx keeps two blocks, dW's static rings stay under 48 KB."""
+    projection's tiles are at most 128 wide and its one block an SM fits;
+    dx and dW keep one warp-specialized block an SM."""
     nt = NT[V]
     for C in (B * fin, B * -(-fout // 16) * 16):
         check_f32_hop_plan(nt, hp.band_span(k), C)
     for M, stats in ((nt * 128 * B, False), (V * B, True)):
         pp = fc.proj_plan(M, fin, fout, SMS, stats=stats, esize=4)
-        assert pp.bn <= 64 and pp.np % pp.bn == 0 and pp.np >= fout
+        assert pp.bn <= 128 and pp.np % pp.bn == 0 and pp.np >= fout
         assert pp.smem == fc.proj_smem(pp.bn, pp.np, stats, 4)
-        assert fc._PROJ_BLOCKS_PER_SM * (pp.smem + RESERVED) <= SM_SMEM
+        assert fc.proj_blocks_per_sm(4) * (pp.smem + RESERVED) <= SM_SMEM
+        assert pp.grid <= SMS
     cp = fc.commuted_plan(nt * 128 * B, fin, fout, SMS, esize=4)
-    assert cp.bn <= 64 and (cp.np // 3) % cp.bn == 0
-    assert fc._PROJ_BLOCKS_PER_SM * (cp.smem + RESERVED) <= SM_SMEM
+    assert cp.bn <= 128 and (cp.np // 3) % cp.bn == 0
+    assert fc.proj_blocks_per_sm(4) * (cp.smem + RESERVED) <= SM_SMEM
     bp = ft.bwd_plan(V, B, nt, k, fin, fout, SMS, 4)
     assert bp.dx_smem == ft.dx_smem(bp.fp, 4) <= BLOCK_SMEM
-    assert 2 * (bp.dx_smem + RESERVED) <= SM_SMEM and bp.grid_dx <= 2 * SMS
-    assert bp.dw_smem == ft.dw_smem(4) <= 48 * 1024
+    assert bp.dx_smem + RESERVED <= SM_SMEM and bp.grid_dx <= SMS
+    assert bp.dw_smem == ft.dw_smem(4) <= BLOCK_SMEM
     assert bp.slices * bp.slice_rows >= V * B and bp.slice_rows % 32 == 0
 
 
@@ -232,8 +234,8 @@ def test_f32_engine_plans_at_the_path_spans(V, form):
 def test_f32_strip_projection_plans(fin, fout, fs):
     """The strip conv's float32 projections at the SMPL 6890 level's rows:
     basis order's (proj_plan), commuted order's [p | t0 | u] and its skip
-    projection (commuted_plan, 3 blocks and 1): tiles at most 64 wide, two
-    blocks an SM."""
+    projection (commuted_plan, 3 blocks and 1): tiles at most 128 wide, one
+    block an SM."""
     M = 7168 * B
     plans = [fc.proj_plan(M, fin, fout, SMS, esize=4)]
     if sc.strip_mode(fin, fout) == "commuted":
@@ -241,22 +243,24 @@ def test_f32_strip_projection_plans(fin, fout, fs):
         if fs:
             plans.append(fc.commuted_plan(M, fs, fout, SMS, blocks=1, esize=4))
     for pp in plans:
-        assert pp.bn <= 64 and pp.np % pp.bn == 0 and pp.np >= fout
-        assert fc._PROJ_BLOCKS_PER_SM * (pp.smem + RESERVED) <= SM_SMEM
+        assert pp.bn <= 128 and pp.np % pp.bn == 0 and pp.np >= fout
+        assert fc.proj_blocks_per_sm(4) * (pp.smem + RESERVED) <= SM_SMEM
 
 
 def test_f32_smem_formulas():
     """The shared-memory formulas at 4-byte elements, as csrc computes them
     (band_hop_f32_smem: 8 warps' lists of 8-byte entries and 17 row
-    offsets; proj_smem<float>, dx_smem<float>, the dW rings); the engine's
+    offsets; proj_smem<float>, dx_smem<float>, dw_smem<float>: the float32
+    GEMMs' B planes and raw rings, gemm_f32_smem; bf16 dW's static rings);
+    the engine's
     widest span, 64 groups, plans as any other (no x ring); C not a
     multiple of 128 masks the last chunk."""
     assert hp.hop_f32_smem() == 8 * (hp.F32_LIST_CAP * 8 + 17 * 4) == 16928
     assert hp.hop_smem(16, 24) == 2 * 24 * 16 * 24 * 2
-    assert fc.proj_smem(64, 128, False, 4) == 3 * (128 * 36 + 32 * 72) * 4
-    assert fc.proj_smem(16, 16, True, 4) == 3 * (128 * 36 + 32 * 24) * 4 + 2 * 8 * 16 * 4
-    assert ft.dx_smem(128, 4) == 3 * (128 * 36 + 32 * 72) * 4 + 8 * 128 * 4
-    assert ft.dw_smem(4) == 2 * 2 * 32 * 72 * 4 and ft.dw_smem() == 2 * 3 * 32 * 72 * 2
+    assert fc.proj_smem(64, 128, False, 4) == 1024 + 7 * (128 + 64) * 128
+    assert fc.proj_smem(16, 16, True, 4) == 1024 + 7 * (128 + 16) * 128 + 2 * 8 * 16 * 4
+    assert ft.dx_smem(128, 4) == 1024 + 6 * (128 + 128) * 128 + 2 * 8 * 128 * 4
+    assert ft.dw_smem(4) == 1024 + 7 * (64 + 64) * 128 and ft.dw_smem() == 2 * 3 * 32 * 72 * 2
     widest = hp.hop_plan(8, hp.MAX_SPAN, 1024, SMS, 4)
     assert (widest.cc, widest.smem) == (128, hp.hop_f32_smem())
     assert hp.hop_plan(8, 24, 8208, SMS, 4).items == 8 * 65

@@ -54,7 +54,7 @@ from pose2mesh_release_tpu_torch.parity.from_jax import (
 )
 
 import chip_smoke
-from jax_ckpt_fixture import FIXTURE_DIR, write_fixture
+from jax_ckpt_fixture import FIXTURE_DIR, regenerate
 from test_torch_engine import _cfg, _port_cascade, tiny  # noqa: F401
 from test_torch_models import randomize_bn, to_numpy
 from test_torch_train import _NoDropout
@@ -183,9 +183,10 @@ def _close_tree(got, want, path="."):
 
 def test_fixture_is_what_the_jax_package_writes(tmp_path):
     """tests/data/jax_ckpt/ regenerated by the JAX package (the JAX
-    save_checkpoint, make_train_step, make_eval_step) decodes to the
+    save_checkpoint, make_train_step, make_eval_step; in a fresh process on
+    one CPU under the fixture's pinned thread counts) decodes to the
     committed files' arrays, and stays under 1 MB."""
-    write_fixture(str(tmp_path))
+    regenerate(str(tmp_path))
     sizes = 0
     for name in ("checkpoint1.ckpt", "fixture.npz"):
         sizes += osp.getsize(osp.join(FIXTURE_DIR, name))
