@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+card (torch.profiler), %."""
+
+
+def read(run):
+    t = run.trace
+    if run.kind != "train" or t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
