@@ -31,6 +31,7 @@ from ..graphs.artifact import PyramidArtifact
 from ..models.meshnet import extract_mesh
 from ..parallel.collectives import all_reduce_sum, gather_rows
 from ..parallel.sharding import sync_grads
+from ..utils.profiling import span
 from .losses import coord_l1, pose2mesh_loss
 from .optim import set_lr
 
@@ -104,27 +105,35 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    generator: Optional[torch.Generator]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         _check_state(state, model, optimizer)
-        if batch["mesh"].dtype != torch.float32:
-            # half-precision targets: upcast once so the face losses run in f32
-            batch = dict(batch, mesh=batch["mesh"].float())
-        optimizer.zero_grad(set_to_none=True)
-        mesh_dev, pose3d = model(art, batch["pose2d"], train=True, generator=generator)
-        verts = extract_mesh(art, mesh_dev)  # (B, V, 3), meters
-        reg_pose = torch.einsum("jv,bvc->bjc", jreg, verts * 1000.0)
-        # the face corners' backward: the banded selector product over the
-        # artifact's tables, as the JAX step's
-        losses = pose2mesh_loss(
-            verts, pose3d, reg_pose, batch, art.faces, normal_weight=normal_weight,
-            edge_weight=edge_weight, joint_weight=joint_weight,
-            use_edge_loss=use_edge_loss,
-            face_band=(art.face_perm, art.face_sel, art.vertex_gather))
-        losses["total"].backward()
-        if mesh is not None:
-            sync_grads(model.parameters(), mesh,
-                       model.pose2mesh.graph_split_parameters(art))
-        set_lr(optimizer, lr)
-        optimizer.step()
-        return dataclasses.replace(state, step=state.step + 1), _global_means(losses, mesh)
+        with span("p2m.step", kind="train"):
+            if batch["mesh"].dtype != torch.float32:
+                # half-precision targets: upcast once so the face losses run in f32
+                batch = dict(batch, mesh=batch["mesh"].float())
+            optimizer.zero_grad(set_to_none=True)
+            mesh_dev, pose3d = model(art, batch["pose2d"], train=True, generator=generator)
+            with span("p2m.extract_mesh"):
+                verts = extract_mesh(art, mesh_dev)  # (B, V, 3), meters
+            with span("p2m.regressor"):
+                reg_pose = torch.einsum("jv,bvc->bjc", jreg, verts * 1000.0)
+            # the face corners' backward: the banded selector product over the
+            # artifact's tables, as the JAX step's
+            with span("p2m.losses"):
+                losses = pose2mesh_loss(
+                    verts, pose3d, reg_pose, batch, art.faces, normal_weight=normal_weight,
+                    edge_weight=edge_weight, joint_weight=joint_weight,
+                    use_edge_loss=use_edge_loss,
+                    face_band=(art.face_perm, art.face_sel, art.vertex_gather))
+            with span("p2m.backward"):
+                losses["total"].backward()
+            if mesh is not None:
+                with span("p2m.grad_sync"):
+                    sync_grads(model.parameters(), mesh,
+                               model.pose2mesh.graph_split_parameters(art))
+            with span("p2m.optimizer"):
+                set_lr(optimizer, lr)
+                optimizer.step()
+            return (dataclasses.replace(state, step=state.step + 1),
+                    _global_means(losses, mesh))
 
     return train_step
 
@@ -159,14 +168,17 @@ def make_eval_step(model: torch.nn.Module, j_regressor: np.ndarray | torch.Tenso
     def eval_step(art: PyramidArtifact, pose2d: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         n = pose2d.shape[0]
-        if mesh is not None:
-            pose2d = _data_rows(pose2d, mesh)
-        mesh_dev, pose3d = model(art, pose2d)
-        mesh_mm = extract_mesh(art, mesh_dev) * 1000.0
-        reg_pose = torch.einsum("jv,bvc->bjc", jreg, mesh_mm)
-        if mesh is None:
-            return mesh_mm, reg_pose, pose3d
-        return tuple(_gather_data(t, mesh, n) for t in (mesh_mm, reg_pose, pose3d))
+        with span("p2m.step", kind="eval"):
+            if mesh is not None:
+                pose2d = _data_rows(pose2d, mesh)
+            mesh_dev, pose3d = model(art, pose2d)
+            with span("p2m.extract_mesh"):
+                mesh_mm = extract_mesh(art, mesh_dev) * 1000.0
+            with span("p2m.regressor"):
+                reg_pose = torch.einsum("jv,bvc->bjc", jreg, mesh_mm)
+            if mesh is None:
+                return mesh_mm, reg_pose, pose3d
+            return tuple(_gather_data(t, mesh, n) for t in (mesh_mm, reg_pose, pose3d))
 
     return eval_step
 
@@ -181,23 +193,31 @@ def make_posenet_steps(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     def train_step(state: TrainState, batch: Batch, lr: float,
                    generator: Optional[torch.Generator]):
         _check_state(state, model, optimizer)
-        optimizer.zero_grad(set_to_none=True)
-        pred = model(batch["pose2d"], train=True, generator=generator)
-        pred = pred.reshape(pred.shape[0], -1, 3)
-        loss = coord_l1(pred, batch["pose3d"], batch["pose3d_valid"])
-        loss.backward()
-        if mesh is not None:
-            sync_grads(model.parameters(), mesh)
-        set_lr(optimizer, lr)
-        optimizer.step()
-        return (dataclasses.replace(state, step=state.step + 1),
-                _global_means({"loss": loss}, mesh)["loss"])
+        with span("p2m.step", kind="train"):
+            optimizer.zero_grad(set_to_none=True)
+            with span("p2m.posenet"):
+                pred = model(batch["pose2d"], train=True, generator=generator)
+            pred = pred.reshape(pred.shape[0], -1, 3)
+            with span("p2m.losses"):
+                loss = coord_l1(pred, batch["pose3d"], batch["pose3d_valid"])
+            with span("p2m.backward"):
+                loss.backward()
+            if mesh is not None:
+                with span("p2m.grad_sync"):
+                    sync_grads(model.parameters(), mesh)
+            with span("p2m.optimizer"):
+                set_lr(optimizer, lr)
+                optimizer.step()
+            return (dataclasses.replace(state, step=state.step + 1),
+                    _global_means({"loss": loss}, mesh)["loss"])
 
     @torch.inference_mode()
     def eval_step(state: TrainState, pose2d: torch.Tensor) -> torch.Tensor:
         n = pose2d.shape[0]
-        pred = state.model(pose2d if mesh is None else _data_rows(pose2d, mesh))
-        pred = pred.reshape(pred.shape[0], -1, 3)
-        return pred if mesh is None else _gather_data(pred, mesh, n)
+        with span("p2m.step", kind="eval"):
+            with span("p2m.posenet"):
+                pred = state.model(pose2d if mesh is None else _data_rows(pose2d, mesh))
+            pred = pred.reshape(pred.shape[0], -1, 3)
+            return pred if mesh is None else _gather_data(pred, mesh, n)
 
     return train_step, eval_step

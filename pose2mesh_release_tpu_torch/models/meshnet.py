@@ -80,6 +80,7 @@ from ..ops.window_cheby import window_cat, window_cheby_conv
 from ..parallel.audit import FINAL_ROWS, LEVEL_ENTRY, LEVEL_TRANSITION
 from ..parallel.collectives import gather_rows, scatter_rows
 from ..parallel.halo import global_rows, halo_banded_hop, row_mask
+from ..utils.profiling import span
 from .posenet import bn_affine, linear
 
 __all__ = ["MeshNet", "channel_interp_matrix", "flat_route", "FLAT_IMPLS",
@@ -199,33 +200,38 @@ class MeshNet(nn.Module):
     def _band_conv(self, op: LevelOperator, x, lin: nn.Linear, route: str, *,
                    relu: bool, final: bool, skip=None, skip_w=None):
         """One deploy conv on a band level by `route`: "unfused" or a
-        `flat_route` kernel family."""
+        `flat_route` kernel family, whose "group" conv takes the commuted
+        kernel where it narrows its channels, has no skip and is not the
+        network's last."""
         fout, fin_k = lin.weight.shape
         fin = fin_k // self.K
-        band = op.band_val.to(self.dtype)
-        x = x.to(self.dtype).contiguous()
-        if skip is not None:
-            skip = skip.to(self.dtype).contiguous()
-        if route == "unfused":
-            W, b = self._band_weights_for(lin, False)
-            y = cheby_project_unfused(band, x, W, b)
-            return torch.relu(y) if relu else y
-        if route == "strip":
-            mode = strip_mode(fin, fout)
-            W, b = self._band_weights_for(lin, mode == "commuted")
-            return strip_cheby_conv(op.strip_val.to(self.dtype), op.strip_off, op.strip_h,
-                                    x, W, b, mode=mode, relu=relu, skip=skip,
-                                    skip_w=skip_w)
-        if route == "window":
-            W, b = self._band_weights_for(lin, False)
-            win, woff = self._window_form_for(op)
-            return window_cheby_conv(win, woff, x, W, b, relu=relu, skip=skip,
-                                     skip_w=skip_w)
-        commuted = fout < fin and skip is None and not final
-        W, b = self._band_weights_for(lin, commuted)
-        if commuted:
-            return fused_cheby_conv_commuted(band, x, W, b, relu=relu)
-        return fused_cheby_conv(band, x, W, b, relu=relu, skip=skip, skip_w=skip_w)
+        if route == "group" and fout < fin and skip is None and not final:
+            route = "commuted"
+        with span("p2m.band_conv", route=route):
+            band = op.band_val.to(self.dtype)
+            x = x.to(self.dtype).contiguous()
+            if skip is not None:
+                skip = skip.to(self.dtype).contiguous()
+            if route == "unfused":
+                W, b = self._band_weights_for(lin, False)
+                y = cheby_project_unfused(band, x, W, b)
+                return torch.relu(y) if relu else y
+            if route == "strip":
+                mode = strip_mode(fin, fout)
+                W, b = self._band_weights_for(lin, mode == "commuted")
+                return strip_cheby_conv(op.strip_val.to(self.dtype), op.strip_off,
+                                        op.strip_h, x, W, b, mode=mode, relu=relu,
+                                        skip=skip, skip_w=skip_w)
+            if route == "window":
+                W, b = self._band_weights_for(lin, False)
+                win, woff = self._window_form_for(op)
+                return window_cheby_conv(win, woff, x, W, b, relu=relu, skip=skip,
+                                         skip_w=skip_w)
+            commuted = route == "commuted"
+            W, b = self._band_weights_for(lin, commuted)
+            if commuted:
+                return fused_cheby_conv_commuted(band, x, W, b, relu=relu)
+            return fused_cheby_conv(band, x, W, b, relu=relu, skip=skip, skip_w=skip_w)
 
     def _ops(self, art: PyramidArtifact) -> Tuple[LevelOperator, ...]:
         """The level operator of each block: the joint graph, the mesh levels
@@ -266,53 +272,54 @@ class MeshNet(nn.Module):
         split = False  # whether x holds this graph rank's rows of a halo level
         for i, chans in enumerate(self.blocks):
             op = ops[i]
-            band = op.kind == "band"
-            route = None
-            if band:
-                route = flat_route(op, self.flat_impl) if self.fused else "unfused"
-            fuse_skip = band and self.fused
-            if band and x.shape[0] != op.padded_vertices:
-                # band level straight after the FC: pad rows once
-                x = F.pad(x, (0, 0, 0, 0, 0, op.padded_vertices - x.shape[0]))
-            if op.kind == "halo" and not split:
-                x, split = self._split(op, x), True
-            input_x = x
-            has_skip = 0 < i < n_blocks - 1
-            for li in range(len(chans) - 1):
-                final = i == n_blocks - 1 and li == len(chans) - 2
-                lin = self.cl[ci]
-                ci += 1
-                if op.kind == "halo":
-                    x = linear(self._halo_stack(op, x), lin, self.dtype)
-                    x = x if final else torch.relu(x)
-                    continue
-                if not band:
-                    x = self._dense_conv(op, x, lin, relu=not final)
-                    continue
-                skip = skip_w = None
-                if fuse_skip and has_skip and li == len(chans) - 2:
-                    skip = input_x
-                    if chans[0] != chans[-1]:
-                        skip_w = self._skip_w(chans[0], chans[-1],
-                                              self.dtype, x.device)
-                x = self._band_conv(op, x, lin, route, relu=not final, final=final,
-                                    skip=skip, skip_w=skip_w)
+            with span("p2m.meshnet.block", i=i, kind=op.kind, vertices=op.num_vertices):
+                band = op.kind == "band"
+                route = None
+                if band:
+                    route = flat_route(op, self.flat_impl) if self.fused else "unfused"
+                fuse_skip = band and self.fused
+                if band and x.shape[0] != op.padded_vertices:
+                    # band level straight after the FC: pad rows once
+                    x = F.pad(x, (0, 0, 0, 0, 0, op.padded_vertices - x.shape[0]))
+                if op.kind == "halo" and not split:
+                    x, split = self._split(op, x), True
+                input_x = x
+                has_skip = 0 < i < n_blocks - 1
+                for li in range(len(chans) - 1):
+                    final = i == n_blocks - 1 and li == len(chans) - 2
+                    lin = self.cl[ci]
+                    ci += 1
+                    if op.kind == "halo":
+                        x = linear(self._halo_stack(op, x), lin, self.dtype)
+                        x = x if final else torch.relu(x)
+                        continue
+                    if not band:
+                        x = self._dense_conv(op, x, lin, relu=not final)
+                        continue
+                    skip = skip_w = None
+                    if fuse_skip and has_skip and li == len(chans) - 2:
+                        skip = input_x
+                        if chans[0] != chans[-1]:
+                            skip_w = self._skip_w(chans[0], chans[-1],
+                                                  self.dtype, x.device)
+                    x = self._band_conv(op, x, lin, route, relu=not final, final=final,
+                                        skip=skip, skip_w=skip_w)
 
-            if i == 0:
-                x = self._fc_upsample(x, B)
-            elif i < n_blocks - 1:
-                if not fuse_skip:
-                    # channel-interpolated residual skip (fused into the
-                    # fused kernels' last conv)
-                    x = self._skip(x, input_x)
-                if i < n_blocks - 2:
-                    # x2 nearest vertex upsample: a precomputed gather
-                    if split:
-                        x, split = self._gather(x, LEVEL_TRANSITION), False
-                    up = art.up_idx[n_mesh - i - 1]
-                    if ops[i + 1].kind == "band":
-                        up = F.pad(up, (0, ops[i + 1].padded_vertices - up.shape[0]))
-                    x = x.index_select(0, up)
+                if i == 0:
+                    x = self._fc_upsample(x, B)
+                elif i < n_blocks - 1:
+                    if not fuse_skip:
+                        # channel-interpolated residual skip (fused into the
+                        # fused kernels' last conv)
+                        x = self._skip(x, input_x)
+                    if i < n_blocks - 2:
+                        # x2 nearest vertex upsample: a precomputed gather
+                        if split:
+                            x, split = self._gather(x, LEVEL_TRANSITION), False
+                        up = art.up_idx[n_mesh - i - 1]
+                        if ops[i + 1].kind == "band":
+                            up = F.pad(up, (0, ops[i + 1].padded_vertices - up.shape[0]))
+                        x = x.index_select(0, up)
         if split:
             x = self._gather(x, FINAL_ROWS)
         x = x[:art.mesh_ops[0].num_vertices]
@@ -392,16 +399,18 @@ class MeshNet(nn.Module):
         band = op.band_val.to(self.dtype)
         fold = None
         for li, (lin, bn) in enumerate(zip(convs, bns)):
-            W, b = self._basis_weights(lin)
-            x = x.to(self.dtype).contiguous()
             stats = train and bn is not None
-            if fold is None:
-                out = (fused_cheby_project_stats(band, x, W, b) if stats
-                       else fused_cheby_project(band, x, W, b, fused=self.fused))
-            else:
-                conv = (fused_cheby_project_folded_stats if stats
-                        else fused_cheby_project_folded)
-                out = conv(band, x, W, b, *fold)
+            unfused = fold is None and not stats and not self.fused
+            with span("p2m.band_conv", route="unfused" if unfused else "train"):
+                W, b = self._basis_weights(lin)
+                x = x.to(self.dtype).contiguous()
+                if fold is None:
+                    out = (fused_cheby_project_stats(band, x, W, b) if stats
+                           else fused_cheby_project(band, x, W, b, fused=self.fused))
+                else:
+                    conv = (fused_cheby_project_folded_stats if stats
+                            else fused_cheby_project_folded)
+                    out = conv(band, x, W, b, *fold)
             y, sums = (out[0], out[1:]) if stats else (out, None)
             if bn is None:
                 x, fold = y, None
@@ -422,29 +431,30 @@ class MeshNet(nn.Module):
         split = False  # whether x holds this graph rank's rows of a halo level
         for i, chans in enumerate(self.blocks):
             op, n = ops[i], len(chans) - 1
-            convs, block_bns = self.cl[ci:ci + n], bns[ci:ci + n]
-            ci += n
-            if op.kind == "halo" and not split:
-                x, split = self._split(op, x), True
-            input_x = x
-            if op.kind == "halo":
-                x = self._halo_block(op, x, convs, block_bns, train)
-            elif op.kind == "band":
-                x = self._band_block(op, x, convs, block_bns, train)
-            else:
-                for lin, bn in zip(convs, block_bns):
-                    x = linear(chebyshev_stack(op, x.to(self.dtype), self.K), lin,
-                               self.dtype)
-                    if bn is not None:
-                        x = self._bn_apply_relu(x, bn, train)
-            if i == 0:
-                x = self._fc_upsample(x, B)
-            elif i < n_blocks - 1:
-                x = self._skip(x, input_x)
-                if i < n_blocks - 2:
-                    if split:
-                        x, split = self._gather(x, LEVEL_TRANSITION), False
-                    x = x.index_select(0, art.up_idx[n_mesh - i - 1])
+            with span("p2m.meshnet.block", i=i, kind=op.kind, vertices=op.num_vertices):
+                convs, block_bns = self.cl[ci:ci + n], bns[ci:ci + n]
+                ci += n
+                if op.kind == "halo" and not split:
+                    x, split = self._split(op, x), True
+                input_x = x
+                if op.kind == "halo":
+                    x = self._halo_block(op, x, convs, block_bns, train)
+                elif op.kind == "band":
+                    x = self._band_block(op, x, convs, block_bns, train)
+                else:
+                    for lin, bn in zip(convs, block_bns):
+                        x = linear(chebyshev_stack(op, x.to(self.dtype), self.K), lin,
+                                   self.dtype)
+                        if bn is not None:
+                            x = self._bn_apply_relu(x, bn, train)
+                if i == 0:
+                    x = self._fc_upsample(x, B)
+                elif i < n_blocks - 1:
+                    x = self._skip(x, input_x)
+                    if i < n_blocks - 2:
+                        if split:
+                            x, split = self._gather(x, LEVEL_TRANSITION), False
+                        x = x.index_select(0, art.up_idx[n_mesh - i - 1])
         if split:
             x = self._gather(x, FINAL_ROWS)[:art.mesh_ops[0].num_vertices]
         # (V, B, 3) -> (B, V, 3); coordinates leave the net in float32

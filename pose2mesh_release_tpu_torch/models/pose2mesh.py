@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..graphs.artifact import PyramidArtifact
+from ..utils.profiling import span
 from .meshnet import MANO_BLOCKS, SMPL_BLOCKS, MeshNet
 from .posenet import PoseNet
 
@@ -92,8 +93,10 @@ class Pose2Mesh(nn.Module):
                 train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         B = pose2d.shape[0]
-        pose3d = self.pose_lifter(pose2d.reshape(B, -1), train, generator)
-        pose3d = pose3d.reshape(B, self.num_joint, 3)
-        combine = torch.cat([pose2d.float(), pose3d.detach() / 1000.0], dim=2)
-        mesh = self.pose2mesh(art, combine, train)
+        with span("p2m.posenet"):
+            pose3d = self.pose_lifter(pose2d.reshape(B, -1), train, generator)
+            pose3d = pose3d.reshape(B, self.num_joint, 3)
+        with span("p2m.meshnet"):
+            combine = torch.cat([pose2d.float(), pose3d.detach() / 1000.0], dim=2)
+            mesh = self.pose2mesh(art, combine, train)
         return mesh, pose3d

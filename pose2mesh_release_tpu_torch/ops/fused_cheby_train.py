@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, _stream, \
     proj_plan
@@ -412,19 +413,20 @@ class _FusedChebyConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        band_val, x, W, scale, shift, y = ctx.saved_tensors
-        if ctx.emit_stats:
-            gy, gs, gs2 = grads
-            g = (gy.float() + gs + 2.0 * y.float() * gs2).to(y.dtype)
-        else:
-            g = grads[0].to(x.dtype)
-        fold = None if scale is None else (scale, shift)
-        res = fused_cheby_conv_bwd(band_val, g.contiguous(), x, W, in_fold=fold)
-        gx, dW, db = res[:3]
-        ds = dc = None
-        if fold is not None:
-            ds, dc = res[3].to(scale.dtype), res[4].to(shift.dtype)
-        return None, gx, dW.to(W.dtype), db.to(ctx.b_dtype), ds, dc, None
+        with span("p2m.band_conv.bwd"):
+            band_val, x, W, scale, shift, y = ctx.saved_tensors
+            if ctx.emit_stats:
+                gy, gs, gs2 = grads
+                g = (gy.float() + gs + 2.0 * y.float() * gs2).to(y.dtype)
+            else:
+                g = grads[0].to(x.dtype)
+            fold = None if scale is None else (scale, shift)
+            res = fused_cheby_conv_bwd(band_val, g.contiguous(), x, W, in_fold=fold)
+            gx, dW, db = res[:3]
+            ds = dc = None
+            if fold is not None:
+                ds, dc = res[3].to(scale.dtype), res[4].to(shift.dtype)
+            return None, gx, dW.to(W.dtype), db.to(ctx.b_dtype), ds, dc, None
 
 
 def cheby_project_unfused(band_val, x, W, b):

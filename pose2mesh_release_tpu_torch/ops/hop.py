@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graphs.artifact import LevelOperator
+from ..utils.profiling import span
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _T, _check_cuda, _ptr, _raise_on, _stream
 from .spmm import band_hop
@@ -304,8 +305,9 @@ class _BandedHop(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (band_val,) = ctx.saved_tensors
-        return None, hop(band_val, g.contiguous())
+        with span("p2m.band_conv.bwd"):
+            (band_val,) = ctx.saved_tensors
+            return None, hop(band_val, g.contiguous())
 
 
 def banded_hop(band, x: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,13 @@
 Builds the deploy forward of `deploy.smpl_deploy_forward` (bf16) on the
 chosen path (the band convs' kernels: `--flat-impl`, or `--unfused` for two
 hops and three projections per conv), warms it up, then traces `--steps`
-forwards with torch.profiler and prints: the wall time per forward (host
-clock around synchronized forwards, outside the trace), the device time per
-forward by kernel, grouped into the port's band kernels, matrix products and
-the rest, the CUDA launches per forward of each group, and the device's idle
+forwards with torch.profiler, the card's activity alone, with the program's
+spans on (`utils/profiling.py::trace(host=False)`), and prints: the wall
+time per forward (host clock around synchronized forwards, outside the
+trace), the device time per forward by kernel, grouped into the port's band
+kernels, matrix products and the rest, the CUDA launches per forward of
+each group, all that `p2m.band_conv` launched, the spans by their own
+device and idle ms (`span_breakdown`), and the device's idle
 share of the traced window.  Needs a CUDA
 device; writes chiprun_out/profile_forward.json (the group path) or
 chiprun_out/profile_forward_<path>.json.
@@ -23,19 +26,12 @@ import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from ..deploy import smpl_deploy_forward
+from ..utils.profiling import profile_spans
 
 GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel", "cheby_proj_f32_kernel")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
-
-
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
 
 
 def main(argv=None) -> int:
@@ -69,20 +65,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = {}
+
+    def run():
         t0 = time.perf_counter()
         for _ in range(args.steps):
             d.eval_step(d.art_compute, pose2d)
         torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-
-    kernels, counts = {}, {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
-            counts[evt.key] = counts.get(evt.key, 0) + evt.count
-    device_ms = sum(kernels.values()) / 1e3 / args.steps
+        traced["ms"] = (time.perf_counter() - t0) * 1e3
+    b = profile_spans(run)
+    traced_ms = traced["ms"]
+    kernels, counts = b.ops_us, b.ops_calls
+    device_ms = b.busy_us / 1e3 / args.steps
     groups = {name: 0.0 for name, _ in GROUPS}
     groups["other"] = 0.0
     group_launches = dict.fromkeys(groups, 0.0)
@@ -97,10 +91,12 @@ def main(argv=None) -> int:
         "wall_ms_per_forward": walls,
         "traced_wall_ms_per_forward": traced_ms / args.steps,
         "device_ms_per_forward": device_ms,
-        "device_idle_share": (max(0.0, 1.0 - device_ms * args.steps / traced_ms)
-                              if traced_ms > 0 else None),
+        "device_idle_share": 1.0 - b.busy_us / b.window_us if b.window_us else None,
         "groups_ms_per_forward": groups,
         "groups_launches_per_forward": group_launches,
+        "band_conv_spans_ms_per_forward": b.per_step(b.device_us_inclusive,
+                                                     "p2m.band_conv") / 1e3,
+        "spans": b.summary(),
         "top_kernels_ms_per_forward": [(k, us / 1e3 / args.steps) for k, us in top],
     }
     print(card)
@@ -110,6 +106,8 @@ def main(argv=None) -> int:
           f"window: {result['device_idle_share']}")
     for name, ms in groups.items():
         print(f"  {name:16s} {ms:8.3f} ms in {group_launches[name]:g} launches")
+    print(f"  all that p2m.band_conv launched {result['band_conv_spans_ms_per_forward']:.3f} ms")
+    print(json.dumps({"spans": result["spans"]}))
     for key, ms in result["top_kernels_ms_per_forward"]:
         print(f"  {ms:8.3f} ms  {key[:100]}")
     if device_ms == 0:
