@@ -39,8 +39,11 @@ Phases (any failure exits non-zero):
      it);
   5. drive the train step (smpl_train_setup: the same network in its
      training form, bf16 compute, batch 64, RMSprop at lr 1e-3, edge loss on)
-     for 1 warm-up and 4 counted steps: finite losses, a total that falls,
-     exactly 10 K1 + 10 K2 launches per step and no deploy-kernel launch; one
+     for 1 warm-up and 4 counted steps, the counted ones replays of the
+     step's CUDA graph (the first captures it): finite losses, a total that
+     falls, exactly 10 K1 + 10 K2 launches per call that runs the step's
+     Python (eager or capturing; a replay launches through no wrapper) and
+     no deploy-kernel launch; one
      step's loss and gradients through the kernels against the same step
      through the plain versions of K1 and K2 on the card, twice: from the
      fresh state (before the warm-up step: the kernels' own error) and from
@@ -480,6 +483,35 @@ def read_launches() -> dict:
 def expect(**counts) -> dict:
     """Every wrapper's launch count: `counts`, and 0 for the others."""
     return {k: counts.get(k, 0) for k in read_launches()}
+
+
+# A train call that replayed its CUDA graph (core/train.py) runs no wrapper:
+# the launch checks count the calls that ran the step's Python (eager ones
+# and captures) and hold the replays apart.
+REPLAY = "replay"
+
+
+def graph_counts() -> dict:
+    from pose2mesh_release_tpu_torch.core.train import graph_counters
+    return dict(graph_counters)
+
+
+def train_calls(before: dict) -> tuple:
+    """(calls that ran the step's Python, replays) since `before`
+    (graph_counts())."""
+    now = graph_counts()
+    return (now["eager"] - before["eager"] + now["captures"] - before["captures"],
+            now["replays"] - before["replays"])
+
+
+def check_replayed(label: str, before: dict, replays: int) -> int:
+    """The calls since `before` that ran the step's Python; raises unless
+    `replays` of them replayed the graph."""
+    ran, got = train_calls(before)
+    if got != replays:
+        raise SystemExit(f"{label}: {got} graph replays (want {replays}); counters "
+                         f"{graph_counts()}")
+    return ran
 
 
 def k2_level(V: int, seed: int = 0):
@@ -1277,6 +1309,7 @@ def mano_train(card):
                                    setup.generator)
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     step_losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1286,10 +1319,12 @@ def mano_train(card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_losses.append({k: float(v) for k, v in losses.items()})
     launches = read_launches()
-    log(f"  MANO warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps: ms per step "
+    ran = check_replayed("MANO steps", graphs, TRAIN_STEPS)
+    log(f"  MANO warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps (the first "
+        f"captures its graph, every one replays): ms per step "
         f"{[round(t, 3) for t in step_ms]} ({card}); totals "
         f"{[round(l['total'], 5) for l in step_losses]}; launches {launches}")
-    want = expect(fused_cheby_conv_train=4 * TRAIN_STEPS, fused_cheby_conv_bwd=4 * TRAIN_STEPS)
+    want = expect(fused_cheby_conv_train=4 * ran, fused_cheby_conv_bwd=4 * ran)
     if launches != want:
         raise SystemExit(f"MANO: launch counts {launches} != {want}")
     if not all(math.isfinite(v) for l in step_losses for v in l.values()):
@@ -1696,6 +1731,7 @@ def data_train(data, card, resident_ms, device: str = "cuda") -> dict:
     loader = mix_loader(LOADER_WORKERS, seed=2)
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     step_ms, wait_ms, losses = [], [], []
     t_all = t0 = time.perf_counter()
     for batch in loader:
@@ -1716,8 +1752,10 @@ def data_train(data, card, resident_ms, device: str = "cuda") -> dict:
         f"{[round(t, 3) for t in wait_ms]}, against phase 5's resident-batch "
         f"{[round(t, 3) for t in resident_ms]}; {rate:.1f} samples/s; totals "
         f"{[round(l['total'], 5) for l in losses]}; launches {launches} ({card})")
-    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * DATA_STEPS,
-                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * DATA_STEPS)
+    # the first step eager, the second captures: DATA_STEPS - 1 replays
+    ran = check_replayed("loader-fed steps", graphs, DATA_STEPS - 1)
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * ran,
+                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * ran)
     if len(step_ms) != DATA_STEPS or launches != want:
         raise SystemExit(f"loader-fed steps: {len(step_ms)} steps, launches {launches} "
                          f"!= {want}")
@@ -1902,9 +1940,10 @@ class EngineProbe:
             step = make_train(*a, **kw)
 
             def counted(*args):
-                before = read_launches()
+                before, graphs = read_launches(), graph_counts()
                 out = step(*args)
-                self.train.append(_delta(before))
+                ran, _ = train_calls(graphs)
+                self.train.append(_delta(before) if ran else REPLAY)
                 return out
             return counted
 
@@ -1942,7 +1981,8 @@ def _same(a, b) -> bool:
 
 
 def _check_steps(label: str, records: list, want: dict, count: int) -> None:
-    if len(records) != count or any(r != want for r in records):
+    """`count` calls, each launching `want`, or replaying its graph."""
+    if len(records) != count or any(r != want for r in records if r != REPLAY):
         raise SystemExit(f"{label}: {len(records)} calls (want {count}), launches per call "
                          f"{records} (want {want} each)")
 
@@ -1981,8 +2021,9 @@ def engine_train(root: str, out: str, card, device: str) -> dict:
     _check_steps("cli.train steps", probe.train, TRAIN_STEP_LAUNCHES, steps)
     _check_steps("cli.train in-epoch eval forwards", probe.eval, EVAL_TRAIN_FORM_LAUNCHES,
                  forwards)
-    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (steps + forwards),
-                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * steps)
+    ran = sum(r != REPLAY for r in probe.train)
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (ran + forwards),
+                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * ran)
     if total != want or forwards == 0:
         raise SystemExit(f"cli.train launches {total} != {want} ({forwards} eval forwards)")
     if not all(math.isfinite(e["train_loss"]) and math.isfinite(e["joint_err"])
@@ -1996,7 +2037,8 @@ def engine_train(root: str, out: str, card, device: str) -> dict:
         f"samples/s {[round(BATCH * DATA_STEPS / e['train_s'], 1) for e in epochs]}; losses "
         f"{[round(e['train_loss'], 5) for e in epochs]}; joint err "
         f"{[round(e['joint_err'], 3) for e in epochs]} mm; launches per step "
-        f"{probe.train[0]}, per eval forward {probe.eval[0]} ({forwards} forwards) ({card})")
+        f"{probe.train[0]} ({probe.train.count(REPLAY)} of {steps} steps replayed), per eval "
+        f"forward {probe.eval[0]} ({forwards} forwards) ({card})")
 
     # resume: a Trainer from the latest checkpoint, state equal to the file's
     cfg = load_config(cfg_path)
@@ -2365,8 +2407,9 @@ def f32_train(card) -> tuple:
     """Phase 14.3: the float32 train step (smpl_train_setup, float32
     compute): from the fresh state against the plain-K1/K2 float32 step
     (loss within F32_STEP_LOSS_TOL, gradients within F32_STEP_GRAD_TOL),
-    then 1 warm-up and TRAIN_STEPS counted steps, exactly 10 K1 + 10 K2
-    each.  Returns (setup, report)."""
+    then 1 warm-up and TRAIN_STEPS counted steps, graph replays, exactly
+    10 K1 + 10 K2 a call that runs the step's Python.  Returns (setup,
+    report)."""
     import torch
     from pose2mesh_release_tpu_torch.train_setup import smpl_train_setup
     t0 = time.time()
@@ -2380,6 +2423,7 @@ def f32_train(card) -> tuple:
                                    setup.generator)
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2389,10 +2433,11 @@ def f32_train(card) -> tuple:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
     launches = read_launches()
-    log(f"  float32 warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps: ms per "
-        f"step {[round(t, 3) for t in step_ms]} ({card}); totals "
+    ran = check_replayed("float32 steps", graphs, TRAIN_STEPS)
+    log(f"  float32 warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps (graph "
+        f"replays): ms per step {[round(t, 3) for t in step_ms]} ({card}); totals "
         f"{[round(l['total'], 5) for l in losses]}; launches {launches}")
-    want = expect(fused_cheby_conv_train=10 * TRAIN_STEPS, fused_cheby_conv_bwd=10 * TRAIN_STEPS)
+    want = expect(fused_cheby_conv_train=10 * ran, fused_cheby_conv_bwd=10 * ran)
     if launches != want:
         raise SystemExit(f"float32 step: launch counts {launches} != {want}")
     if not all(math.isfinite(v) for l in losses for v in l.values()) or \
@@ -2503,8 +2548,9 @@ def f32_engine(root: str, card) -> dict:
     _check_steps("float32 cli.train steps", probe.train, TRAIN_STEP_LAUNCHES, DATA_STEPS)
     _check_steps("float32 cli.train in-epoch eval forwards", probe.eval,
                  EVAL_TRAIN_FORM_LAUNCHES, forwards)
-    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (DATA_STEPS + forwards),
-                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * DATA_STEPS)
+    ran = sum(r != REPLAY for r in probe.train)
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (ran + forwards),
+                  fused_cheby_conv_bwd=DATA_TRAIN_CONVS * ran)
     if total != want or forwards == 0:
         raise SystemExit(f"float32 cli.train launches {total} != {want}")
     with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -3865,6 +3911,7 @@ def main() -> int:
                                    setup.generator)
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     step_losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -3874,11 +3921,12 @@ def main() -> int:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_losses.append({k: float(v) for k, v in losses.items()})
     train_launches = read_launches()
-    log(f"  warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps: ms per step "
+    ran = check_replayed("train steps", graphs, TRAIN_STEPS)
+    log(f"  warm-up total {float(warm['total']):.5f}; {TRAIN_STEPS} steps (the first "
+        f"captures its graph, every one replays): ms per step "
         f"{[round(t, 3) for t in step_ms]} ({card}); totals "
         f"{[round(l['total'], 5) for l in step_losses]}; launches {train_launches}")
-    want = expect(fused_cheby_conv_train=10 * TRAIN_STEPS,
-                  fused_cheby_conv_bwd=10 * TRAIN_STEPS)
+    want = expect(fused_cheby_conv_train=10 * ran, fused_cheby_conv_bwd=10 * ran)
     if train_launches != want:
         raise SystemExit(f"launch counts {train_launches} != {want}")
     if not all(math.isfinite(v) for l in step_losses for v in l.values()):

@@ -174,7 +174,9 @@ def edge_length_loss(pred: torch.Tensor, gt: torch.Tensor, faces: torch.Tensor,
 def make_laplacian_loss(faces):
     """Uniform-Laplacian smoothness loss: delta_i = x_i - mean of x over the
     neighbours of i (an index-add over the undirected edge list), loss =
-    mean_i ||delta_i||^2, or sum / batch with average=True."""
+    mean_i ||delta_i||^2, or sum / batch with average=True.  The edge list
+    and degrees are copied to a device once, the first time the loss sees
+    it (`loss.tables`)."""
     f = np.asarray(faces)
     e = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
     e = np.unique(np.sort(e, axis=1), axis=0)
@@ -184,14 +186,34 @@ def make_laplacian_loss(faces):
     deg = np.bincount(src.numpy(), minlength=num_v).astype(np.float32)
     inv_deg = torch.from_numpy(1.0 / (deg + 1e-8))
 
+    tables = {}   # device -> (src, dst, inv_deg) there, copied once
+
     def loss(x: torch.Tensor, average: bool = False) -> torch.Tensor:
-        s, d = src.to(x.device), dst.to(x.device)
+        if x.device not in tables:
+            tables[x.device] = tuple(t.to(x.device) for t in (src, dst, inv_deg))
+        s, d, inv = tables[x.device]
         nbr = torch.zeros_like(x).index_add_(1, s, x[:, d])
-        delta = x - nbr * inv_deg.to(x.device)[None, :, None]
+        delta = x - nbr * inv[None, :, None]
         sq = (delta ** 2).sum(-1)
         return sq.sum() / x.shape[0] if average else sq.mean()
 
+    loss.tables = tables
     return loss
+
+
+_GATES: Dict[Tuple[bool, torch.device], torch.Tensor] = {}
+
+
+def _edge_gate(use_edge_loss: bool | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The edge term's gate on `device`: a tensor as given (cast to bool
+    there), a Python bool as a constant made once a device (a fresh one
+    would be a host-to-device copy every step)."""
+    if torch.is_tensor(use_edge_loss):
+        return use_edge_loss.to(device=device, dtype=torch.bool)
+    key = (bool(use_edge_loss), device)
+    if key not in _GATES:
+        _GATES[key] = torch.tensor(key[0], device=device)
+    return _GATES[key]
 
 
 def pose2mesh_loss(pred_mesh: torch.Tensor, lift_pose: torch.Tensor,
@@ -215,8 +237,8 @@ def pose2mesh_loss(pred_mesh: torch.Tensor, lift_pose: torch.Tensor,
                                                 corners=corners)
     l_edge = edge_weight * edge_length_loss(pred_mesh, targets["mesh"], faces,
                                             corners=corners)
-    gate = torch.as_tensor(use_edge_loss, dtype=torch.bool, device=l_edge.device)
-    l_edge = torch.where(gate, l_edge, torch.zeros_like(l_edge))
+    l_edge = torch.where(_edge_gate(use_edge_loss, l_edge.device), l_edge,
+                         torch.zeros_like(l_edge))
     l_reg = joint_weight * coord_l1(pred_reg_pose, targets["reg_pose3d"],
                                     targets["reg_pose3d_valid"])
     l_lift = joint_weight * coord_l1(lift_pose, targets["lift_pose3d"],

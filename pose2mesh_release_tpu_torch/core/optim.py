@@ -5,8 +5,11 @@ lr-free preconditioner followed by `-lr * update`: RMSprop(alpha=0.99,
 eps=1e-8) == optax.scale_by_rms(0.99, 1e-8, eps_in_sqrt=False), Adam ==
 optax.scale_by_adam(), SGD == optax.identity().  The train step sets the
 learning rate of every parameter group before each step (`set_lr`), as the
-JAX step takes it as an argument.  `multistep_lr` and `ReduceLROnPlateau`
-are the JAX package's schedules.
+JAX step takes it as an argument.  Over parameters on CUDA RMSprop and Adam
+are built `capturable`, keeping their step counts on the device, so the
+train step can be captured as a CUDA graph (RMSprop without momentum has no
+bias correction: the update is the same arithmetic).  `multistep_lr` and
+`ReduceLROnPlateau` are the JAX package's schedules.
 """
 from __future__ import annotations
 
@@ -20,12 +23,16 @@ __all__ = ["make_preconditioner", "set_lr", "multistep_lr", "ReduceLROnPlateau"]
 def make_preconditioner(name: str, params: Iterable[torch.nn.Parameter]
                         ) -> torch.optim.Optimizer:
     """rmsprop, adam or sgd over `params`, torch's defaults as the reference
-    uses them; the learning rate is set per step."""
+    uses them; the learning rate is set per step.  RMSprop and Adam are
+    capturable where every parameter is on CUDA."""
     name = name.lower()
+    params = list(params)
+    cuda = bool(params) and all(p.is_cuda for p in params)
     if name == "rmsprop":
-        return torch.optim.RMSprop(params, lr=0.0, alpha=0.99, eps=1e-8)
+        return torch.optim.RMSprop(params, lr=0.0, alpha=0.99, eps=1e-8, capturable=cuda)
     if name == "adam":
-        return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=cuda)
     if name == "sgd":
         return torch.optim.SGD(params, lr=0.0)
     raise ValueError(f"unknown optimizer {name}")

@@ -16,12 +16,20 @@ summed over the graph ranks), so every rank takes the single-device step of
 the global batch; the losses it returns are the global means.  An eval step
 takes the global batch, evaluates this data rank's rows and gathers the
 predictions of every data rank.
+
+On one CUDA device the train step is captured once as a CUDA graph and
+replayed (`_GraphedSteps`): the first call with a new key (`graph_key`) runs
+eagerly, the second captures and replays, later ones copy the batch into the
+graph's inputs and replay.  On the CPU, on a mesh (its collectives are
+gloo's) and with the spans on (their breakdown needs the launches) every
+step runs eagerly (`eager_reason`).  `graph_counters` counts both.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,12 +39,13 @@ from ..graphs.artifact import PyramidArtifact
 from ..models.meshnet import extract_mesh
 from ..parallel.collectives import all_reduce_sum, gather_rows
 from ..parallel.sharding import sync_grads
-from ..utils.profiling import span
+from ..utils.profiling import span, spans_enabled
 from .losses import coord_l1, pose2mesh_loss
 from .optim import set_lr
 
 __all__ = ["TrainState", "make_train_step", "make_multi_train_step",
-           "make_eval_step", "make_posenet_steps"]
+           "make_eval_step", "make_posenet_steps", "graph_counters", "graph_key",
+           "eager_reason", "held_tensors", "same_held"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -91,21 +100,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     j_regressor: np.ndarray | torch.Tensor, *,
                     normal_weight: float = 0.1, edge_weight: float = 20.0,
                     joint_weight: float = 1e-3,
-                    device: str | torch.device | None = "cuda", mesh=None) -> Callable:
+                    device: str | torch.device | None = "cuda", mesh=None,
+                    graph: bool = True) -> Callable:
     """The cascade's train step: `step(state, art, batch, lr, use_edge_loss,
     generator) -> (state, losses)`.  `model` (a `Pose2Mesh` with
     inference_fused=False) must already live on `device`; j_regressor is the
     (J_target, V) dense regressor of the mesh-to-joint loss.  On `mesh`
-    (the model's) art is `shard_artifact`'s and batch this data rank's rows."""
+    (the model's) art is `shard_artifact`'s and batch this data rank's rows.
+    graph=False: every step eager, also on one CUDA device."""
     dev = _model_device(model, device)
     jreg = torch.as_tensor(j_regressor, dtype=torch.float32).to(dev)
 
-    def train_step(state: TrainState, art: PyramidArtifact, batch: Batch, lr: float,
-                   use_edge_loss: bool | torch.Tensor,
-                   generator: Optional[torch.Generator]
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        _check_state(state, model, optimizer)
-        with span("p2m.step", kind="train"):
+    def run(art: PyramidArtifact, batch: Batch, lr: float,
+            use_edge_loss: bool | torch.Tensor, generator: Optional[torch.Generator],
+            mode: str) -> Dict[str, torch.Tensor]:
+        """One step's work; its losses (with their graph)."""
+        with span("p2m.step", kind="train", graph=mode):
             if batch["mesh"].dtype != torch.float32:
                 # half-precision targets: upcast once so the face losses run in f32
                 batch = dict(batch, mesh=batch["mesh"].float())
@@ -132,10 +142,182 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             with span("p2m.optimizer"):
                 set_lr(optimizer, lr)
                 optimizer.step()
-            return (dataclasses.replace(state, step=state.step + 1),
-                    _global_means(losses, mesh))
+            return losses
+
+    graphs = _GraphedSteps(model, optimizer, dev, run)
+
+    def train_step(state: TrainState, art: PyramidArtifact, batch: Batch, lr: float,
+                   use_edge_loss: bool | torch.Tensor,
+                   generator: Optional[torch.Generator]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        _check_state(state, model, optimizer)
+        args = (art, batch, lr, use_edge_loss, generator)
+        reason = "off" if not graph else graphs.eager_reason(mesh, *args)
+        if reason is None:
+            losses = graphs.replay(*args)
+        else:
+            graph_counters["eager"] += 1
+            graph_counters["eager." + reason] += 1
+            losses = _global_means(run(*args, "eager"), mesh)
+            graphs.ran_eagerly(*args)
+        return dataclasses.replace(state, step=state.step + 1), losses
 
     return train_step
+
+
+# ---- the step as a CUDA graph -----------------------------------------------
+
+MAX_GRAPHS = 3   # live graphs a train step keeps: each one's pool holds a step's activations
+_MAX_SEEN = 16   # keys remembered as run eagerly
+
+# steps by path: captured (each replayed at once), replayed (the captures'
+# included), eager, and eager by reason ("off": built with graph=False)
+graph_counters: Dict[str, int] = {
+    "captures": 0, "replays": 0, "eager": 0, "eager.cpu": 0, "eager.mesh": 0,
+    "eager.spans": 0, "eager.first": 0, "eager.off": 0}
+
+
+def graph_key(art: PyramidArtifact, batch: Batch, lr: float,
+              use_edge_loss: bool | torch.Tensor,
+              generator: Optional[torch.Generator]) -> tuple:
+    """What a captured step bakes in, read from the step's inputs: each batch
+    tensor's shape and dtype, the artifact's and the generator's identity,
+    lr (the captured optimizer kernels take it as a constant) and the edge
+    gate's value; a tensor gate by its shape and dtype, its value copied in
+    before each replay as the batch's is."""
+    gate = (("tensor", tuple(use_edge_loss.shape), use_edge_loss.dtype)
+            if torch.is_tensor(use_edge_loss) else bool(use_edge_loss))
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+            id(art), float(lr), gate, id(generator))
+
+
+def eager_reason(*, cuda: bool, mesh, spans: bool, seen: bool) -> Optional[str]:
+    """Why a train step runs eagerly ("cpu", "mesh", "spans", "first"), or
+    None: it captures or replays.  A graph holds no collective; the spans'
+    breakdown needs every launch; the first step of a key makes what
+    capture cannot (the optimizer's state, the libraries' plans)."""
+    if not cuda:
+        return "cpu"
+    if mesh is not None:
+        return "mesh"
+    if spans:
+        return "spans"
+    return None if seen else "first"
+
+
+def held_tensors(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> List:
+    """What a captured step holds by address: the parameters, the buffers,
+    every tensor of the optimizer's state, and each param group's
+    `capturable`."""
+    out: List = list(model.parameters()) + list(model.buffers())
+    for group in optimizer.param_groups:
+        out.append(group.get("capturable"))
+        for p in group["params"]:
+            out.extend(v for v in optimizer.state.get(p, {}).values() if torch.is_tensor(v))
+    return out
+
+
+def same_held(a: List, b: List) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Param groups that take `capturable` set to it, their step counts on
+    their parameters' device (a checkpoint written before the step was
+    captured loads them non-capturable, its step counts on the CPU)."""
+    for group in optimizer.param_groups:
+        if "capturable" not in group:
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if torch.is_tensor(st.get("step")) and st["step"].device != p.device:
+                st["step"] = st["step"].to(p.device)
+
+
+@dataclass
+class _Captured:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]   # the batch the graph reads
+    gate: Optional[torch.Tensor]      # a tensor edge gate's copy
+    names: Tuple[str, ...]
+    losses: torch.Tensor              # the losses stacked, written by each replay
+    keep: tuple                       # the key's artifact and generator: their ids stay theirs
+
+
+class _GraphedSteps:
+    """A train step's graphs by key, at most MAX_GRAPHS (the least recently
+    replayed goes), and the keys run eagerly.  Each holds the artifact and
+    the generator of its key, so their ids are not reused while it lives.
+    A change of `held_tensors` drops every graph and key."""
+
+    def __init__(self, model, optimizer, dev: torch.device, run: Callable):
+        self.model, self.optimizer, self.dev, self.run = model, optimizer, dev, run
+        self.graphs: "collections.OrderedDict[tuple, _Captured]" = collections.OrderedDict()
+        self.seen: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+        self.held: List = []
+        self.key: Optional[tuple] = None
+
+    def eager_reason(self, mesh, art, batch, lr, use_edge_loss, generator) -> Optional[str]:
+        cuda = self.dev.type == "cuda"
+        self.key = None
+        if cuda and mesh is None:
+            if not same_held(held_tensors(self.model, self.optimizer), self.held):
+                self.graphs.clear()
+                self.seen.clear()
+            self.key = graph_key(art, batch, lr, use_edge_loss, generator)
+        return eager_reason(cuda=cuda, mesh=mesh, spans=spans_enabled(),
+                            seen=self.key in self.seen)
+
+    def ran_eagerly(self, art, batch, lr, use_edge_loss, generator) -> None:
+        if self.key is None:
+            return
+        self.seen[self.key] = (art, generator)
+        self.seen.move_to_end(self.key)
+        while len(self.seen) > _MAX_SEEN:
+            self.seen.popitem(last=False)
+        self.held = held_tensors(self.model, self.optimizer)
+
+    def replay(self, art, batch, lr, use_edge_loss, generator) -> Dict[str, torch.Tensor]:
+        g = self.graphs.get(self.key)
+        if g is None:
+            g = self.graphs[self.key] = self._capture(art, batch, lr, use_edge_loss, generator)
+            while len(self.graphs) > MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+        self.graphs.move_to_end(self.key)
+        for k, v in batch.items():
+            g.inputs[k].copy_(v)
+        if g.gate is not None:
+            g.gate.copy_(use_edge_loss)
+        g.graph.replay()
+        graph_counters["replays"] += 1
+        return dict(zip(g.names, g.losses.clone().unbind(0)))
+
+    def _capture(self, art, batch, lr, use_edge_loss, generator) -> _Captured:
+        """Capture the step on static copies of the batch (and of a tensor
+        gate); the work runs at the first replay.  Inside the step nothing
+        reads the device from the host, synchronizes or copies from the host
+        once its first, eager call has made `MeshNet._skip_w`'s matrices and
+        the losses' gate; the training form reaches none of the deploy
+        form's `_version`-keyed caches (`_band_weights_for`,
+        `_window_form_for`)."""
+        make_capturable(self.optimizer)
+        inputs = {k: v.detach().to(self.dev, copy=True) for k, v in batch.items()}
+        gate = (use_edge_loss.detach().to(self.dev, copy=True)
+                if torch.is_tensor(use_edge_loss) else None)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            # replays draw the dropout from the offsets an eager step would
+            graph.register_generator_state(generator)
+        # thread_local: a loader's threads go on copying and pinning batches
+        # while this thread captures (unsafe calls stay refused on this one)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            losses = self.run(art, inputs, lr, use_edge_loss if gate is None else gate,
+                              generator, "capture")
+            stacked = torch.stack([v.detach() for v in losses.values()])
+        graph_counters["captures"] += 1
+        self.held = held_tensors(self.model, self.optimizer)
+        return _Captured(graph, inputs, gate, tuple(losses), stacked, (art, generator))
 
 
 def make_multi_train_step(train_step: Callable) -> Callable:

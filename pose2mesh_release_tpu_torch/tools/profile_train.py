@@ -4,11 +4,17 @@
         [--hand]
 
 Builds the train step of `train_setup.smpl_train_setup` (`--hand`:
-`mano_train_setup`; bf16 compute, RMSprop at lr 1e-3, edge loss on), warms
-it up, then:
-  1. times `--steps` steps on the host clock, each ending in a synchronize:
-     the end-to-end metric "train step ms per batch";
-  2. traces `--steps` steps with torch.profiler, the card's activity alone,
+`mano_train_setup`; bf16 compute, RMSprop at lr 1e-3, edge loss on) and the
+eager step on the same model (`make_train_step(graph=False)`), warms both up
+(the graphed step captures its CUDA graph), then:
+  1. times `--steps` steps of each on the host clock, each ending in a
+     synchronize, and `--steps` steps of each back to back with one
+     synchronize at the end: the end-to-end metric "train step ms per
+     batch"; prints `core.train.graph_counters`;
+  2. traces `--steps` graphed steps with torch.profiler (the card's activity
+     alone): the device ms a step by kernel name and the idle share, read
+     from the replays of a graph captured before the profiler started;
+  3. traces `--steps` steps with torch.profiler, the card's activity alone,
      with the program's spans on (`utils/profiling.py::trace(host=False)`),
      and puts each kernel, copy and set down to the span that launched it
      and each idle gap of the device to the span the host was in
@@ -18,7 +24,8 @@ it up, then:
      `p2m.optimizer`); K1 = all that `p2m.band_conv` launched, K2 = all that
      `p2m.band_conv.bwd` launched, beside the time of K1's and K2's kernels
      by name; the spans by their own device and idle ms; the launches inside
-     `p2m.step`; the device's idle share.
+     `p2m.step`; the device's idle share.  The spans on, these steps run
+     eagerly (a replay launches no span).
 Needs a CUDA device; writes chiprun_out/profile_train.json.
 """
 from __future__ import annotations
@@ -27,12 +34,14 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import torch
 
+from ..core.train import graph_counters, make_train_step
 from ..train_setup import mano_train_setup, smpl_train_setup
-from ..utils.profiling import STEP, profile_spans
+from ..utils.profiling import STEP, profile_spans, span_breakdown
 
 LR = 1e-3
 # kernel-name groups of the device time (the names K1's and K2's CUDA sources give)
@@ -56,6 +65,31 @@ def _group(name: str) -> str:
     return next((g for g, pats in GROUPS if any(p in low for p in pats)), "other")
 
 
+def _graphed_trace(step, n: int) -> dict:
+    """n replays of the graphed step under torch.profiler, the card's
+    activity alone and no spans (with them on the step runs eagerly), read
+    by `span_breakdown`: device ms a step by kernel-name group, operations
+    a step, the idle share of the window from the first operation to the
+    last."""
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            b = span_breakdown(json.load(f)["traceEvents"])
+    groups = dict.fromkeys([g for g, _ in GROUPS] + ["other"], 0.0)
+    for name, us in b.ops_us.items():
+        groups[_group(name)] += us / 1e3 / n
+    return {"device_ms_per_step": b.busy_us / 1e3 / n,
+            "operations_per_step": sum(b.ops_calls.values()) / n,
+            "idle_share": 1.0 - b.busy_us / b.window_us if b.window_us else None,
+            "groups_ms_per_step": groups}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=64)
@@ -71,21 +105,34 @@ def main(argv=None) -> int:
     setup = mano_train_setup if args.hand else smpl_train_setup
     s = setup(dtype=torch.bfloat16, device="cuda", seed=0, batch=args.batch)
     state = s.state
+    eager_step = make_train_step(state.model, state.optimizer, s.j_regressor, device="cuda",
+                                 graph=False)
+    steps = {"graphed": s.train_step, "eager": eager_step}
 
-    def step():
+    def step(kind="graphed"):
         nonlocal state
-        state, _ = s.train_step(state, s.art_compute, s.batch, LR, True, s.generator)
+        state, _ = steps[kind](state, s.art_compute, s.batch, LR, True, s.generator)
 
-    for _ in range(3):
-        step()
+    for kind in steps:
+        for _ in range(3):
+            step(kind)
     torch.cuda.synchronize()
 
-    walls = []
-    for _ in range(n):
+    walls, back_to_back = {}, {}
+    for kind in steps:
+        walls[kind] = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step(kind)
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        step()
+        for _ in range(n):
+            step(kind)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        back_to_back[kind] = (time.perf_counter() - t0) * 1e3 / n
+    counters = dict(graph_counters)
+    graphed = _graphed_trace(lambda: step("graphed"), n)
 
     traced = {}
 
@@ -107,7 +154,11 @@ def main(argv=None) -> int:
     result = {
         "card": card, "model": "mano" if args.hand else "smpl", "batch": args.batch,
         "steps": n, "lr": LR,
-        "wall_ms_per_step": walls,
+        "wall_ms_per_step": walls["graphed"],
+        "eager_wall_ms_per_step": walls["eager"],
+        "back_to_back_ms_per_step": back_to_back,
+        "graph_counters": counters,
+        "graphed_trace": graphed,
         "traced_wall_ms_per_step": traced["ms"] / n,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - b.busy_us / b.window_us if b.window_us else None,
@@ -119,8 +170,15 @@ def main(argv=None) -> int:
     }
     print(card)
     print(f"{result['model']} train step, batch {args.batch}")
-    print(f"wall ms per step: {[round(w, 3) for w in walls]}; traced "
-          f"{result['traced_wall_ms_per_step']:.3f}")
+    for kind in steps:
+        print(f"{kind} wall ms per step: {[round(w, 3) for w in walls[kind]]}; back to back "
+              f"{back_to_back[kind]:.3f}")
+    print(f"graph_counters: {counters}")
+    print(f"graphed steps traced (CUDA activity alone): device ms per step "
+          f"{graphed['device_ms_per_step']:.3f}, idle share {graphed['idle_share']}, "
+          f"operations a step {graphed['operations_per_step']:.1f}; by kernel name "
+          f"{ {g: round(ms, 3) for g, ms in graphed['groups_ms_per_step'].items()} }")
+    print(f"eager steps with the spans on: traced wall {result['traced_wall_ms_per_step']:.3f}")
     print(f"device ms per step: {device_ms:.3f}; idle share of the traced window: "
           f"{result['device_idle_share']}")
     print("device ms a step by phase (all the phase's spans launched):")
