@@ -80,7 +80,7 @@ from ..ops.window_cheby import window_cat, window_cheby_conv
 from ..parallel.audit import FINAL_ROWS, LEVEL_ENTRY, LEVEL_TRANSITION
 from ..parallel.collectives import gather_rows, scatter_rows
 from ..parallel.halo import global_rows, halo_banded_hop, row_mask
-from ..utils.profiling import span
+from ..utils.profiling import dtype_name, span
 from .posenet import bn_affine, linear
 
 __all__ = ["MeshNet", "channel_interp_matrix", "flat_route", "FLAT_IMPLS",
@@ -137,6 +137,7 @@ class MeshNet(nn.Module):
         self.blocks = tuple(tuple(c) for c in blocks)
         self.K = K
         self.dtype = dtype
+        self.dtype_name = dtype_name(dtype)   # the band convs' span attribute
         self.inference_fused = inference_fused
         self.mesh = None
         self.cl = nn.ModuleList(
@@ -207,7 +208,7 @@ class MeshNet(nn.Module):
         fin = fin_k // self.K
         if route == "group" and fout < fin and skip is None and not final:
             route = "commuted"
-        with span("p2m.band_conv", route=route):
+        with span("p2m.band_conv", route=route, dtype=self.dtype_name):
             band = op.band_val.to(self.dtype)
             x = x.to(self.dtype).contiguous()
             if skip is not None:
@@ -401,7 +402,8 @@ class MeshNet(nn.Module):
         for li, (lin, bn) in enumerate(zip(convs, bns)):
             stats = train and bn is not None
             unfused = fold is None and not stats and not self.fused
-            with span("p2m.band_conv", route="unfused" if unfused else "train"):
+            with span("p2m.band_conv", route="unfused" if unfused else "train",
+                      dtype=self.dtype_name):
                 W, b = self._basis_weights(lin)
                 x = x.to(self.dtype).contiguous()
                 if fold is None:

@@ -47,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..utils.profiling import span
+from ..utils.profiling import dtype_name, span
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _check_cuda, _pad_cols, _ptr, _raise_on, _stream, \
     proj_plan
@@ -406,14 +406,14 @@ class _FusedChebyConv(torch.autograd.Function):
         out = fused_cheby_conv_train(band_val, x, W, b, in_fold=fold,
                                      emit_stats=emit_stats)
         y = out[0] if emit_stats else out
-        ctx.emit_stats, ctx.b_dtype = emit_stats, b.dtype
+        ctx.emit_stats, ctx.b_dtype, ctx.dtype_name = emit_stats, b.dtype, dtype_name(x.dtype)
         ctx.save_for_backward(band_val, x, W, scale, shift,
                               y if emit_stats else None)
         return out
 
     @staticmethod
     def backward(ctx, *grads):
-        with span("p2m.band_conv.bwd"):
+        with span("p2m.band_conv.bwd", dtype=ctx.dtype_name):
             band_val, x, W, scale, shift, y = ctx.saved_tensors
             if ctx.emit_stats:
                 gy, gs, gs2 = grads

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graphs.artifact import LevelOperator
-from ..utils.profiling import span
+from ..utils.profiling import dtype_name, span
 from ._build import load_library
 from .fused_cheby import _C_INT, _C_PTR, _T, _check_cuda, _ptr, _raise_on, _stream
 from .spmm import band_hop
@@ -301,11 +301,12 @@ class _BandedHop(torch.autograd.Function):
     @staticmethod
     def forward(ctx, band_val, x):
         ctx.save_for_backward(band_val)
+        ctx.dtype_name = dtype_name(x.dtype)
         return hop(band_val, x.contiguous())
 
     @staticmethod
     def backward(ctx, g):
-        with span("p2m.band_conv.bwd"):
+        with span("p2m.band_conv.bwd", dtype=ctx.dtype_name):
             (band_val,) = ctx.saved_tensors
             return None, hop(band_val, g.contiguous())
 

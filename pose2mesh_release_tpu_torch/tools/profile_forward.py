@@ -1,9 +1,10 @@
 """Where the time of the SMPL deploy forward goes, on one GPU.
 
     python -m pose2mesh_release_tpu_torch.tools.profile_forward [--batch 64]
-        [--flat-impl group|strip|window] [--unfused]
+        [--flat-impl group|strip|window] [--unfused] [--dtype bfloat16|float32]
 
-Builds the deploy forward of `deploy.smpl_deploy_forward` (bf16) on the
+Builds the deploy forward of `deploy.smpl_deploy_forward` (`--dtype`, bf16 by
+default; float32 takes the kernels' float32 instances) on the
 chosen path (the band convs' kernels: `--flat-impl`, or `--unfused` for two
 hops and three projections per conv), warms it up, then traces `--steps`
 forwards with torch.profiler, the card's activity alone, with the program's
@@ -14,8 +15,8 @@ kernels, matrix products and the rest, the CUDA launches per forward of
 each group, all that `p2m.band_conv` launched, the spans by their own
 device and idle ms (`span_breakdown`), and the device's idle
 share of the traced window.  Needs a CUDA
-device; writes chiprun_out/profile_forward.json (the group path) or
-chiprun_out/profile_forward_<path>.json.
+device; writes chiprun_out/profile_forward.json (the group path, bf16) or
+chiprun_out/profile_forward[_<path>][_float32].json.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import torch
 from ..deploy import smpl_deploy_forward
 from ..utils.profiling import profile_spans
 
-GROUPS = (("band kernels", ("band_hop_kernel", "cheby_proj_kernel", "cheby_proj_f32_kernel")),
+GROUPS = (("band kernels", ("band_hop_kernel", "band_hop_f32", "cheby_proj_kernel",
+                            "cheby_proj_f32_kernel")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
@@ -41,6 +43,7 @@ def main(argv=None) -> int:
     ap.add_argument("--flat-impl", choices=("group", "strip", "window"), default="group")
     ap.add_argument("--unfused", action="store_true",
                     help="fused=False: each band conv as two hops and three projections")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args(argv)
     if args.unfused and args.flat_impl != "group":
         ap.error("--unfused takes no fused kernels: leave --flat-impl at group")
@@ -50,7 +53,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    d = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0,
+    d = smpl_deploy_forward(dtype=getattr(torch, args.dtype), device="cuda", seed=0,
                             flat_impl=args.flat_impl, fused=not args.unfused)
     g = torch.Generator().manual_seed(1)
     pose2d = torch.randn(args.batch, 17, 2, generator=g).cuda()
@@ -87,7 +90,7 @@ def main(argv=None) -> int:
         group_launches[name] += counts[key] / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     result = {
-        "card": card, "path": path, "batch": args.batch, "steps": args.steps,
+        "card": card, "path": path, "dtype": args.dtype, "batch": args.batch, "steps": args.steps,
         "wall_ms_per_forward": walls,
         "traced_wall_ms_per_forward": traced_ms / args.steps,
         "device_ms_per_forward": device_ms,
@@ -100,7 +103,7 @@ def main(argv=None) -> int:
         "top_kernels_ms_per_forward": [(k, us / 1e3 / args.steps) for k, us in top],
     }
     print(card)
-    print(f"path {path}")
+    print(f"path {path}, {args.dtype}")
     print(f"wall ms per forward: {[round(w, 3) for w in walls]}")
     print(f"device ms per forward: {device_ms:.3f}; idle share of the traced "
           f"window: {result['device_idle_share']}")
@@ -113,7 +116,8 @@ def main(argv=None) -> int:
     if device_ms == 0:
         print("the profiler recorded no device time: device breakdown not measured")
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "profile_forward" + ("" if path == "group" else f"_{path}")
+    name = ("profile_forward" + ("" if path == "group" else f"_{path}")
+            + ("" if args.dtype == "bfloat16" else f"_{args.dtype}"))
     with open(os.path.join("chiprun_out", f"{name}.json"), "w") as f:
         json.dump(result, f, indent=1)
     return 0

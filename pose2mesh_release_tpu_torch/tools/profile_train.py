@@ -1,10 +1,10 @@
 """Where the time of the train step goes, on one GPU, by the program's spans.
 
     python -m pose2mesh_release_tpu_torch.tools.profile_train [--batch 64] [--steps 5]
-        [--hand]
+        [--hand] [--dtype bfloat16|float32]
 
 Builds the train step of `train_setup.smpl_train_setup` (`--hand`:
-`mano_train_setup`; bf16 compute, RMSprop at lr 1e-3, edge loss on) and the
+`mano_train_setup`; `--dtype` compute, bf16 by default, RMSprop at lr 1e-3, edge loss on) and the
 eager step on the same model (`make_train_step(graph=False)`), warms both up
 (the graphed step captures its CUDA graph), then:
   1. times `--steps` steps of each on the host clock, each ending in a
@@ -26,7 +26,8 @@ eager step on the same model (`make_train_step(graph=False)`), warms both up
      by name; the spans by their own device and idle ms; the launches inside
      `p2m.step`; the device's idle share.  The spans on, these steps run
      eagerly (a replay launches no span).
-Needs a CUDA device; writes chiprun_out/profile_train.json.
+Needs a CUDA device; writes chiprun_out/profile_train.json (bf16) or
+chiprun_out/profile_train_float32.json.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ GROUPS = (("K1 kernels", ("cheby_proj_kernel", "cheby_proj_f32_kernel", "fold_ke
                           "reduce_partials")),
           ("K2 kernels", ("bwd_dx_kernel", "bwd_dw_kernel", "bwd_dx_f32_kernel",
                           "bwd_dw_f32_kernel", "dw_reduce_kernel")),
-          ("hop engine (K1 and K2)", ("band_hop_kernel",)),
+          ("hop engine (K1 and K2)", ("band_hop_kernel", "band_hop_f32")),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 PHASES = (("network forward", ("p2m.posenet", "p2m.meshnet")),
           ("extract_mesh and regressor", ("p2m.extract_mesh", "p2m.regressor")),
@@ -95,6 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--hand", action="store_true", help="the MANO hand's train step")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
@@ -103,7 +105,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     setup = mano_train_setup if args.hand else smpl_train_setup
-    s = setup(dtype=torch.bfloat16, device="cuda", seed=0, batch=args.batch)
+    s = setup(dtype=getattr(torch, args.dtype), device="cuda", seed=0, batch=args.batch)
     state = s.state
     eager_step = make_train_step(state.model, state.optimizer, s.j_regressor, device="cuda",
                                  graph=False)
@@ -152,7 +154,8 @@ def main(argv=None) -> int:
               for p, spans in PHASES}
     device_ms = b.busy_us / 1e3 / n
     result = {
-        "card": card, "model": "mano" if args.hand else "smpl", "batch": args.batch,
+        "card": card, "model": "mano" if args.hand else "smpl", "dtype": args.dtype,
+        "batch": args.batch,
         "steps": n, "lr": LR,
         "wall_ms_per_step": walls["graphed"],
         "eager_wall_ms_per_step": walls["eager"],
@@ -169,7 +172,7 @@ def main(argv=None) -> int:
                                     sorted(b.ops_us.items(), key=lambda kv: -kv[1])[:15]],
     }
     print(card)
-    print(f"{result['model']} train step, batch {args.batch}")
+    print(f"{result['model']} train step, {args.dtype}, batch {args.batch}")
     for kind in steps:
         print(f"{kind} wall ms per step: {[round(w, 3) for w in walls[kind]]}; back to back "
               f"{back_to_back[kind]:.3f}")
@@ -193,7 +196,8 @@ def main(argv=None) -> int:
     if device_ms == 0:
         print("the profiler recorded no device time: device breakdown not measured")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_train.json"), "w") as f:
+    name = "profile_train" + ("" if args.dtype == "bfloat16" else f"_{args.dtype}")
+    with open(os.path.join("chiprun_out", f"{name}.json"), "w") as f:
         json.dump(result, f, indent=1)
     return 0
 

@@ -51,7 +51,7 @@ import numpy as np
 if TYPE_CHECKING:
     from ..graphs.artifact import LevelOperator, PyramidArtifact
 
-__all__ = ["span", "record_spans", "spans_enabled", "Span", "SpanLog", "span_events",
+__all__ = ["span", "record_spans", "spans_enabled", "dtype_name", "Span", "SpanLog", "span_events",
            "span_breakdown", "SpanBreakdown", "profile_spans", "STEP", "OUTSIDE", "UNATTRIBUTED",
            "trace", "Roofline", "spmm_roofline", "pyramid_roofline",
            "fused_conv_roofline", "strip_conv_roofline", "sparse_conv_roofline",
@@ -150,6 +150,11 @@ def span(name: str, **attrs):
     if _log is None:
         return _NO_SPAN
     return _Open(_log, name, attrs)
+
+
+def dtype_name(dtype) -> str:
+    """A torch dtype as a span attribute: "float32", "bfloat16"."""
+    return str(dtype).removeprefix("torch.")
 
 
 def spans_enabled() -> bool:

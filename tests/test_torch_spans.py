@@ -157,7 +157,45 @@ def test_eval_step_span_tree(tiny, path):
     if route == "group":
         want[2] = "commuted"
     assert [c.attrs["route"] for c in convs] == want
+    assert {c.attrs["dtype"] for c in convs} == {"float32"}
     assert not _named(spans, "p2m.losses") and not _named(spans, "p2m.band_conv.bwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_conv_spans_carry_the_compute_dtype(tiny, dtype):
+    """`p2m.band_conv` and `p2m.band_conv.bwd` name the compute dtype, so a
+    trace tells the float32 kernel instances from the bf16 ones."""
+    art, jreg, batch = tiny
+    art = art.to("cpu", dtype)
+    eval_step = make_eval_step(_model(art, dtype=dtype), jreg, device="cpu")
+    model = _model(art, dtype=dtype, inference_fused=False)
+    opt = make_preconditioner("rmsprop", model.parameters())
+    step = make_train_step(model, opt, jreg, device="cpu")
+    with record_spans() as log:
+        eval_step(art, batch["pose2d"])
+        step(TrainState(model, opt), art, batch, 1e-3, True, torch.Generator().manual_seed(0))
+    name = str(dtype).removeprefix("torch.")
+    convs, bwd = _named(log.spans, "p2m.band_conv"), _named(log.spans, "p2m.band_conv.bwd")
+    assert len(convs) == 2 * BAND_CONVS and len(bwd) == BAND_CONVS
+    assert all(s.attrs["dtype"] == name for s in convs + bwd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hop_backward_span_carries_the_compute_dtype(tiny, dtype):
+    """The unfused conv's two differentiable hops (`ops.hop`): each backward
+    is a `p2m.band_conv.bwd` that names the dtype its forward ran in."""
+    from pose2mesh_release_tpu_torch.ops.fused_cheby_train import cheby_project_unfused
+    art = tiny[0].to("cpu", dtype)
+    op = art.mesh_ops[0]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(op.num_vertices, 2, 4, generator=g).to(dtype).requires_grad_()
+    W, b = torch.randn(12, 3, generator=g).to(dtype), torch.zeros(3, dtype=dtype)
+    y = cheby_project_unfused(op.band_val.to(dtype), x, W, b)
+    with record_spans() as log:
+        y.float().sum().backward()
+    bwd = _named(log.spans, "p2m.band_conv.bwd")
+    assert len(bwd) == 2 and x.grad is not None
+    assert all(s.attrs["dtype"] == str(dtype).removeprefix("torch.") for s in bwd)
 
 
 def test_train_step_span_tree(tiny):
