@@ -21,8 +21,11 @@ Phases (any failure exits non-zero):
      level gives the hop engine (the sub-tiles it multiplies);
   3. drive the deploy forward (SMPL stand-in, 9 levels, SMPL_BLOCKS, PoseNet
      hidden 4096, 17 H36M joints, bf16, batch 64, BatchNorm folded into
-     seeded random weights) through make_eval_step on 4 request batches,
-     count the kernel launches, check shapes and finiteness, and compare one
+     seeded random weights) through make_eval_step on 4 request batches
+     (the first captures the step's CUDA graph, every one replays it),
+     count the kernel launches of the calls that ran the step's Python,
+     check shapes and finiteness, hold the graphed step against the eager
+     one (make_eval_step(graph=False)) and time both, and compare one
      batch with the same forward through the plain versions; then the same
      on the strip path (flat_impl="strip": 10 strip convs per forward), the
      window path (10 window convs) and the unfused path (fused=False: 20
@@ -485,9 +488,10 @@ def expect(**counts) -> dict:
     return {k: counts.get(k, 0) for k in read_launches()}
 
 
-# A train call that replayed its CUDA graph (core/train.py) runs no wrapper:
-# the launch checks count the calls that ran the step's Python (eager ones
-# and captures) and hold the replays apart.
+# A train or eval call that replayed its CUDA graph (core/train.py) runs no
+# wrapper: the launch checks count the calls that ran the step's Python (eager
+# ones and captures) and hold the replays apart; the swaps to the plain
+# versions run eager eval steps (`eager_eval`).
 REPLAY = "replay"
 
 
@@ -496,22 +500,31 @@ def graph_counts() -> dict:
     return dict(graph_counters)
 
 
-def train_calls(before: dict) -> tuple:
+def step_calls(before: dict, prefix: str = "") -> tuple:
     """(calls that ran the step's Python, replays) since `before`
-    (graph_counts())."""
+    (graph_counts()); prefix "eval." for the eval step's."""
     now = graph_counts()
-    return (now["eager"] - before["eager"] + now["captures"] - before["captures"],
-            now["replays"] - before["replays"])
+    return tuple(sum(now[prefix + k] - before[prefix + k] for k in keys)
+                 for keys in (("eager", "captures"), ("replays",)))
 
 
-def check_replayed(label: str, before: dict, replays: int) -> int:
+def check_replayed(label: str, before: dict, replays: int, prefix: str = "") -> int:
     """The calls since `before` that ran the step's Python; raises unless
-    `replays` of them replayed the graph."""
-    ran, got = train_calls(before)
+    `replays` of them replayed the graph (a capture replays at once)."""
+    ran, got = step_calls(before, prefix)
     if got != replays:
         raise SystemExit(f"{label}: {got} graph replays (want {replays}); counters "
                          f"{graph_counts()}")
     return ran
+
+
+def eager_eval(d):
+    """A deploy forward's eval step without a graph (make_eval_step(graph=
+    False)) on d's model: each call runs its Python, so it launches through
+    the wrappers and through their plain versions when they are swapped in."""
+    from pose2mesh_release_tpu_torch.core.train import make_eval_step
+    return make_eval_step(d.model, d.j_regressor, device=d.art.vertex_gather.device,
+                          mesh=d.model.mesh, graph=False)
 
 
 def k2_level(V: int, seed: int = 0):
@@ -1076,6 +1089,48 @@ def plain_forward(path, step, art, pose2d):
     return ref, ms
 
 
+GRAPH_AB_CALLS = 20
+
+
+def graph_ab(label: str, d, batches, card) -> dict:
+    """The deploy forward's eval step (a replayed CUDA graph) against its
+    eager step (`eager_eval`) on the same requests: every answer bit-equal,
+    or within the eager step's own difference from one run to the next;
+    then ms a request of each, GRAPH_AB_CALLS calls each ending in a
+    synchronize (as a closed-loop client waits), and ms a call back to back
+    (CUDA events)."""
+    import torch
+    graphed, eager, art = d.eval_step, eager_eval(d), d.art_compute
+    worst = {}
+    for i, p in enumerate(batches):
+        got, want, again = graphed(art, p), eager(art, p), eager(art, p)
+        for k, g, w, a in zip(("mesh", "reg_pose", "pose3d"), got, want, again):
+            diff, own = float((g - w).abs().max()), float((a - w).abs().max())
+            if diff > own:
+                raise SystemExit(f"{label}: request {i} {k}: graphed vs eager {diff}, eager "
+                                 f"vs eager {own}")
+            worst[k] = max(worst.get(k, 0.0), diff)
+    out = {"card": card, "batch": BATCH, "max_abs_graphed_vs_eager": worst}
+    for name, step in (("graphed", graphed), ("eager", eager)):
+        ms = []
+        for _ in range(GRAPH_AB_CALLS):
+            t0 = time.perf_counter()
+            step(art, batches[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_synchronized_ms"] = ms
+        out[f"{name}_back_to_back_ms"] = cuda_ms(lambda: step(art, batches[0]),
+                                                 GRAPH_AB_CALLS)
+    med = {k: sorted(out[f"{k}_synchronized_ms"])[GRAPH_AB_CALLS // 2]
+           for k in ("graphed", "eager")}
+    log(f"{label}, graphed vs eager (make_eval_step(graph=False)), batch {BATCH}: largest "
+        f"difference {worst}; ms a request, synchronized, median graphed "
+        f"{med['graphed']:.3f} / eager {med['eager']:.3f}; back to back graphed "
+        f"{out['graphed_back_to_back_ms']:.3f} / eager {out['eager_back_to_back_ms']:.3f} "
+        f"({card})")
+    return out
+
+
 def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=None,
                shapes=None, tol=FORWARD_TOL):
     """Phase 3 for a further path: a model built for the path with the group
@@ -1088,10 +1143,12 @@ def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=N
     paths, cuda_counts = paths or PATHS, cuda_counts or PATH_CUDA_LAUNCHES
     shapes = shapes or [(BATCH, 6890, 3), (BATCH, 17, 3), (BATCH, 17, 3)]
     kw, wrapper, per_forward = paths[path]
-    step, art_bf = on_path(deploy, **kw).eval_step, deploy.art_compute
+    d = on_path(deploy, **kw)
+    step, eager, art_bf = d.eval_step, eager_eval(d), deploy.art_compute
     step(art_bf, batches[0])  # warm-up
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     outs, times = [], []
     for p in batches:
         t0 = time.perf_counter()
@@ -1099,15 +1156,16 @@ def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=N
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
-    log(f"  {path}: {len(batches)} requests of batch {BATCH}: ms per batch "
-        f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
-    want = expect(**{wrapper: per_forward * len(batches)})
+    ran = check_replayed(f"{path} requests", graphs, len(batches), "eval.")
+    log(f"  {path}: {len(batches)} requests of batch {BATCH} (the first captures its "
+        f"graph): ms per batch {[round(t, 3) for t in times]} ({card}); launches {launches}")
+    want = expect(**{wrapper: per_forward * ran})
     if launches != want:
         raise SystemExit(f"{path}: launch counts {launches} != {want}")
     for out in outs:
         assert [tuple(t.shape) for t in out] == list(shapes), path
         assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
-    cuda_launches = kernel_launches(lambda: step(art_bf, batches[0]))
+    cuda_launches = kernel_launches(lambda: eager(art_bf, batches[0]))
     engine = sum(n for name, n in cuda_launches.items()
                  if any(k in name for k in ENGINE_KERNELS))
     f32_hops, f32_lists = (sum(n for name, n in cuda_launches.items() if k in name)
@@ -1119,7 +1177,7 @@ def drive_path(path, deploy, batches, group_out, card, paths=None, cuda_counts=N
         raise SystemExit(f"{path}: {engine} hop engine and projection launches per forward, "
                          f"expected {cuda_counts[path]}, and {f32_lists} float32 list passes "
                          f"for {f32_hops} float32 hops: {cuda_launches}")
-    ref, plain_ms = plain_forward(path, step, art_bf, batches[0])
+    ref, plain_ms = plain_forward(path, eager, art_bf, batches[0])
     errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
             "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1]),
             "mesh_vs_group": rel_l2(outs[0][0], group_out[0]),
@@ -1260,6 +1318,7 @@ def mano_forward(deploy, card) -> dict:
     eval_step(art_bf, batches[0])  # warm-up
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     outs, times = [], []
     for p in batches:
         t0 = time.perf_counter()
@@ -1267,15 +1326,17 @@ def mano_forward(deploy, card) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
-    log(f"phase 7: MANO deploy forward, {REQUESTS} requests of batch {BATCH}: ms per batch "
-        f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
-    want = expect(fused_cheby_conv=2 * REQUESTS, fused_cheby_conv_commuted=2 * REQUESTS)
+    ran = check_replayed("MANO requests", graphs, REQUESTS, "eval.")
+    log(f"phase 7: MANO deploy forward, {REQUESTS} requests of batch {BATCH} (the first "
+        f"captures its graph): ms per batch {[round(t, 3) for t in times]} ({card}); "
+        f"launches {launches}")
+    want = expect(fused_cheby_conv=2 * ran, fused_cheby_conv_commuted=2 * ran)
     if launches != want:
         raise SystemExit(f"MANO: launch counts {launches} != {want}")
     for out in outs:
         assert [tuple(t.shape) for t in out] == MANO_SHAPES
         assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
-    ref, plain_ms = plain_forward("group", eval_step, art_bf, batches[0])
+    ref, plain_ms = plain_forward("group", eager_eval(deploy), art_bf, batches[0])
     errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
             "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1])}
     log(f"  MANO group: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
@@ -1865,10 +1926,12 @@ def data_eval(data, card, device: str = "cuda") -> dict:
     d.eval_step(d.art_compute, torch.zeros(BATCH, ds.joint_num, 2, device=device))  # warm-up
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     card_res, card_ms = eval_loop(ds, d, device)
     launches = read_launches()
     nb = len(card_ms)
-    want = expect(**{k: v * nb for k, v in DATA_DEPLOY_LAUNCHES.items()})
+    ran, replays = step_calls(graphs, "eval.")
+    want = expect(**{k: v * ran for k, v in DATA_DEPLOY_LAUNCHES.items()})
     cpu = deploy_forward_on(ds.graph, ds.target_regressor(), dtype=torch.bfloat16,
                             device="cpu", seed=0)
     cpu.model.load_state_dict({k: v.cpu() for k, v in d.model.state_dict().items()})
@@ -1880,8 +1943,9 @@ def data_eval(data, card, device: str = "cuda") -> dict:
         f"{[round(t, 3) for t in card_ms]} ({card}); CPU through the plain versions "
         f"{ {k: round(v, 4) for k, v in cpu_res.items()} }, ms per batch "
         f"{[round(t, 1) for t in cpu_ms]}; relative difference {errs} (tolerance "
-        f"{EVAL_TOL}); launches {launches}")
-    if launches != want:
+        f"{EVAL_TOL}); launches {launches} ({ran} calls ran the step's Python, {replays} "
+        f"replayed its graph)")
+    if launches != want or replays < nb - 1:
         raise SystemExit(f"evaluation loop: launch counts {launches} != {want}")
     if not all(e <= EVAL_TOL for e in errs.values()):
         raise SystemExit(f"evaluation on the card disagrees with the CPU loop: {errs}")
@@ -1942,7 +2006,7 @@ class EngineProbe:
             def counted(*args):
                 before, graphs = read_launches(), graph_counts()
                 out = step(*args)
-                ran, _ = train_calls(graphs)
+                ran, _ = step_calls(graphs)
                 self.train.append(_delta(before) if ran else REPLAY)
                 return out
             return counted
@@ -1952,11 +2016,12 @@ class EngineProbe:
 
             def counted(*args):
                 import torch
-                before, t0 = read_launches(), time.perf_counter()
+                before, graphs, t0 = read_launches(), graph_counts(), time.perf_counter()
                 out = step(*args)
                 torch.cuda.synchronize()
                 self.eval_ms.append((time.perf_counter() - t0) * 1e3)
-                self.eval.append(_delta(before))
+                ran, _ = step_calls(graphs, "eval.")
+                self.eval.append(_delta(before) if ran else REPLAY)
                 return out
             return counted
 
@@ -1965,6 +2030,11 @@ class EngineProbe:
 
     def __exit__(self, *exc):
         self._engine.make_train_step, self._engine.make_eval_step = self._orig
+
+    @property
+    def eval_ran(self) -> int:
+        """The eval calls that ran the step's Python (not replays)."""
+        return sum(r != REPLAY for r in self.eval)
 
 
 def _same(a, b) -> bool:
@@ -2022,7 +2092,7 @@ def engine_train(root: str, out: str, card, device: str) -> dict:
     _check_steps("cli.train in-epoch eval forwards", probe.eval, EVAL_TRAIN_FORM_LAUNCHES,
                  forwards)
     ran = sum(r != REPLAY for r in probe.train)
-    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (ran + forwards),
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (ran + probe.eval_ran),
                   fused_cheby_conv_bwd=DATA_TRAIN_CONVS * ran)
     if total != want or forwards == 0:
         raise SystemExit(f"cli.train launches {total} != {want} ({forwards} eval forwards)")
@@ -2095,7 +2165,7 @@ def engine_test(root: str, out: str, card, device: str) -> dict:
                                  "--device", device])
         wall = time.time() - t0
         _check_steps(f"cli.test ({form}) forwards", probe.eval, want, len(probe.eval))
-        if read_launches() != expect(**{k: v * len(probe.eval) for k, v in want.items()}) \
+        if read_launches() != expect(**{k: v * probe.eval_ran for k, v in want.items()}) \
                 or not probe.eval:
             raise SystemExit(f"cli.test ({form}): launches {read_launches()}")
         runs[form] = {"result": res, "wall_s": wall, "eval_ms": probe.eval_ms,
@@ -2364,6 +2434,7 @@ def f32_forward(deploy, mano_deploy, card) -> dict:
     step(art, batches[0])  # warm-up
     torch.cuda.synchronize()
     reset_launches()
+    graphs = graph_counts()
     outs, times = [], []
     for p in batches:
         t0 = time.perf_counter()
@@ -2371,16 +2442,18 @@ def f32_forward(deploy, mano_deploy, card) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
-    log(f"phase 14: float32 deploy forward, {REQUESTS} requests of batch {BATCH}: ms per "
-        f"batch {[round(t, 3) for t in times]} ({card}); launches {launches}")
-    want = expect(fused_cheby_conv=8 * REQUESTS, fused_cheby_conv_commuted=2 * REQUESTS)
+    ran = check_replayed("float32 requests", graphs, REQUESTS, "eval.")
+    log(f"phase 14: float32 deploy forward, {REQUESTS} requests of batch {BATCH} (the first "
+        f"captures its graph): ms per batch {[round(t, 3) for t in times]} ({card}); "
+        f"launches {launches}")
+    want = expect(fused_cheby_conv=8 * ran, fused_cheby_conv_commuted=2 * ran)
     if launches != want:
         raise SystemExit(f"float32 forward: launch counts {launches} != {want}")
     for out in outs:
         assert [tuple(t.shape) for t in out] == [(BATCH, 6890, 3), (BATCH, 17, 3),
                                                  (BATCH, 17, 3)]
         assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
-    ref, plain_ms = plain_forward("group", step, art, batches[0])
+    ref, plain_ms = plain_forward("group", eager_eval(deploy), art, batches[0])
     errs = {"mesh_vs_plain": rel_l2(outs[0][0], ref[0]),
             "reg_pose_vs_plain": rel_l2(outs[0][1], ref[1])}
     log(f"  float32 forward vs plain float32 forward: "
@@ -2389,7 +2462,9 @@ def f32_forward(deploy, mano_deploy, card) -> dict:
     if max(errs.values()) > F32_FORWARD_TOL:
         raise SystemExit(f"float32 forward disagrees with the plain forward: {errs}")
     report = {"card": card, "batch": BATCH, "ms_per_batch": times, "launches": launches,
-              "plain_forward_ms": plain_ms, **errs}
+              "plain_forward_ms": plain_ms, **errs,
+              "graph_ab": graph_ab("phase 14: the float32 serve forward", deploy, batches,
+                                   card)}
     log("phase 14: float32 forward on the further paths")
     report["paths"] = {path: drive_path(path, deploy, batches, outs[0], card,
                                         tol=F32_FORWARD_TOL) for path in PATHS}
@@ -2488,7 +2563,9 @@ def f32_unfused_train(setup, card) -> dict:
     step_launches = read_launches()
     if step_launches != expect(fused_cheby_conv_train=10, fused_cheby_conv_bwd=10):
         raise SystemExit(f"float32 unfused step: launches {step_launches}")
-    ev = make_eval_step(model, setup.j_regressor, device="cuda")
+    # eager: the launch count below and the swap to the plain versions need
+    # the step's Python on every call
+    ev = make_eval_step(model, setup.j_regressor, device="cuda", graph=False)
     pose2d = setup.batch["pose2d"]
     ev(setup.art_compute, pose2d)  # warm-up
     torch.cuda.synchronize()
@@ -2549,7 +2626,7 @@ def f32_engine(root: str, card) -> dict:
     _check_steps("float32 cli.train in-epoch eval forwards", probe.eval,
                  EVAL_TRAIN_FORM_LAUNCHES, forwards)
     ran = sum(r != REPLAY for r in probe.train)
-    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (ran + forwards),
+    want = expect(fused_cheby_conv_train=DATA_TRAIN_CONVS * (ran + probe.eval_ran),
                   fused_cheby_conv_bwd=DATA_TRAIN_CONVS * ran)
     if total != want or forwards == 0:
         raise SystemExit(f"float32 cli.train launches {total} != {want}")
@@ -2576,7 +2653,7 @@ def f32_engine(root: str, card) -> dict:
             res = cli_test.main(["--cfg", path, "--weights", best, "--debug", "--device",
                                  "cuda"])
         _check_steps(f"float32 cli.test ({form}) forwards", probe.eval, want, len(probe.eval))
-        if read_launches() != expect(**{k: v * len(probe.eval) for k, v in want.items()}) \
+        if read_launches() != expect(**{k: v * probe.eval_ran for k, v in want.items()}) \
                 or not probe.eval:
             raise SystemExit(f"float32 cli.test ({form}): launches {read_launches()}")
         runs[form] = {"result": res, "eval_ms": probe.eval_ms,
@@ -2677,7 +2754,7 @@ def f32_path_testers(root, out, best, train_form, keys, card) -> dict:
                                 device="cuda").test(0)
         want = DATA_PATH_LAUNCHES[path]
         _check_steps(f"float32 Tester ({path}) forwards", probe.eval, want, len(probe.eval))
-        if read_launches() != expect(**{k: v * len(probe.eval) for k, v in want.items()}) \
+        if read_launches() != expect(**{k: v * probe.eval_ran for k, v in want.items()}) \
                 or not probe.eval:
             raise SystemExit(f"float32 Tester ({path}): launches {read_launches()}")
         rel = {k: abs(res[k] - train_form[k]) / abs(train_form[k]) for k in keys}
@@ -3344,17 +3421,18 @@ def ref_runbook(root: str, card) -> dict:
         step(art_c, batches[0])  # warm-up
         torch.cuda.synchronize()
         reset_launches()
+        graphs = graph_counts()
         outs = [step(art_c, p) for p in batches]
         torch.cuda.synchronize()
         launches = read_launches()
-        if launches != expect(fused_cheby_conv=8 * REF_BATCHES,
-                              fused_cheby_conv_commuted=2 * REF_BATCHES):
+        ran = check_replayed(f"phase 16 (a) {name}", graphs, REF_BATCHES, "eval.")
+        if launches != expect(fused_cheby_conv=8 * ran, fused_cheby_conv_commuted=2 * ran):
             raise SystemExit(f"phase 16 (a) {name}: launches {launches}")
         errs = {k: max(rel_l2(o[i], w[i]) for o, w in zip(outs, want))
                 for i, k in enumerate(("mesh", "reg_joints", "lifted_joints"))}
         ms = cuda_ms(lambda: step(art_c, batches[0]), 3)
         report["forward"][name] = {"rel_l2": errs, "ms_per_batch": ms,
-                                   "launches_per_forward": {k: v // REF_BATCHES for k, v in
+                                   "launches_per_forward": {k: v // ran for k, v in
                                                             launches.items() if v}}
         log(f"phase 16 (a): reference final.pth.tar through the {name} deploy forward, "
             f"{REF_BATCHES} batches of {BATCH}: rel_l2 vs RefCascade float32 "
@@ -3834,6 +3912,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     reset_launches()
+    graphs = graph_counts()
     outs, times = [], []
     for p in batches:
         t0 = time.perf_counter()
@@ -3841,9 +3920,11 @@ def main() -> int:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
-    log(f"phase 3: {REQUESTS} requests of batch {BATCH}: ms per batch "
-        f"{[round(t, 3) for t in times]} ({card}); launches {launches}")
-    want = expect(fused_cheby_conv=8 * REQUESTS, fused_cheby_conv_commuted=2 * REQUESTS)
+    ran = check_replayed("phase 3 requests", graphs, REQUESTS, "eval.")
+    log(f"phase 3: {REQUESTS} requests of batch {BATCH} (the first captures the eval "
+        f"step's graph, every one replays it): ms per batch {[round(t, 3) for t in times]} "
+        f"({card}); launches {launches}")
+    want = expect(fused_cheby_conv=8 * ran, fused_cheby_conv_commuted=2 * ran)
     if launches != want:
         raise SystemExit(f"launch counts {launches} != {want}")
     for mesh, reg, pose3d in outs:
@@ -3853,16 +3934,19 @@ def main() -> int:
         for t in (mesh, reg, pose3d):
             assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())
 
+    report["graph_ab"] = graph_ab("phase 3: the bf16 serve forward", deploy, batches, card)
+
     # the same forward with MeshNet's band convs swapped for the plain versions
     from pose2mesh_release_tpu_torch.models import meshnet
+    eager_step = eager_eval(deploy)
     kernels_in_use = (meshnet.fused_cheby_conv, meshnet.fused_cheby_conv_commuted)
     meshnet.fused_cheby_conv = fc.fused_cheby_conv_plain
     meshnet.fused_cheby_conv_commuted = fc.fused_cheby_conv_commuted_plain
     try:
-        ref = eval_step(art_bf, batches[0])
+        ref = eager_step(art_bf, batches[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eval_step(art_bf, batches[0])
+        eager_step(art_bf, batches[0])
         torch.cuda.synchronize()
         plain_fwd_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -3897,7 +3981,7 @@ def main() -> int:
     bad = [(r["tag"], r["name"]) for r in train_rows if not r["ok"]]
     if bad:
         raise SystemExit(f"training kernel check failed: {bad}")
-    del deploy, model, eval_step, outs, ref
+    del deploy, model, eval_step, eager_step, outs, ref
     torch.cuda.empty_cache()
 
     # -- phase 5: the train step --------------------------------------------

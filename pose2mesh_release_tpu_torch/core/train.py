@@ -17,12 +17,18 @@ the global batch; the losses it returns are the global means.  An eval step
 takes the global batch, evaluates this data rank's rows and gathers the
 predictions of every data rank.
 
-On one CUDA device the train step is captured once as a CUDA graph and
-replayed (`_GraphedSteps`): the first call with a new key (`graph_key`) runs
-eagerly, the second captures and replays, later ones copy the batch into the
-graph's inputs and replay.  On the CPU, on a mesh (its collectives are
-gloo's) and with the spans on (their breakdown needs the launches) every
-step runs eagerly (`eager_reason`).  `graph_counters` counts both.
+On one CUDA device the train step and the eval step are each captured once
+as a CUDA graph and replayed (`_KeyedGraphs`): the first call with a new key
+(`graph_key`, `eval_graph_key`) runs eagerly, the second captures and
+replays, later ones copy the batch into the graph's inputs and replay.  A
+graph holds the model's tensors by address: the train step's graphs are
+dropped when one of `held_tensors` is replaced, the eval step's also when
+one of the parameters or buffers is written in place (`held_versions`: a
+weight load bumps their versions, and the deploy form's weight layouts are
+rebuilt from them on an eager call).  On the CPU, on a mesh (its
+collectives are gloo's) and with the spans on (their breakdown needs the
+launches) every step runs eagerly (`eager_reason`).  `graph_counters`
+counts both.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from .optim import set_lr
 
 __all__ = ["TrainState", "make_train_step", "make_multi_train_step",
            "make_eval_step", "make_posenet_steps", "graph_counters", "graph_key",
-           "eager_reason", "held_tensors", "same_held"]
+           "eval_graph_key", "eager_reason", "held_tensors", "held_versions", "same_held"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -146,35 +152,32 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     graphs = _GraphedSteps(model, optimizer, dev, run)
 
+    def eager(*args) -> Dict[str, torch.Tensor]:
+        return _global_means(run(*args, "eager"), mesh)
+
     def train_step(state: TrainState, art: PyramidArtifact, batch: Batch, lr: float,
                    use_edge_loss: bool | torch.Tensor,
                    generator: Optional[torch.Generator]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         _check_state(state, model, optimizer)
-        args = (art, batch, lr, use_edge_loss, generator)
-        reason = "off" if not graph else graphs.eager_reason(mesh, *args)
-        if reason is None:
-            losses = graphs.replay(*args)
-        else:
-            graph_counters["eager"] += 1
-            graph_counters["eager." + reason] += 1
-            losses = _global_means(run(*args, "eager"), mesh)
-            graphs.ran_eagerly(*args)
+        losses = graphs(graph, mesh, eager, art, batch, lr, use_edge_loss, generator)
         return dataclasses.replace(state, step=state.step + 1), losses
 
     return train_step
 
 
-# ---- the step as a CUDA graph -----------------------------------------------
+# ---- the steps as CUDA graphs -----------------------------------------------
 
-MAX_GRAPHS = 3   # live graphs a train step keeps: each one's pool holds a step's activations
+MAX_GRAPHS = 3   # live graphs a step keeps: each one's pool holds a step's activations
 _MAX_SEEN = 16   # keys remembered as run eagerly
 
 # steps by path: captured (each replayed at once), replayed (the captures'
-# included), eager, and eager by reason ("off": built with graph=False)
-graph_counters: Dict[str, int] = {
-    "captures": 0, "replays": 0, "eager": 0, "eager.cpu": 0, "eager.mesh": 0,
-    "eager.spans": 0, "eager.first": 0, "eager.off": 0}
+# included), eager, eager by reason ("off": built with graph=False), and the
+# graphs dropped because what they hold changed; the train step's unprefixed,
+# the eval step's under "eval."
+_COUNTS = ("captures", "replays", "eager", "eager.cpu", "eager.mesh", "eager.spans",
+           "eager.first", "eager.off", "dropped")
+graph_counters: Dict[str, int] = {p + k: 0 for p in ("", "eval.") for k in _COUNTS}
 
 
 def graph_key(art: PyramidArtifact, batch: Batch, lr: float,
@@ -191,11 +194,19 @@ def graph_key(art: PyramidArtifact, batch: Batch, lr: float,
             id(art), float(lr), gate, id(generator))
 
 
+def eval_graph_key(art: PyramidArtifact, pose2d: torch.Tensor) -> tuple:
+    """What a captured eval step bakes in, read from its inputs: pose2d's
+    shape and dtype (its values are copied in before each replay) and the
+    artifact's identity."""
+    return tuple(pose2d.shape), pose2d.dtype, id(art)
+
+
 def eager_reason(*, cuda: bool, mesh, spans: bool, seen: bool) -> Optional[str]:
-    """Why a train step runs eagerly ("cpu", "mesh", "spans", "first"), or
-    None: it captures or replays.  A graph holds no collective; the spans'
+    """Why a step runs eagerly ("cpu", "mesh", "spans", "first"), or None:
+    it captures or replays.  A graph holds no collective; the spans'
     breakdown needs every launch; the first step of a key makes what
-    capture cannot (the optimizer's state, the libraries' plans)."""
+    capture cannot (the optimizer's state, the libraries' plans, the deploy
+    form's weight layouts)."""
     if not cuda:
         return "cpu"
     if mesh is not None:
@@ -217,6 +228,16 @@ def held_tensors(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Li
     return out
 
 
+def held_versions(model: torch.nn.Module) -> Tuple[List, Tuple[int, ...]]:
+    """What a captured eval step holds: the parameters and buffers by
+    address, and their versions.  The train step cannot hold versions (its
+    own replays write the weights without bumping them); the eval step
+    writes none, so a new version is a weight load or update, after which
+    the deploy form's weight layouts must be rebuilt by an eager call."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    return tensors, tuple(t._version for t in tensors)
+
+
 def same_held(a: List, b: List) -> bool:
     return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
@@ -235,6 +256,72 @@ def make_capturable(optimizer: torch.optim.Optimizer) -> None:
                 st["step"] = st["step"].to(p.device)
 
 
+class _KeyedGraphs:
+    """A step's graphs by key, at most MAX_GRAPHS (the least recently
+    replayed goes), and the keys run eagerly (at most _MAX_SEEN): a key's
+    first call runs eagerly, its second captures and replays, later ones
+    replay.  Each graph and seen key holds `keep(*args)`, the objects whose
+    ids its key names, so those ids are not reused while it lives.  When
+    `holds` no longer holds, every graph and key is dropped.  A step gives
+    its key, what its graphs hold, the capture and the replay; `prefix`
+    names its `graph_counters`."""
+
+    prefix = ""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.graphs: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+        self.seen: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+        self.held = None
+        self.key: Optional[tuple] = None
+
+    def __call__(self, graph: bool, mesh, eager: Callable, *args):
+        """One call of the step: eager(*args), or the graph of args' key
+        (graph=False: always eager)."""
+        reason = "off" if not graph else self.eager_reason(mesh, *args)
+        if reason is None:
+            return self.replay(*args)
+        graph_counters[self.prefix + "eager"] += 1
+        graph_counters[self.prefix + "eager." + reason] += 1
+        out = eager(*args)
+        self.ran_eagerly(*args)
+        return out
+
+    def eager_reason(self, mesh, *args) -> Optional[str]:
+        cuda = self.dev.type == "cuda"
+        self.key = None
+        if cuda and mesh is None:
+            if self.held is None or not self.holds(self.held_now()):
+                graph_counters[self.prefix + "dropped"] += len(self.graphs)
+                self.graphs.clear()
+                self.seen.clear()
+            self.key = self.graph_key(*args)
+        return eager_reason(cuda=cuda, mesh=mesh, spans=spans_enabled(),
+                            seen=self.key in self.seen)
+
+    def ran_eagerly(self, *args) -> None:
+        if self.key is None:
+            return
+        self.seen[self.key] = self.keep(*args)
+        self.seen.move_to_end(self.key)
+        while len(self.seen) > _MAX_SEEN:
+            self.seen.popitem(last=False)
+        self.held = self.held_now()
+
+    def replay(self, *args):
+        g = self.graphs.get(self.key)
+        if g is None:
+            g = self.graphs[self.key] = self.capture(*args)
+            graph_counters[self.prefix + "captures"] += 1
+            self.held = self.held_now()
+            while len(self.graphs) > MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+        self.graphs.move_to_end(self.key)
+        out = self.run_graph(g, *args)
+        graph_counters[self.prefix + "replays"] += 1
+        return out
+
+
 @dataclass
 class _Captured:
     graph: "torch.cuda.CUDAGraph"
@@ -245,55 +332,37 @@ class _Captured:
     keep: tuple                       # the key's artifact and generator: their ids stay theirs
 
 
-class _GraphedSteps:
-    """A train step's graphs by key, at most MAX_GRAPHS (the least recently
-    replayed goes), and the keys run eagerly.  Each holds the artifact and
-    the generator of its key, so their ids are not reused while it lives.
-    A change of `held_tensors` drops every graph and key."""
+class _GraphedSteps(_KeyedGraphs):
+    """The train step's graphs, keyed by `graph_key`.  Each holds the
+    artifact and the generator of its key; a change of `held_tensors` (by
+    address) drops every graph and key."""
 
     def __init__(self, model, optimizer, dev: torch.device, run: Callable):
-        self.model, self.optimizer, self.dev, self.run = model, optimizer, dev, run
-        self.graphs: "collections.OrderedDict[tuple, _Captured]" = collections.OrderedDict()
-        self.seen: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
-        self.held: List = []
-        self.key: Optional[tuple] = None
+        super().__init__(dev)
+        self.model, self.optimizer, self.run = model, optimizer, run
 
-    def eager_reason(self, mesh, art, batch, lr, use_edge_loss, generator) -> Optional[str]:
-        cuda = self.dev.type == "cuda"
-        self.key = None
-        if cuda and mesh is None:
-            if not same_held(held_tensors(self.model, self.optimizer), self.held):
-                self.graphs.clear()
-                self.seen.clear()
-            self.key = graph_key(art, batch, lr, use_edge_loss, generator)
-        return eager_reason(cuda=cuda, mesh=mesh, spans=spans_enabled(),
-                            seen=self.key in self.seen)
+    graph_key = staticmethod(graph_key)
 
-    def ran_eagerly(self, art, batch, lr, use_edge_loss, generator) -> None:
-        if self.key is None:
-            return
-        self.seen[self.key] = (art, generator)
-        self.seen.move_to_end(self.key)
-        while len(self.seen) > _MAX_SEEN:
-            self.seen.popitem(last=False)
-        self.held = held_tensors(self.model, self.optimizer)
+    def held_now(self) -> List:
+        return held_tensors(self.model, self.optimizer)
 
-    def replay(self, art, batch, lr, use_edge_loss, generator) -> Dict[str, torch.Tensor]:
-        g = self.graphs.get(self.key)
-        if g is None:
-            g = self.graphs[self.key] = self._capture(art, batch, lr, use_edge_loss, generator)
-            while len(self.graphs) > MAX_GRAPHS:
-                self.graphs.popitem(last=False)
-        self.graphs.move_to_end(self.key)
+    def holds(self, now: List) -> bool:
+        return same_held(now, self.held)
+
+    @staticmethod
+    def keep(art, batch, lr, use_edge_loss, generator) -> tuple:
+        return art, generator
+
+    def run_graph(self, g: _Captured, art, batch, lr, use_edge_loss, generator
+                  ) -> Dict[str, torch.Tensor]:
         for k, v in batch.items():
             g.inputs[k].copy_(v)
         if g.gate is not None:
             g.gate.copy_(use_edge_loss)
         g.graph.replay()
-        graph_counters["replays"] += 1
         return dict(zip(g.names, g.losses.clone().unbind(0)))
 
-    def _capture(self, art, batch, lr, use_edge_loss, generator) -> _Captured:
+    def capture(self, art, batch, lr, use_edge_loss, generator) -> _Captured:
         """Capture the step on static copies of the batch (and of a tensor
         gate); the work runs at the first replay.  Inside the step nothing
         reads the device from the host, synchronizes or copies from the host
@@ -315,9 +384,60 @@ class _GraphedSteps:
             losses = self.run(art, inputs, lr, use_edge_loss if gate is None else gate,
                               generator, "capture")
             stacked = torch.stack([v.detach() for v in losses.values()])
-        graph_counters["captures"] += 1
-        self.held = held_tensors(self.model, self.optimizer)
         return _Captured(graph, inputs, gate, tuple(losses), stacked, (art, generator))
+
+
+@dataclass
+class _CapturedEval:
+    graph: "torch.cuda.CUDAGraph"
+    pose2d: torch.Tensor                  # the input the graph reads
+    outs: Tuple[torch.Tensor, ...]        # written by each replay
+    keep: tuple                           # the key's artifact: its id stays its own
+
+
+class _GraphedEval(_KeyedGraphs):
+    """The eval step's graphs, keyed by `eval_graph_key`.  Each holds the
+    artifact of its key; a change of `held_versions` (an address or a
+    version) drops every graph and key, so the next call runs eagerly and
+    rebuilds what the weights' versions key (`MeshNet._band_weights_for`,
+    `_window_form_for`)."""
+
+    prefix = "eval."
+
+    def __init__(self, model, dev: torch.device, run: Callable):
+        super().__init__(dev)
+        self.model, self.run = model, run
+
+    graph_key = staticmethod(eval_graph_key)
+
+    def held_now(self) -> Tuple[List, Tuple[int, ...]]:
+        return held_versions(self.model)
+
+    def holds(self, now) -> bool:
+        return same_held(now[0], self.held[0]) and now[1] == self.held[1]
+
+    @staticmethod
+    def keep(art, pose2d) -> tuple:
+        return (art,)
+
+    def run_graph(self, g: _CapturedEval, art, pose2d) -> Tuple[torch.Tensor, ...]:
+        g.pose2d.copy_(pose2d)
+        g.graph.replay()
+        # the caller may hold these while the next request replays
+        return tuple(t.clone() for t in g.outs)
+
+    def capture(self, art, pose2d) -> _CapturedEval:
+        """Capture the forward on a static copy of pose2d.  Its first,
+        eager call has made `MeshNet._skip_w`'s matrices, the kernels'
+        weight layouts and window forms and their one-time tables; after it
+        the forward neither reads the device from the host nor copies from
+        the host."""
+        x = pose2d.detach().to(self.dev, copy=True)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: `Tester`'s loader thread goes on copying batches
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = self.run(art, x)
+        return _CapturedEval(graph, x, outs, (art,))
 
 
 def make_multi_train_step(train_step: Callable) -> Callable:
@@ -337,18 +457,20 @@ def make_multi_train_step(train_step: Callable) -> Callable:
 
 
 def make_eval_step(model: torch.nn.Module, j_regressor: np.ndarray | torch.Tensor,
-                   *, device: str | torch.device | None = "cuda", mesh=None) -> Callable:
+                   *, device: str | torch.device | None = "cuda", mesh=None,
+                   graph: bool = True) -> Callable:
     """Eval forward returning (pred_mesh mm (B, V, 3), pred_reg_pose mm
     (B, J, 3), lifted pose mm (B, J, 3)), for the deploy form or the
     training form at eval.  `model` must already live on `device`;
     j_regressor is the (J_target, V) dense regressor.  On `mesh` (the
-    model's) pose2d is the global batch and so are the predictions."""
+    model's) pose2d is the global batch and so are the predictions.  On one
+    CUDA device the forward replays a CUDA graph (see the module note); each
+    call returns tensors of its own.  graph=False: every call eager."""
     dev = _model_device(model, device)
     jreg = torch.as_tensor(j_regressor, dtype=torch.float32).to(dev)
 
-    @torch.inference_mode()
-    def eval_step(art: PyramidArtifact, pose2d: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def run(art: PyramidArtifact, pose2d: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         n = pose2d.shape[0]
         with span("p2m.step", kind="eval"):
             if mesh is not None:
@@ -361,6 +483,13 @@ def make_eval_step(model: torch.nn.Module, j_regressor: np.ndarray | torch.Tenso
             if mesh is None:
                 return mesh_mm, reg_pose, pose3d
             return tuple(_gather_data(t, mesh, n) for t in (mesh_mm, reg_pose, pose3d))
+
+    graphs = _GraphedEval(model, dev, run)
+
+    @torch.inference_mode()
+    def eval_step(art: PyramidArtifact, pose2d: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return graphs(graph, mesh, run, art, pose2d)
 
     return eval_step
 

@@ -42,7 +42,7 @@ class DeployForward:
     art: PyramidArtifact          # float32 operators
     art_compute: PyramidArtifact  # operators in the compute dtype
     model: Pose2Mesh
-    eval_step: Callable
+    eval_step: Callable           # on one CUDA device a replayed CUDA graph (core/train.py)
     j_regressor: np.ndarray       # (J, V) regressor of the eval step's joints
 
 

@@ -6,17 +6,25 @@
 Builds the deploy forward of `deploy.smpl_deploy_forward` (`--dtype`, bf16 by
 default; float32 takes the kernels' float32 instances) on the
 chosen path (the band convs' kernels: `--flat-impl`, or `--unfused` for two
-hops and three projections per conv), warms it up, then traces `--steps`
-forwards with torch.profiler, the card's activity alone, with the program's
-spans on (`utils/profiling.py::trace(host=False)`), and prints: the wall
-time per forward (host clock around synchronized forwards, outside the
-trace), the device time per forward by kernel, grouped into the port's band
-kernels, matrix products and the rest, the CUDA launches per forward of
-each group, all that `p2m.band_conv` launched, the spans by their own
-device and idle ms (`span_breakdown`), and the device's idle
-share of the traced window.  Needs a CUDA
-device; writes chiprun_out/profile_forward.json (the group path, bf16) or
-chiprun_out/profile_forward[_<path>][_float32].json.
+hops and three projections per conv) and the eager eval step on the same
+model (`make_eval_step(graph=False)`), warms both up (the graphed step
+captures its CUDA graph), then:
+  1. times `--steps` forwards of each on the host clock, each ending in a
+     synchronize (as a closed-loop client waits), and `--steps` back to back
+     with one synchronize at the end; prints the eval step's
+     `core.train.graph_counters`;
+  2. traces `--steps` replays of the graphed forward with torch.profiler
+     (the card's activity alone): device ms a forward by kernel group,
+     operations a forward, the idle share;
+  3. traces `--steps` forwards with the program's spans on (which run
+     eagerly: a replay launches no span; `utils/profiling.py::trace(host=
+     False)`) and prints the device time per forward by kernel, grouped into
+     the port's band kernels, matrix products and the rest, the CUDA
+     launches per forward of each group, all that `p2m.band_conv` launched,
+     the spans by their own device and idle ms (`span_breakdown`), and the
+     device's idle share of the traced window.
+Needs a CUDA device; writes chiprun_out/profile_forward.json (the group
+path, bf16) or chiprun_out/profile_forward[_<path>][_float32].json.
 """
 from __future__ import annotations
 
@@ -28,8 +36,10 @@ import time
 
 import torch
 
+from ..core.train import graph_counters, make_eval_step
 from ..deploy import smpl_deploy_forward
 from ..utils.profiling import profile_spans
+from .profile_train import graphed_trace
 
 GROUPS = (("band kernels", ("band_hop_kernel", "band_hop_f32", "cheby_proj_kernel",
                             "cheby_proj_f32_kernel")),
@@ -57,16 +67,28 @@ def main(argv=None) -> int:
                             flat_impl=args.flat_impl, fused=not args.unfused)
     g = torch.Generator().manual_seed(1)
     pose2d = torch.randn(args.batch, 17, 2, generator=g).cuda()
-    for _ in range(3):
-        d.eval_step(d.art_compute, pose2d)
+    steps = {"graphed": d.eval_step,
+             "eager": make_eval_step(d.model, d.j_regressor, device="cuda", graph=False)}
+    for step in steps.values():
+        for _ in range(3):
+            step(d.art_compute, pose2d)
     torch.cuda.synchronize()
 
-    walls = []
-    for _ in range(args.steps):
+    walls, back_to_back = {}, {}
+    for kind, step in steps.items():
+        walls[kind] = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step(d.art_compute, pose2d)
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        d.eval_step(d.art_compute, pose2d)
+        for _ in range(args.steps):
+            step(d.art_compute, pose2d)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        back_to_back[kind] = (time.perf_counter() - t0) * 1e3 / args.steps
+    counters = {k: v for k, v in graph_counters.items() if k.startswith("eval.")}
+    graphed = graphed_trace(lambda: d.eval_step(d.art_compute, pose2d), args.steps, GROUPS)
 
     traced = {}
 
@@ -91,7 +113,11 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     result = {
         "card": card, "path": path, "dtype": args.dtype, "batch": args.batch, "steps": args.steps,
-        "wall_ms_per_forward": walls,
+        "wall_ms_per_forward": walls["graphed"],
+        "eager_wall_ms_per_forward": walls["eager"],
+        "back_to_back_ms_per_forward": back_to_back,
+        "graph_counters": counters,
+        "graphed_trace": graphed,
         "traced_wall_ms_per_forward": traced_ms / args.steps,
         "device_ms_per_forward": device_ms,
         "device_idle_share": 1.0 - b.busy_us / b.window_us if b.window_us else None,
@@ -104,7 +130,15 @@ def main(argv=None) -> int:
     }
     print(card)
     print(f"path {path}, {args.dtype}")
-    print(f"wall ms per forward: {[round(w, 3) for w in walls]}")
+    for kind in steps:
+        print(f"{kind} wall ms per forward: {[round(w, 3) for w in walls[kind]]}; back to "
+              f"back {back_to_back[kind]:.3f}")
+    print(f"graph_counters: {counters}")
+    print(f"graphed forwards traced (CUDA activity alone): device ms per forward "
+          f"{graphed['device_ms_per_step']:.3f}, idle share {graphed['idle_share']}, "
+          f"operations a forward {graphed['operations_per_step']:.1f}; by kernel group "
+          f"{ {k: round(ms, 3) for k, ms in graphed['groups_ms_per_step'].items()} }")
+    print(f"eager forwards with the spans on: traced wall {traced_ms / args.steps:.3f}")
     print(f"device ms per forward: {device_ms:.3f}; idle share of the traced "
           f"window: {result['device_idle_share']}")
     for name, ms in groups.items():

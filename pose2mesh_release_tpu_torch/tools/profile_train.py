@@ -61,17 +61,17 @@ PHASES = (("network forward", ("p2m.posenet", "p2m.meshnet")),
           ("K2 (p2m.band_conv.bwd)", ("p2m.band_conv.bwd",)))
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    return next((g for g, pats in GROUPS if any(p in low for p in pats)), "other")
+    return next((g for g, pats in groups if any(p in low for p in pats)), "other")
 
 
-def _graphed_trace(step, n: int) -> dict:
-    """n replays of the graphed step under torch.profiler, the card's
+def graphed_trace(step, n: int, groups=GROUPS) -> dict:
+    """n replays of a graphed step under torch.profiler, the card's
     activity alone and no spans (with them on the step runs eagerly), read
-    by `span_breakdown`: device ms a step by kernel-name group, operations
-    a step, the idle share of the window from the first operation to the
-    last."""
+    by `span_breakdown`: device ms a step by kernel-name group (`groups`),
+    operations a step, the idle share of the window from the first
+    operation to the last."""
     from torch.profiler import ProfilerActivity, profile
     with tempfile.TemporaryDirectory() as d:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -82,13 +82,13 @@ def _graphed_trace(step, n: int) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             b = span_breakdown(json.load(f)["traceEvents"])
-    groups = dict.fromkeys([g for g, _ in GROUPS] + ["other"], 0.0)
+    by_group = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
     for name, us in b.ops_us.items():
-        groups[_group(name)] += us / 1e3 / n
+        by_group[_group(name, groups)] += us / 1e3 / n
     return {"device_ms_per_step": b.busy_us / 1e3 / n,
             "operations_per_step": sum(b.ops_calls.values()) / n,
             "idle_share": 1.0 - b.busy_us / b.window_us if b.window_us else None,
-            "groups_ms_per_step": groups}
+            "groups_ms_per_step": by_group}
 
 
 def main(argv=None) -> int:
@@ -134,7 +134,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         back_to_back[kind] = (time.perf_counter() - t0) * 1e3 / n
     counters = dict(graph_counters)
-    graphed = _graphed_trace(lambda: step("graphed"), n)
+    graphed = graphed_trace(lambda: step("graphed"), n)
 
     traced = {}
 

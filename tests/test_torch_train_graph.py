@@ -367,10 +367,11 @@ def test_capture_beside_a_producer_thread():
 
 @pytest.mark.cuda
 def test_no_stale_replay_after_load_state_dict():
-    """After `optimizer.load_state_dict` the next call runs eagerly; a state
-    saved non-capturable with its step counts on the CPU (as a checkpoint of
-    an older port loads) is made capturable before the next capture, and
-    the step then matches the eager step from the same state."""
+    """After `optimizer.load_state_dict` the graph is dropped (`dropped`) and
+    the next call runs eagerly; a state saved non-capturable with its step
+    counts on the CPU (as a checkpoint of an older port loads) is made
+    capturable before the next capture, and the step then matches the eager
+    step from the same state."""
     _cuda()
     sg, step_g = _setup("mano", True)
     se, step_e = _setup("mano", False)
@@ -389,8 +390,8 @@ def test_no_stale_replay_after_load_state_dict():
     before = dict(graph_counters)
     lg = _run(sg, step_g, batches, 3)
     delta = {k: graph_counters[k] - before[k] for k in graph_counters}
-    assert delta == {**{k: 0 for k in delta}, "eager": 1, "eager.first": 1, "captures": 1,
-                     "replays": 2}
+    assert delta == {**{k: 0 for k in delta}, "dropped": 1, "eager": 1, "eager.first": 1,
+                     "captures": 1, "replays": 2}
     assert opt.param_groups[0]["capturable"]
     assert all(st["step"].is_cuda for st in opt.state.values())
     le = _run(se, step_e, batches, 3)
