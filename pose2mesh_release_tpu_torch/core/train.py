@@ -19,16 +19,14 @@ predictions of every data rank.
 
 On one CUDA device the train step and the eval step are each captured once
 as a CUDA graph and replayed (`_KeyedGraphs`): the first call with a new key
-(`graph_key`, `eval_graph_key`) runs eagerly, the second captures and
-replays, later ones copy the batch into the graph's inputs and replay.  A
-graph holds the model's tensors by address: the train step's graphs are
-dropped when one of `held_tensors` is replaced, the eval step's also when
-one of the parameters or buffers is written in place (`held_versions`: a
-weight load bumps their versions, and the deploy form's weight layouts are
-rebuilt from them on an eager call).  On the CPU, on a mesh (its
-collectives are gloo's) and with the spans on (their breakdown needs the
-launches) every step runs eagerly (`eager_reason`).  `graph_counters`
-counts both.
+(`graph_key`) runs eagerly, the second captures and replays, later ones
+copy the batch into the graph's inputs and replay.  A graph reads the
+model's tensors (and the optimizer's state) where they are, so a weight
+load or an in-place write is read by the next replay; the graphs are
+dropped only when one of `held_tensors` is replaced (a new address).  On
+the CPU, on a mesh (its collectives are gloo's) and with the spans on
+(their breakdown needs the launches) every step runs eagerly
+(`eager_reason`).  `graph_counters` counts both.
 """
 from __future__ import annotations
 
@@ -51,7 +49,7 @@ from .optim import set_lr
 
 __all__ = ["TrainState", "make_train_step", "make_multi_train_step",
            "make_eval_step", "make_posenet_steps", "graph_counters", "graph_key",
-           "eval_graph_key", "eager_reason", "held_tensors", "held_versions", "same_held"]
+           "eager_reason", "held_tensors", "same_held"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -150,10 +148,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 optimizer.step()
             return losses
 
-    graphs = _GraphedSteps(model, optimizer, dev, run)
+    def step_losses(mode: str) -> Callable:
+        """The step as its losses, detached (on a mesh their global means);
+        `mode` marks its span."""
+        return lambda *args: _global_means(run(*args, mode), mesh)
 
-    def eager(*args) -> Dict[str, torch.Tensor]:
-        return _global_means(run(*args, "eager"), mesh)
+    graphs = _KeyedGraphs(step_losses("capture"), model, dev, optimizer)
+    eager = step_losses("eager")
 
     def train_step(state: TrainState, art: PyramidArtifact, batch: Batch, lr: float,
                    use_edge_loss: bool | torch.Tensor,
@@ -180,33 +181,33 @@ _COUNTS = ("captures", "replays", "eager", "eager.cpu", "eager.mesh", "eager.spa
 graph_counters: Dict[str, int] = {p + k: 0 for p in ("", "eval.") for k in _COUNTS}
 
 
-def graph_key(art: PyramidArtifact, batch: Batch, lr: float,
-              use_edge_loss: bool | torch.Tensor,
-              generator: Optional[torch.Generator]) -> tuple:
-    """What a captured step bakes in, read from the step's inputs: each batch
-    tensor's shape and dtype, the artifact's and the generator's identity,
-    lr (the captured optimizer kernels take it as a constant) and the edge
-    gate's value; a tensor gate by its shape and dtype, its value copied in
-    before each replay as the batch's is."""
-    gate = (("tensor", tuple(use_edge_loss.shape), use_edge_loss.dtype)
-            if torch.is_tensor(use_edge_loss) else bool(use_edge_loss))
-    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
-            id(art), float(lr), gate, id(generator))
+def _named(a) -> bool:
+    """Whether a key names argument `a` by its identity: not a tensor, a dict
+    of tensors or a scalar."""
+    return not (torch.is_tensor(a) or isinstance(a, (dict, bool, int, float)))
 
 
-def eval_graph_key(art: PyramidArtifact, pose2d: torch.Tensor) -> tuple:
-    """What a captured eval step bakes in, read from its inputs: pose2d's
-    shape and dtype (its values are copied in before each replay) and the
-    artifact's identity."""
-    return tuple(pose2d.shape), pose2d.dtype, id(art)
+def graph_key(*args) -> tuple:
+    """What a captured step bakes in, read from the step's arguments: a
+    tensor (and each tensor of a dict) by shape and dtype, its values copied
+    in before each replay; a scalar by value (lr: the captured optimizer
+    kernels take it as a constant; the edge gate); anything else (the
+    artifact, the generator) by identity."""
+    def key(a):
+        if torch.is_tensor(a):
+            return tuple(a.shape), a.dtype
+        if isinstance(a, dict):
+            return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(a.items()))
+        return id(a) if _named(a) else a
+    return tuple(key(a) for a in args)
 
 
 def eager_reason(*, cuda: bool, mesh, spans: bool, seen: bool) -> Optional[str]:
     """Why a step runs eagerly ("cpu", "mesh", "spans", "first"), or None:
     it captures or replays.  A graph holds no collective; the spans'
     breakdown needs every launch; the first step of a key makes what
-    capture cannot (the optimizer's state, the libraries' plans, the deploy
-    form's weight layouts)."""
+    capture cannot (the optimizer's state, the libraries' plans, the
+    kernels' one-time tables)."""
     if not cuda:
         return "cpu"
     if mesh is not None:
@@ -216,26 +217,17 @@ def eager_reason(*, cuda: bool, mesh, spans: bool, seen: bool) -> Optional[str]:
     return None if seen else "first"
 
 
-def held_tensors(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> List:
-    """What a captured step holds by address: the parameters, the buffers,
-    every tensor of the optimizer's state, and each param group's
-    `capturable`."""
+def held_tensors(model: torch.nn.Module,
+                 optimizer: Optional[torch.optim.Optimizer] = None) -> List:
+    """What a captured step holds by address: the parameters, the buffers
+    and, with an optimizer, every tensor of its state and each param
+    group's `capturable`."""
     out: List = list(model.parameters()) + list(model.buffers())
-    for group in optimizer.param_groups:
+    for group in optimizer.param_groups if optimizer is not None else ():
         out.append(group.get("capturable"))
         for p in group["params"]:
             out.extend(v for v in optimizer.state.get(p, {}).values() if torch.is_tensor(v))
     return out
-
-
-def held_versions(model: torch.nn.Module) -> Tuple[List, Tuple[int, ...]]:
-    """What a captured eval step holds: the parameters and buffers by
-    address, and their versions.  The train step cannot hold versions (its
-    own replays write the weights without bumping them); the eval step
-    writes none, so a new version is a weight load or update, after which
-    the deploy form's weight layouts must be rebuilt by an eager call."""
-    tensors = list(model.parameters()) + list(model.buffers())
-    return tensors, tuple(t._version for t in tensors)
 
 
 def same_held(a: List, b: List) -> bool:
@@ -256,23 +248,39 @@ def make_capturable(optimizer: torch.optim.Optimizer) -> None:
                 st["step"] = st["step"].to(p.device)
 
 
+def _static(a, dev: torch.device):
+    """A graph's own copy of a tensor argument (of each tensor of a dict)."""
+    if torch.is_tensor(a):
+        return a.detach().to(dev, copy=True)
+    if isinstance(a, dict):
+        return {k: v.detach().to(dev, copy=True) for k, v in a.items()}
+    return a
+
+
+@dataclass
+class _StepGraph:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple     # the call's arguments, tensors as the copies the graph reads
+    outs: object      # the step's outputs (a dict or a tuple), written by each replay
+    keep: tuple       # the objects the key names: their ids stay theirs
+
+
 class _KeyedGraphs:
-    """A step's graphs by key, at most MAX_GRAPHS (the least recently
-    replayed goes), and the keys run eagerly (at most _MAX_SEEN): a key's
-    first call runs eagerly, its second captures and replays, later ones
-    replay.  Each graph and seen key holds `keep(*args)`, the objects whose
-    ids its key names, so those ids are not reused while it lives.  When
-    `holds` no longer holds, every graph and key is dropped.  A step gives
-    its key, what its graphs hold, the capture and the replay; `prefix`
-    names its `graph_counters`."""
+    """A step's graphs by `graph_key`, at most MAX_GRAPHS (the least
+    recently replayed goes), and the keys run eagerly (at most _MAX_SEEN): a
+    key's first call runs eagerly, its second captures `run` and replays,
+    later ones replay.  Each graph and seen key keeps the objects its key
+    names by identity, so their ids are not reused while it lives.  When one
+    of `held_tensors(model, optimizer)` is replaced, every graph and key is
+    dropped.  `prefix` names the step's `graph_counters`."""
 
-    prefix = ""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.graphs: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+    def __init__(self, run: Callable, model: torch.nn.Module, dev: torch.device,
+                 optimizer: Optional[torch.optim.Optimizer] = None, prefix: str = ""):
+        self.run, self.model, self.dev = run, model, dev
+        self.optimizer, self.prefix = optimizer, prefix
+        self.graphs: "collections.OrderedDict[tuple, _StepGraph]" = collections.OrderedDict()
         self.seen: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
-        self.held = None
+        self.held: Optional[List] = None
         self.key: Optional[tuple] = None
 
     def __call__(self, graph: bool, mesh, eager: Callable, *args):
@@ -287,22 +295,25 @@ class _KeyedGraphs:
         self.ran_eagerly(*args)
         return out
 
+    def held_now(self) -> List:
+        return held_tensors(self.model, self.optimizer)
+
     def eager_reason(self, mesh, *args) -> Optional[str]:
         cuda = self.dev.type == "cuda"
         self.key = None
         if cuda and mesh is None:
-            if self.held is None or not self.holds(self.held_now()):
+            if self.held is None or not same_held(self.held_now(), self.held):
                 graph_counters[self.prefix + "dropped"] += len(self.graphs)
                 self.graphs.clear()
                 self.seen.clear()
-            self.key = self.graph_key(*args)
+            self.key = graph_key(*args)
         return eager_reason(cuda=cuda, mesh=mesh, spans=spans_enabled(),
                             seen=self.key in self.seen)
 
     def ran_eagerly(self, *args) -> None:
         if self.key is None:
             return
-        self.seen[self.key] = self.keep(*args)
+        self.seen[self.key] = tuple(a for a in args if _named(a))
         self.seen.move_to_end(self.key)
         while len(self.seen) > _MAX_SEEN:
             self.seen.popitem(last=False)
@@ -317,127 +328,41 @@ class _KeyedGraphs:
             while len(self.graphs) > MAX_GRAPHS:
                 self.graphs.popitem(last=False)
         self.graphs.move_to_end(self.key)
-        out = self.run_graph(g, *args)
-        graph_counters[self.prefix + "replays"] += 1
-        return out
-
-
-@dataclass
-class _Captured:
-    graph: "torch.cuda.CUDAGraph"
-    inputs: Dict[str, torch.Tensor]   # the batch the graph reads
-    gate: Optional[torch.Tensor]      # a tensor edge gate's copy
-    names: Tuple[str, ...]
-    losses: torch.Tensor              # the losses stacked, written by each replay
-    keep: tuple                       # the key's artifact and generator: their ids stay theirs
-
-
-class _GraphedSteps(_KeyedGraphs):
-    """The train step's graphs, keyed by `graph_key`.  Each holds the
-    artifact and the generator of its key; a change of `held_tensors` (by
-    address) drops every graph and key."""
-
-    def __init__(self, model, optimizer, dev: torch.device, run: Callable):
-        super().__init__(dev)
-        self.model, self.optimizer, self.run = model, optimizer, run
-
-    graph_key = staticmethod(graph_key)
-
-    def held_now(self) -> List:
-        return held_tensors(self.model, self.optimizer)
-
-    def holds(self, now: List) -> bool:
-        return same_held(now, self.held)
-
-    @staticmethod
-    def keep(art, batch, lr, use_edge_loss, generator) -> tuple:
-        return art, generator
-
-    def run_graph(self, g: _Captured, art, batch, lr, use_edge_loss, generator
-                  ) -> Dict[str, torch.Tensor]:
-        for k, v in batch.items():
-            g.inputs[k].copy_(v)
-        if g.gate is not None:
-            g.gate.copy_(use_edge_loss)
+        for mine, a in zip(g.inputs, args):
+            if torch.is_tensor(mine):
+                mine.copy_(a)
+            elif isinstance(mine, dict):
+                for k, v in a.items():
+                    mine[k].copy_(v)
         g.graph.replay()
-        return dict(zip(g.names, g.losses.clone().unbind(0)))
+        graph_counters[self.prefix + "replays"] += 1
+        # the caller may hold these while the next call replays
+        if isinstance(g.outs, dict):
+            return {k: v.clone() for k, v in g.outs.items()}
+        return tuple(t.clone() for t in g.outs)
 
-    def capture(self, art, batch, lr, use_edge_loss, generator) -> _Captured:
-        """Capture the step on static copies of the batch (and of a tensor
-        gate); the work runs at the first replay.  Inside the step nothing
+    def capture(self, *args) -> _StepGraph:
+        """Capture `run` on static copies of the call's tensors; the work
+        runs at the first replay.  The graph reads the parameters, the
+        buffers and the optimizer's state where they are (the band convs
+        derive their kernels' weights inside it).  Inside the step nothing
         reads the device from the host, synchronizes or copies from the host
-        once its first, eager call has made `MeshNet._skip_w`'s matrices and
-        the losses' gate; the training form reaches none of the deploy
-        form's `_version`-keyed caches (`_band_weights_for`,
-        `_window_form_for`)."""
-        make_capturable(self.optimizer)
-        inputs = {k: v.detach().to(self.dev, copy=True) for k, v in batch.items()}
-        gate = (use_edge_loss.detach().to(self.dev, copy=True)
-                if torch.is_tensor(use_edge_loss) else None)
+        once its first, eager call has made the optimizer's state,
+        `MeshNet._skip_w`'s matrices, the losses' gate and the kernels'
+        one-time tables."""
+        if self.optimizer is not None:
+            make_capturable(self.optimizer)
+        inputs = tuple(_static(a, self.dev) for a in args)
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            # replays draw the dropout from the offsets an eager step would
-            graph.register_generator_state(generator)
+        for a in args:
+            if isinstance(a, torch.Generator):
+                # replays draw the dropout from the offsets an eager step would
+                graph.register_generator_state(a)
         # thread_local: a loader's threads go on copying and pinning batches
         # while this thread captures (unsafe calls stay refused on this one)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            losses = self.run(art, inputs, lr, use_edge_loss if gate is None else gate,
-                              generator, "capture")
-            stacked = torch.stack([v.detach() for v in losses.values()])
-        return _Captured(graph, inputs, gate, tuple(losses), stacked, (art, generator))
-
-
-@dataclass
-class _CapturedEval:
-    graph: "torch.cuda.CUDAGraph"
-    pose2d: torch.Tensor                  # the input the graph reads
-    outs: Tuple[torch.Tensor, ...]        # written by each replay
-    keep: tuple                           # the key's artifact: its id stays its own
-
-
-class _GraphedEval(_KeyedGraphs):
-    """The eval step's graphs, keyed by `eval_graph_key`.  Each holds the
-    artifact of its key; a change of `held_versions` (an address or a
-    version) drops every graph and key, so the next call runs eagerly and
-    rebuilds what the weights' versions key (`MeshNet._band_weights_for`,
-    `_window_form_for`)."""
-
-    prefix = "eval."
-
-    def __init__(self, model, dev: torch.device, run: Callable):
-        super().__init__(dev)
-        self.model, self.run = model, run
-
-    graph_key = staticmethod(eval_graph_key)
-
-    def held_now(self) -> Tuple[List, Tuple[int, ...]]:
-        return held_versions(self.model)
-
-    def holds(self, now) -> bool:
-        return same_held(now[0], self.held[0]) and now[1] == self.held[1]
-
-    @staticmethod
-    def keep(art, pose2d) -> tuple:
-        return (art,)
-
-    def run_graph(self, g: _CapturedEval, art, pose2d) -> Tuple[torch.Tensor, ...]:
-        g.pose2d.copy_(pose2d)
-        g.graph.replay()
-        # the caller may hold these while the next request replays
-        return tuple(t.clone() for t in g.outs)
-
-    def capture(self, art, pose2d) -> _CapturedEval:
-        """Capture the forward on a static copy of pose2d.  Its first,
-        eager call has made `MeshNet._skip_w`'s matrices, the kernels'
-        weight layouts and window forms and their one-time tables; after it
-        the forward neither reads the device from the host nor copies from
-        the host."""
-        x = pose2d.detach().to(self.dev, copy=True)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: `Tester`'s loader thread goes on copying batches
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outs = self.run(art, x)
-        return _CapturedEval(graph, x, outs, (art,))
+            outs = self.run(*inputs)
+        return _StepGraph(graph, inputs, outs, tuple(a for a in args if _named(a)))
 
 
 def make_multi_train_step(train_step: Callable) -> Callable:
@@ -484,7 +409,7 @@ def make_eval_step(model: torch.nn.Module, j_regressor: np.ndarray | torch.Tenso
                 return mesh_mm, reg_pose, pose3d
             return tuple(_gather_data(t, mesh, n) for t in (mesh_mm, reg_pose, pose3d))
 
-    graphs = _GraphedEval(model, dev, run)
+    graphs = _KeyedGraphs(run, model, dev, prefix="eval.")
 
     @torch.inference_mode()
     def eval_step(art: PyramidArtifact, pose2d: torch.Tensor

@@ -11,7 +11,9 @@ then stored as
     pack time so a whole level runs at `padded_vertices` rows.  Band levels
     also carry the strip form (`_pack_strip`): row tile t of `strip_h` rows
     holds L[rows, o_t : o_t + W] with W about strip_h + 2 * bandwidth and
-    the offsets o_t in `strip_off`, built here by `strip_offset`, or
+    the offsets o_t in `strip_off`, built here by `strip_offset`, and,
+    with nt >= 2*band_k+1 row tiles, the sliding-window form (`window_cat`:
+    `window_val`, `window_off`), or
   * bcsr: padded block-sparse rows (`blk_col`, `blk_val`).
 
 Every kind also carries the ELL form (`ell_idx`, `ell_w`; padded entries
@@ -38,7 +40,8 @@ from ..device import resolve_device
 from .build import GraphPyramid
 
 __all__ = ["LevelOperator", "PyramidArtifact", "pack_pyramid", "save_artifact",
-           "load_artifact", "strip_offset", "face_band_tables", "face_inverse_tables"]
+           "load_artifact", "strip_offset", "window_offsets", "window_cat",
+           "face_band_tables", "face_inverse_tables"]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -60,7 +63,10 @@ class LevelOperator:
         blocks are zero and nt*T >= V is the pack-time padded row count.
         With strip_h > 0 also the strip form: `strip_val` (nt*T, W) with
         strip_val[r, j] = L[r, strip_off[r // strip_h] + j]; band_bw is the
-        scalar bandwidth max |r - c|.
+        scalar bandwidth max |r - c|.  With nt >= 2*band_k+1 also the
+        window form: `window_val` (nt*T, (2*band_k+1)*T), `window_off`
+        (nt,) int32, as `window_cat` builds them.  Both forms are derived
+        from the band at pack and load time, not saved.
     kind == "halo": one graph rank's slab of a band level
         (`parallel.sharding.shard_artifact`): `band_val` is (2*band_k+1,
         nt_l + 2*band_k, T, T), the rank's nt_l row tiles between band_k
@@ -85,6 +91,8 @@ class LevelOperator:
     strip_off: torch.Tensor = _empty(dtype=torch.int32)
     strip_h: int = 0
     band_bw: int = 0
+    window_val: torch.Tensor = _empty(0, 0)
+    window_off: torch.Tensor = _empty(dtype=torch.int32)
 
     @property
     def padded_vertices(self) -> int:
@@ -219,6 +227,39 @@ def strip_offset(t, h: int, W: int, Vp: int, align: int = 16):
     return np.clip(o, 0, Vp - W)
 
 
+def window_offsets(nt: int, k: int, T: int) -> np.ndarray:
+    """s_j = clip((j - k) T, 0, nt*T - (2k+1) T) for the nt row tiles."""
+    return np.clip((np.arange(nt) - k) * T, 0, (nt - 2 * k - 1) * T).astype(np.int32)
+
+
+def window_cat(band_val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(2k+1, nt, T, T) block band -> the sliding-window form (win (nt*T,
+    (2k+1)*T), offsets (nt,) int32; `ops.window_cheby`), on band_val's
+    device and in its dtype."""
+    nbd, nt, T, _ = band_val.shape
+    k = nbd // 2
+    if nt < nbd:
+        raise ValueError(f"the window form needs nt >= 2k+1 tiles, got nt={nt}, k={k}")
+    cat = band_val.permute(1, 2, 0, 3).reshape(nt, T, nbd * T)
+    win = cat.clone()
+    for j in range(k):  # top edge: shift left by (k - j) tiles
+        sh = (k - j) * T
+        win[j] = torch.nn.functional.pad(cat[j, :, sh:], (0, sh))
+    for j in range(nt - k, nt):  # bottom edge: shift right
+        sh = (j + k + 1 - nt) * T
+        win[j] = torch.nn.functional.pad(cat[j, :, :nbd * T - sh], (sh, 0))
+    off = torch.from_numpy(window_offsets(nt, k, T)).to(band_val.device)
+    return win.reshape(nt * T, nbd * T), off
+
+
+def _window_form(band_val: torch.Tensor, band_k: int) -> Dict[str, torch.Tensor]:
+    """A band level's window-form fields; none under 2*band_k+1 row tiles."""
+    if band_val.shape[1] < 2 * band_k + 1:
+        return {}
+    win, off = window_cat(band_val)
+    return dict(window_val=win, window_off=off)
+
+
 def _pack_strip(L: sp.csr_matrix, T: int, nt: int, h: int,
                 align: int = 16) -> Tuple[np.ndarray, np.ndarray]:
     """(V, V) sparse matrix -> (strip_val (nt*T, W), offsets (nt*T // h,)):
@@ -267,10 +308,11 @@ def _make_level_op(L: sp.csr_matrix, kind: str, block_size: int,
         strip_val, offs = _pack_strip(L, block_size, nt, strip_h)
         strip = dict(strip_val=torch.from_numpy(strip_val),
                      strip_off=torch.from_numpy(offs), strip_h=strip_h)
+    band = torch.from_numpy(band_val)
     return LevelOperator(
-        band_val=torch.from_numpy(band_val), band_k=band_k,
+        band_val=band, band_k=band_k,
         band_bw=int(np.abs(coo.row - coo.col).max()) if coo.nnz else 0,
-        **strip, **common)
+        **strip, **_window_form(band, band_k), **common)
 
 
 def _min_bandwidth_order(adj: sp.csr_matrix, T: int) -> np.ndarray:
@@ -538,7 +580,10 @@ def load_artifact(path: str, *, device: str | torch.device | None = "cuda"
             fields["strip_off"] = torch.from_numpy(strip_offset(
                 np.arange(Vp // meta["strip_h"]), meta["strip_h"], W, Vp
             ).astype(np.int32))
-        return LevelOperator(kind=bytes(z[f"{prefix}/kind"]).decode(), **meta, **fields)
+        kind = bytes(z[f"{prefix}/kind"]).decode()
+        if kind == "band":
+            fields.update(_window_form(fields["band_val"], meta["band_k"]))
+        return LevelOperator(kind=kind, **meta, **fields)
 
     n = int(z["meta/num_levels"])
     return PyramidArtifact(

@@ -76,7 +76,7 @@ from ..ops.fused_cheby_train import (
     fused_cheby_project_folded_stats, fused_cheby_project_stats,
 )
 from ..ops.strip_cheby import strip_cheby_conv, strip_mode
-from ..ops.window_cheby import window_cat, window_cheby_conv
+from ..ops.window_cheby import window_cheby_conv
 from ..parallel.audit import FINAL_ROWS, LEVEL_ENTRY, LEVEL_TRANSITION
 from ..parallel.collectives import gather_rows, scatter_rows
 from ..parallel.halo import global_rows, halo_banded_hop, row_mask
@@ -149,8 +149,6 @@ class MeshNet(nn.Module):
         self.fc = nn.Linear(num_joint * self.blocks[0][-1],
                             coarse_vertices * self.blocks[1][0])
         self._interp = {}
-        self._band_weights = {}
-        self._window_forms = {}
 
     def _skip_w(self, fin: int, fout: int, dtype, device) -> torch.Tensor:
         """(fin, fout) channel-interpolation matrix, cached per dtype/device."""
@@ -165,38 +163,19 @@ class MeshNet(nn.Module):
         y = linear(chebyshev_stack(op, x, self.K), lin, self.dtype)
         return torch.relu(y) if relu else y
 
-    def _band_weights_for(self, lin: nn.Linear, commuted: bool):
-        """The kernels' weight layout of one conv, (3*fin, fout) and (fout,)
-        in the compute dtype: basis-major [W_x; W_Lx; W_cheb2], or
-        [W_x - W_cheb2; W_Lx; W_cheb2] for the commuted kernel.  Built once
-        per set of weights; a new state dict (or any in-place update of the
-        weights) bumps the tensors' versions and rebuilds it."""
-        w, bias = lin.weight, lin.bias
-        key = (w.data_ptr(), w._version, bias.data_ptr(), bias._version,
-               self.dtype, w.device)
-        hit = self._band_weights.get((id(lin), commuted))
-        if hit is not None and hit[0] == key:
-            return hit[1], hit[2]
-        fout, fin_k = w.shape
+    def _conv_weights(self, lin: nn.Linear, commuted: bool = False):
+        """The kernels' weight layout of one band conv, (3*fin, fout) and
+        (fout,) in the compute dtype: basis-major [W_x; W_Lx; W_cheb2], or
+        [W_x - W_cheb2; W_Lx; W_cheb2] for the commuted kernel.  Derived
+        from the parameters on every call, so a captured step reads them as
+        they are; differentiable back to them."""
+        fout, fin_k = lin.weight.shape
         fin = fin_k // self.K
         # fin-major (fin*K, fout) -> basis-major
-        W = w.detach().to(self.dtype).t().reshape(fin, self.K, fout).permute(1, 0, 2)
+        W = lin.weight.to(self.dtype).t().reshape(fin, self.K, fout).permute(1, 0, 2)
         if commuted:
             W = torch.stack([W[0] - W[2], W[1], W[2]])
-        W = W.reshape(self.K * fin, fout).contiguous()
-        b = bias.detach().to(self.dtype).contiguous()
-        self._band_weights[(id(lin), commuted)] = (key, W, b)
-        return W, b
-
-    def _window_form_for(self, op: LevelOperator):
-        """`window_cat` of the level's operator in the compute dtype, built
-        once per operator tensor and rebuilt when it is updated in place."""
-        src = op.band_val
-        hit = self._window_forms.get(id(src))
-        if hit is None or hit[0] is not src or hit[1] != (src._version, self.dtype):
-            hit = (src, (src._version, self.dtype), window_cat(src.to(self.dtype)))
-            self._window_forms[id(src)] = hit
-        return hit[2]
+        return W.reshape(self.K * fin, fout).contiguous(), lin.bias.to(self.dtype)
 
     def _band_conv(self, op: LevelOperator, x, lin: nn.Linear, route: str, *,
                    relu: bool, final: bool, skip=None, skip_w=None):
@@ -209,28 +188,23 @@ class MeshNet(nn.Module):
         if route == "group" and fout < fin and skip is None and not final:
             route = "commuted"
         with span("p2m.band_conv", route=route, dtype=self.dtype_name):
-            band = op.band_val.to(self.dtype)
             x = x.to(self.dtype).contiguous()
             if skip is not None:
                 skip = skip.to(self.dtype).contiguous()
-            if route == "unfused":
-                W, b = self._band_weights_for(lin, False)
-                y = cheby_project_unfused(band, x, W, b)
-                return torch.relu(y) if relu else y
+            mode = strip_mode(fin, fout) if route == "strip" else None
+            W, b = self._conv_weights(lin, route == "commuted" or mode == "commuted")
             if route == "strip":
-                mode = strip_mode(fin, fout)
-                W, b = self._band_weights_for(lin, mode == "commuted")
                 return strip_cheby_conv(op.strip_val.to(self.dtype), op.strip_off,
                                         op.strip_h, x, W, b, mode=mode, relu=relu,
                                         skip=skip, skip_w=skip_w)
             if route == "window":
-                W, b = self._band_weights_for(lin, False)
-                win, woff = self._window_form_for(op)
-                return window_cheby_conv(win, woff, x, W, b, relu=relu, skip=skip,
-                                         skip_w=skip_w)
-            commuted = route == "commuted"
-            W, b = self._band_weights_for(lin, commuted)
-            if commuted:
+                return window_cheby_conv(op.window_val.to(self.dtype), op.window_off, x,
+                                         W, b, relu=relu, skip=skip, skip_w=skip_w)
+            band = op.band_val.to(self.dtype)
+            if route == "unfused":
+                y = cheby_project_unfused(band, x, W, b)
+                return torch.relu(y) if relu else y
+            if route == "commuted":
                 return fused_cheby_conv_commuted(band, x, W, b, relu=relu)
             return fused_cheby_conv(band, x, W, b, relu=relu, skip=skip, skip_w=skip_w)
 
@@ -371,14 +345,6 @@ class MeshNet(nn.Module):
 
     # ---- training form --------------------------------------------------
 
-    def _basis_weights(self, lin: nn.Linear):
-        """Basis-major (3*fin, fout) weight [W_x; W_Lx; W_cheb2] and the bias,
-        in the compute dtype, differentiable back to the float32 parameters."""
-        fout, fin_k = lin.weight.shape
-        fin = fin_k // self.K
-        W = lin.weight.to(self.dtype).t().reshape(fin, self.K, fout).permute(1, 0, 2)
-        return W.reshape(self.K * fin, fout).contiguous(), lin.bias.to(self.dtype)
-
     def _bn_apply_relu(self, y, bn, train, sums=None):
         """relu(BatchNorm(y)): the affine in float32, rounded to the compute
         dtype; batch statistics of y unless the kernel's sums are given."""
@@ -404,7 +370,7 @@ class MeshNet(nn.Module):
             unfused = fold is None and not stats and not self.fused
             with span("p2m.band_conv", route="unfused" if unfused else "train",
                       dtype=self.dtype_name):
-                W, b = self._basis_weights(lin)
+                W, b = self._conv_weights(lin)
                 x = x.to(self.dtype).contiguous()
                 if fold is None:
                     out = (fused_cheby_project_stats(band, x, W, b) if stats
@@ -484,14 +450,14 @@ def flat_route(op: LevelOperator, impl: str) -> str:
     """The kernel family a deploy conv on band level `op` takes under `impl`,
     by the level's shapes, as the JAX package's `fused_conv_flat_dispatch`
     does under P2M_FLAT_IMPL without its VMEM-size limits: "strip" where the
-    level has a strip form, "window" where it has nt >= 2k+1 row tiles,
-    else "group"."""
+    level has a strip form, "window" where it has the window form (nt >=
+    2k+1 row tiles), else "group"."""
     if impl not in FLAT_IMPLS:
         raise ValueError(f"flat_impl={impl!r}: expected one of {FLAT_IMPLS}")
     if impl == "strip" and op.strip_h and op.strip_val.numel() \
             and op.strip_val.shape[0] >= op.strip_val.shape[1]:
         return "strip"
-    if impl == "window" and op.band_val.shape[1] >= 2 * op.band_k + 1:
+    if impl == "window" and op.window_val.numel():
         return "window"
     return "group"
 

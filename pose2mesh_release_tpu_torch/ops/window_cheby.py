@@ -2,8 +2,10 @@
 (deploy).
 
 Counterpart of the JAX package's `ops/pallas_window.py::fused_conv_flat_window`
-(Pallas; CUDA csrc/strip_cheby.cu).  `window_cat` turns the block band
-(2k+1, nt, T, T) into the sliding-window form (nt*T, (2k+1)*T): row tile j
+(Pallas; CUDA csrc/strip_cheby.cu).  `window_cat` (`graphs.artifact`, where
+each band level of nt >= 2k+1 tiles carries the form as `window_val` and
+`window_off`) turns the block band (2k+1, nt, T, T) into the sliding-window
+form (nt*T, (2k+1)*T): row tile j
 holds L[jT:(j+1)T, s_j : s_j + (2k+1)T] with s_j = clip((j - k) T, 0,
 nt*T - (2k+1)T), so interior tiles keep the aligned block concatenation and
 the first and last k tiles shift their entries instead of clamping.  The
@@ -24,11 +26,11 @@ fallback.  `window_launcher` runs the launches apart.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
-import numpy as np
 import torch
 
+from ..graphs.artifact import window_cat, window_offsets
 from .fused_cheby import _check_skip
 from .strip_cheby import STRIP_STAGES, strip_cheby_conv_plain, strip_launcher
 
@@ -37,30 +39,6 @@ __all__ = ["WINDOW_STAGES", "window_cat", "window_offsets", "window_cheby_conv",
 
 # kernel launches since the last reset, by wrapper name
 launches = {"window_cheby_conv": 0}
-
-
-def window_offsets(nt: int, k: int, T: int) -> np.ndarray:
-    """s_j = clip((j - k) T, 0, nt*T - (2k+1) T) for the nt row tiles."""
-    return np.clip((np.arange(nt) - k) * T, 0, (nt - 2 * k - 1) * T).astype(np.int32)
-
-
-def window_cat(band_val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(2k+1, nt, T, T) block band -> (win (nt*T, (2k+1)*T), offsets (nt,)
-    int32), on band_val's device and in its dtype."""
-    nbd, nt, T, _ = band_val.shape
-    k = nbd // 2
-    if nt < nbd:
-        raise ValueError(f"the window form needs nt >= 2k+1 tiles, got nt={nt}, k={k}")
-    cat = band_val.permute(1, 2, 0, 3).reshape(nt, T, nbd * T)
-    win = cat.clone()
-    for j in range(k):  # top edge: shift left by (k - j) tiles
-        sh = (k - j) * T
-        win[j] = torch.nn.functional.pad(cat[j, :, sh:], (0, sh))
-    for j in range(nt - k, nt):  # bottom edge: shift right
-        sh = (j + k + 1 - nt) * T
-        win[j] = torch.nn.functional.pad(cat[j, :, :nbd * T - sh], (sh, 0))
-    off = torch.from_numpy(window_offsets(nt, k, T)).to(band_val.device)
-    return win.reshape(nt * T, nbd * T), off
 
 
 def window_cheby_conv_plain(win, woff, x, W, b, *, relu: bool,

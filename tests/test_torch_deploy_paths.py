@@ -20,6 +20,7 @@ import torch
 from pose2mesh_release_tpu.models.fold import fold_bn_variables as jax_fold
 from pose2mesh_release_tpu.models.meshnet import MeshNet as JaxMeshNet
 from pose2mesh_release_tpu.models.meshnet import extract_mesh as jax_extract_mesh
+from pose2mesh_release_tpu_torch.graphs.artifact import load_artifact, save_artifact, window_cat
 from pose2mesh_release_tpu_torch.models import meshnet as port_meshnet
 from pose2mesh_release_tpu_torch.models.meshnet import MeshNet, extract_mesh, flat_route
 from pose2mesh_release_tpu_torch.ops import hop as port_hop
@@ -111,17 +112,31 @@ def test_paths_agree_on_the_same_weights(grid_art):  # noqa: F811
         torch.testing.assert_close(got, base, rtol=1e-4, atol=1e-5)
 
 
-def test_window_form_built_once_per_operator(grid_art):  # noqa: F811
-    """MeshNet keeps each level's window form, rebuilt when the operator is
-    updated in place."""
+def test_artifact_carries_the_window_form(grid_art, tmp_path):  # noqa: F811
+    """Each band level of nt >= 2k+1 row tiles carries `window_cat` of its
+    band; `.to(dtype)` casts it (its offsets stay int32) and `load_artifact`
+    rebuilds it (it is not saved)."""
     _, art_t = grid_art
-    op = art_t.mesh_ops[0]
-    net = MeshNet(J, art_t.mesh_ops[-1].num_vertices, blocks=GRID_BLOCKS)
-    first = net._window_form_for(op)
-    assert net._window_form_for(op) is first
-    op.band_val.mul_(1.0)
-    again = net._window_form_for(op)
-    assert again is not first and torch.equal(again[0], first[0])
+    band = [op for op in art_t.mesh_ops if op.kind == "band"]
+    assert any(op.window_val.numel() for op in band)
+    for op in band:
+        if op.band_val.shape[1] < 2 * op.band_k + 1:
+            assert op.window_val.numel() == op.window_off.numel() == 0
+            continue
+        win, woff = window_cat(op.band_val)
+        assert torch.equal(op.window_val, win) and torch.equal(op.window_off, woff)
+        assert op.window_off.dtype == torch.int32
+    half = art_t.to("cpu", torch.bfloat16)
+    for op, h in zip(art_t.mesh_ops, half.mesh_ops):
+        assert h.window_val.dtype == torch.bfloat16 and h.window_off.dtype == torch.int32
+        assert torch.equal(h.window_val, op.window_val.to(torch.bfloat16))
+        assert torch.equal(h.window_off, op.window_off)
+    path = str(tmp_path / "art.npz")
+    save_artifact(path, art_t)
+    assert not [k for k in np.load(path).files if "window" in k]
+    for op, back in zip(art_t.mesh_ops, load_artifact(path, device="cpu").mesh_ops):
+        assert torch.equal(back.window_val, op.window_val)
+        assert torch.equal(back.window_off, op.window_off)
 
 
 def test_unknown_paths_raise(grid_art):  # noqa: F811

@@ -1,14 +1,14 @@
 """PyTorch port: the eval step captured as a CUDA graph and replayed.
 
-CPU (tier 1): the eval step's key, its held check (a weight's address or
-version), its eager reasons, the eval calls that leave every version as it
-was, a CPU eval step's answers against `make_eval_step(graph=False)`, and
-`Tester`'s padded tail on one key.
+CPU (tier 1): the eval step's key, its held check (a weight's address),
+its eager reasons, the eval calls that leave every version as it was, a CPU
+eval step's answers against `make_eval_step(graph=False)`, and `Tester`'s
+padded tail on one key.
 
 CUDA (marker `cuda`, skipped elsewhere): the graphed eval step against the
 eager one (`make_eval_step(graph=False)`) at batch 64 on SMPL bf16, SMPL
-float32 and MANO bf16; no stale replay after a weight load or an in-place
-update; a held request's answers through the next replay; a padded `Tester`
+float32 and MANO bf16; a replay after a weight load or an in-place update
+reads the new weights; a held request's answers through the next replay; a padded `Tester`
 epoch on one graph; a capture beside a producer thread.  On the card,
 without the JAX-importing conftest:
 
@@ -23,7 +23,7 @@ import torch
 from pose2mesh_release_tpu_torch.body.synthetic import uv_sphere
 from pose2mesh_release_tpu_torch.core import train as tt
 from pose2mesh_release_tpu_torch.core.train import (
-    eval_graph_key, graph_counters, held_versions, make_eval_step,
+    graph_counters, graph_key, held_tensors, make_eval_step,
 )
 from pose2mesh_release_tpu_torch.graphs.artifact import pack_pyramid
 from pose2mesh_release_tpu_torch.graphs.build import build_pyramid
@@ -72,9 +72,9 @@ def _delta(before):
 ], ids=["values", "tensor", "batch", "joints", "dtype", "artifact"])
 def test_eval_graph_key(change, same):
     art, x = object(), torch.zeros(2, J, 2)
-    base = eval_graph_key(art, x)
-    assert eval_graph_key(art, x) == base
-    assert (eval_graph_key(*change(art, x)) == base) is same
+    base = graph_key(art, x)
+    assert graph_key(art, x) == base
+    assert (graph_key(*change(art, x)) == base) is same
 
 
 def _form(model):
@@ -105,32 +105,30 @@ CHANGES = {"in_place": _in_place, "load_state_dict": _load_state_dict,
 
 @pytest.mark.parametrize("form", ["deploy", "training"])
 @pytest.mark.parametrize("change", sorted(CHANGES))
-def test_held_versions_by_address_and_version(tiny, form, change):
+def test_held_tensors_by_address(tiny, form, change):
+    """A parameter or buffer replaced moves the held set; a weight written in
+    place or loaded keeps it (a replay reads the new values)."""
     art = tiny[0]
     model = _model(art, inference_fused=form == "deploy")
-    a = held_versions(model)
-    assert tt.same_held(a[0], held_versions(model)[0]) and a[1] == held_versions(model)[1]
+    a = held_tensors(model)
+    assert tt.same_held(a, held_tensors(model))
     CHANGES[change](model, art)
-    b = held_versions(model)
-    moved = change in ("parameter", "buffer")
-    assert tt.same_held(a[0], b[0]) is not moved
-    if not moved:
-        assert a[1] != b[1]
+    assert tt.same_held(a, held_tensors(model)) is (change not in ("parameter", "buffer"))
 
 
 @pytest.mark.parametrize("form", ["deploy", "training"])
 def test_eval_calls_leave_the_versions(tiny, form):
-    """An eval call (eager, on the CPU's plain versions, the deploy form's
-    weight layouts built on the first) writes no parameter or buffer: a
-    graph's weights hold from one call to the next."""
+    """An eval call (eager, on the CPU's plain versions) writes no parameter
+    or buffer: a graph's weights hold from one call to the next."""
     art, _, jreg, pose2d = tiny
     model = _model(art, inference_fused=form == "deploy")
     step = make_eval_step(model, jreg, device="cpu")
-    held = held_versions(model)
+    held = held_tensors(model)
+    versions = [t._version for t in held]
     for x in pose2d:
         step(art, x)
-    now = held_versions(model)
-    assert tt.same_held(held[0], now[0]) and held[1] == now[1]
+    assert tt.same_held(held, held_tensors(model))
+    assert [t._version for t in held] == versions
 
 
 def _decide(model, art, x, change):
@@ -138,7 +136,7 @@ def _decide(model, art, x, change):
     the first call of a key is eager, the second would capture (a stand-in
     graph is put in its place); then `change`.  Returns the next call's
     reason, the graphs dropped, the graphs left."""
-    steps = tt._GraphedEval(model, torch.device("cuda"), run=None)
+    steps = tt._KeyedGraphs(None, model, torch.device("cuda"), prefix="eval.")
     assert steps.eager_reason(None, art, x) == "first"
     steps.ran_eagerly(art, x)
     assert steps.eager_reason(None, art, x) is None
@@ -157,15 +155,18 @@ def _decide(model, art, x, change):
     return reason, _delta(before)["eval.dropped"], len(steps.graphs)
 
 
+REASON_AFTER = {"buffer": "first", "in_place": None, "load_state_dict": None, "parameter": "first"}
+
+
 @pytest.mark.parametrize("form", ["deploy", "training"])
 @pytest.mark.parametrize("change,want", [
-    (None, None), ("spans", "spans"), *[(c, "first") for c in sorted(CHANGES)],
+    (None, None), ("spans", "spans"), *[(c, REASON_AFTER[c]) for c in sorted(CHANGES)],
 ], ids=["unchanged", "spans", *sorted(CHANGES)])
 def test_eval_graphs_dropped_when_held_weights_change(tiny, form, change, want):
-    """A weight written in place or loaded (a new version), or a parameter or
-    buffer replaced (a new address), drops every graph and key: the next
-    call runs eagerly and `eval.dropped` counts the graph; otherwise the
-    graph stays."""
+    """A parameter or buffer replaced (a new address) drops every graph and
+    key: the next call runs eagerly and `eval.dropped` counts the graph.  A
+    weight written in place or loaded keeps the graph, whose next replay
+    reads the new weights."""
     art, _, _, pose2d = tiny
     model = _model(art, inference_fused=form == "deploy")
     reason, dropped, left = _decide(model, art, pose2d[0], CHANGES.get(change, change))
@@ -176,10 +177,10 @@ def test_eval_graphs_dropped_when_held_weights_change(tiny, form, change, want):
 def test_eval_eager_reason_off_the_card(tiny):
     art, _, _, pose2d = tiny
     model = _model(art)
-    cpu = tt._GraphedEval(model, torch.device("cpu"), run=None)
+    cpu = tt._KeyedGraphs(None, model, torch.device("cpu"), prefix="eval.")
     assert cpu.eager_reason(None, art, pose2d[0]) == "cpu"
     assert cpu.eager_reason(object(), art, pose2d[0]) == "cpu"
-    cuda = tt._GraphedEval(model, torch.device("cuda"), run=None)
+    cuda = tt._KeyedGraphs(None, model, torch.device("cuda"), prefix="eval.")
     with record_spans():
         assert cuda.eager_reason(object(), art, pose2d[0]) == "mesh"
         assert cuda.eager_reason(None, art, pose2d[0]) == "spans"
@@ -238,13 +239,13 @@ def test_tester_pads_its_tail_to_one_key(tiny):
     keys, step = [], tester._eval_step
 
     def spy(a, x):
-        keys.append(eval_graph_key(a, x))
+        keys.append(graph_key(a, x))
         return step(a, x)
     tester._eval_step = spy
     tester.test(0)
     tester.test(1)
     assert len(keys) == 6 and len(set(keys)) == 1
-    assert keys[0][:2] == ((4, J, 2), torch.float32)
+    assert keys[0][1] == ((4, J, 2), torch.float32)
 
 
 # ---- CUDA: the graphed eval step against the eager one --------------------------
@@ -303,9 +304,8 @@ def test_graphed_eval_matches_eager(which, dtype):
 @pytest.mark.parametrize("change", ["load_state_dict", "in_place"])
 def test_no_stale_replay_after_a_weight_change(change):
     """After a weight load (another seed's weights) or an in-place update the
-    graph is dropped (`eval.dropped`), the next call runs eagerly and
-    rebuilds the deploy form's weight layouts, then captures again: every
-    answer is the new weights'."""
+    graph stays and its replays read the new weights (the band convs derive
+    their kernels' weights inside it): every answer is the new weights'."""
     _cuda()
     d = _deploy("mano", torch.bfloat16)
     eager = make_eval_step(d.model, d.j_regressor, device="cuda", graph=False)
@@ -320,8 +320,7 @@ def test_no_stale_replay_after_a_weight_change(change):
     before = dict(graph_counters)
     got = [d.eval_step(d.art_compute, x) for x in reqs]
     delta = _delta(before)
-    assert delta == {**{k: 0 for k in delta}, "eval.dropped": 1, "eval.eager": 1,
-                     "eval.eager.first": 1, "eval.captures": 1, "eval.replays": 2}
+    assert delta == {**{k: 0 for k in delta}, "eval.replays": 3}
     for i, x in enumerate(reqs):
         want = eager(d.art_compute, x)
         assert not torch.equal(got[i][0], old[i][0]), "the old weights' answer"

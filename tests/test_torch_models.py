@@ -132,9 +132,10 @@ def test_deploy_meshnet_parity(grid_art):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
-def test_deploy_meshnet_reload_rebuilds_band_weights(grid_art):
-    """The band convs' kernel-layout weights are built once and rebuilt after
-    a new state dict is loaded: a reused net matches a fresh one."""
+def test_deploy_meshnet_follows_reloaded_weights(grid_art):
+    """The band convs derive their kernels' weights from the parameters on
+    every forward: after a new state dict is loaded a reused net matches a
+    fresh one."""
     _, art_t = grid_art
     x = torch.from_numpy(
         np.random.default_rng(4).standard_normal((2, J, 5)).astype(np.float32))
@@ -148,6 +149,25 @@ def test_deploy_meshnet_reload_rebuilds_band_weights(grid_art):
         got, want = net(art_t, x), other(art_t, x)
     assert not torch.allclose(got, first)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("commuted", [False, True], ids=["basis", "commuted"])
+def test_conv_weights_match_the_old_layout(commuted):
+    """`MeshNet._conv_weights` is bit-equal, in float32 and bf16, to the
+    layout the deploy form once built and kept apart from the parameters
+    (its expression inlined here)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        net = MeshNet(J, 10, blocks=GRID_BLOCKS, dtype=dtype)
+        for lin in net.cl:
+            w, bias = lin.weight, lin.bias
+            fout, fin = w.shape[0], w.shape[1] // 3
+            W = w.detach().to(dtype).t().reshape(fin, 3, fout).permute(1, 0, 2)
+            if commuted:
+                W = torch.stack([W[0] - W[2], W[1], W[2]])
+            want = (W.reshape(3 * fin, fout).contiguous(), bias.detach().to(dtype).contiguous())
+            got = net._conv_weights(lin, commuted)
+            for g, o in zip(got, want):
+                assert g.dtype == dtype and g.is_contiguous() and torch.equal(g, o)
 
 
 def test_cascade_eval_step_full_smpl_width(seeded_eigsh, monkeypatch):  # noqa: F811

@@ -118,7 +118,7 @@ def test_capture_decision_after_a_seen_key(change, want):
     first call of a key is eager, the second would capture; a change of what
     a graph holds by address forgets every key, so the next call is eager."""
     model, opt = _tiny_model_and_optimizer()
-    steps = tt._GraphedSteps(model, opt, torch.device("cuda"), run=None)
+    steps = tt._KeyedGraphs(None, model, torch.device("cuda"), opt)
     args = _key_args()
     assert steps.eager_reason(None, *args) == "first"
     steps.ran_eagerly(*args)
@@ -131,7 +131,7 @@ def test_capture_decision_after_a_seen_key(change, want):
             assert steps.eager_reason(None, *args) == want
         return
     assert steps.eager_reason(None, *args) == want
-    cpu = tt._GraphedSteps(model, opt, torch.device("cpu"), run=None)
+    cpu = tt._KeyedGraphs(None, model, torch.device("cpu"), opt)
     assert cpu.eager_reason(None, *args) == "cpu"
 
 
