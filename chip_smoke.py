@@ -6,6 +6,18 @@
 Phases (any failure exits non-zero):
   1. print the card's name and power limit; build the CUDA kernels from
      pose2mesh_release_tpu_torch/csrc with nvcc;
+  1b. the dense levels' basis kernel (ops/dense_cheby.py, csrc/dense_cheby.cu)
+     on every dense level of the SMPL and MANO stand-ins (the joint graph and
+     the mesh levels of at most 768 vertices) at the widths of their convs,
+     bf16 and float32, batch 1 and 64: forward and backward against the
+     plain versions over the ELL form and against the parent's path
+     (chebyshev_stack: the (V, V) matrix's float32 product and the stack,
+     autograd through it), per element within an ulp of the result plus the
+     float32 rounding of its sum (tests/test_torch_dense_cheby.py's bound);
+     each one's device time (`graph_ms`: 20 calls in a CUDA graph, replayed)
+     beside the parent's and its byte bound, summed over a
+     forward's 11 dense convs and over a train step's (forward and
+     backward); 11 wrapper calls an eager SMPL and MANO deploy forward;
   2. hold each deploy kernel against its plain PyTorch version on the card
      at the SMPL deploy forward's 10 band-conv shapes (batch 64, bf16) plus
      one synthetic band_k=2 level, and time kernel and plain version: the
@@ -208,8 +220,9 @@ Phases (any failure exits non-zero):
      K4 and group-conv times;
   then print the MANO kernels' numbers per pass, the data layer's numbers,
   the engine's numbers, the float32 paths' numbers, the multi-device
-  numbers, phase 16's numbers and the kernel table (the bf16 kernels and, named `...[f32]`,
-  their float32 instances) as one JSON line each, then the result line.
+  numbers, phase 16's numbers, phase 1b's sums and the kernel table (the bf16
+  kernels and, named `...[f32]`, their float32 instances) as one JSON line
+  each, then the result line.
 
 Tolerances: a kernel (bf16 operands, float32 accumulation, bf16 hop results)
 against its plain version computed in float32 from the same bf16 inputs:
@@ -452,6 +465,34 @@ def cuda_ms(fn, n: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Device ms a call of fn: n calls captured in one CUDA graph (after a
+    warm-up call on a side stream), timed over `replays` replays with CUDA
+    events, so that the host's launch cost is left out, as in the cells'
+    replayed steps.  The operands stay in L2 from one call to the next."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (n * replays)
+    del graph
+    return ms
 
 
 def nbytes(*ts) -> int:
@@ -3817,6 +3858,143 @@ def kernel_table(rows, launches_of, main_tags, suffix="") -> list:
     return kernels
 
 
+DENSE_EPS = {"bfloat16": 2.0 ** -7, "float32": 1e-6}
+DENSE_BATCHES = (1, BATCH)
+
+
+def _dense_worst(got, want, scale, eps: float) -> float:
+    """The largest |got - want| / (eps (|want| + scale)) over the elements:
+    at most 1 where the kernel's sums differ from the plain version's in
+    their order alone."""
+    got, want = got.detach().float(), want.detach().float()
+    return float(((got - want).abs() / (eps * (want.abs() + scale.float()))).max())
+
+
+def dense_convs(art, blocks) -> list:
+    """(dense level, Fin) of each dense conv of a forward, in order."""
+    ops = (art.joint_op,) + art.mesh_ops[::-1] + (art.mesh_ops[0],)
+    return [(op, fin) for op, chans in zip(ops, blocks) if op.kind == "dense"
+            for fin in chans[:-1]]
+
+
+def dense_levels(card) -> dict:
+    """Phase 1b (the module note): rows per (body, dtype, batch, level, Fin)
+    and the sums over a forward and a train step, kernel against parent."""
+    import torch
+    from pose2mesh_release_tpu_torch.deploy import mano_deploy_forward, smpl_deploy_forward
+    from pose2mesh_release_tpu_torch.models.meshnet import MANO_BLOCKS, SMPL_BLOCKS
+    from pose2mesh_release_tpu_torch.ops import dense_cheby as dc
+    log(f"phase 1b: the dense levels' basis kernel vs plain and vs the parent's path "
+        f"(chebyshev_stack), batch {DENSE_BATCHES}, bound eps {DENSE_EPS} ({card})")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, sums, calls = [], {}, {}
+    for body, make, blocks, J in (("smpl", smpl_deploy_forward, SMPL_BLOCKS, 17),
+                                  ("mano", mano_deploy_forward, MANO_BLOCKS, 21)):
+        d = make(dtype=torch.bfloat16, device="cuda", seed=0)
+        step = eager_eval(d)
+        pose2d = torch.randn(BATCH, J, 2, generator=gen, device="cuda")
+        step(d.art_compute, pose2d)
+        before = dc.launches["dense_cheby_stack"]
+        step(d.art_compute, pose2d)
+        calls[body] = dc.launches["dense_cheby_stack"] - before
+        if calls[body] != 11:
+            raise SystemExit(f"phase 1b: {calls[body]} dense_cheby_stack calls an eager {body} "
+                             f"forward (want 11)")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).removeprefix("torch.")
+            art = d.art.to("cuda", dtype)
+            convs = dense_convs(art, blocks)
+            for B in DENSE_BATCHES:
+                per = {}
+                for op, fin in sorted({(op.num_vertices, fin): (op, fin)
+                                       for op, fin in convs}.values(),
+                                      key=lambda c: (c[0].num_vertices, c[1])):
+                    row = dense_row(op, fin, B, dtype, gen)
+                    row.update(body=body, dtype=dn)
+                    rows.append(row)
+                    per[(op.num_vertices, fin)] = row
+                    log(f"  dense {body} {dn} B={B} V={row['V']} Fin={fin}: worst "
+                        f"{row['worst']:.3f} of the bound; fwd {row['ms']:.4f} ms (parent "
+                        f"{row['parent_ms']:.4f}, bound {row['bound_ms']:.4f}); fwd+bwd "
+                        f"{row['train_ms']:.4f} ms (parent {row['parent_train_ms']:.4f}); "
+                        f"slice w={row['w']}")
+                    if row["worst"] > 1.0:
+                        raise SystemExit(f"phase 1b: dense kernel out of bounds: {row}")
+                tot = {k: sum(per[(op.num_vertices, fin)][k] for op, fin in convs)
+                       for k in ("ms", "parent_ms", "bound_ms", "train_ms", "parent_train_ms")}
+                sums[f"{body} {dn} B={B}"] = tot
+                log(f"  dense levels of a {body} {dn} forward at B={B} ({len(convs)} convs): "
+                    f"kernel {tot['ms']:.4f} ms, parent {tot['parent_ms']:.4f}, bound "
+                    f"{tot['bound_ms']:.4f}; forward + backward {tot['train_ms']:.4f}, parent "
+                    f"{tot['parent_train_ms']:.4f}")
+        del d, step
+        torch.cuda.empty_cache()
+    return {"rows": rows, "sums": sums, "calls_per_forward": calls}
+
+
+def dense_row(op, fin, B, dtype, gen) -> dict:
+    """One dense level at Fin channels and batch B: the kernel's forward and
+    backward against the plain versions and the parent's path, and the
+    times of each (forward alone; forward and backward)."""
+    import torch
+    from pose2mesh_release_tpu_torch.ops import dense_cheby as dc
+    from pose2mesh_release_tpu_torch.ops.cheby import chebyshev_stack
+    from pose2mesh_release_tpu_torch.ops.spmm import spmm
+    V = op.num_vertices
+    eps = DENSE_EPS[str(dtype).removeprefix("torch.")]
+    absL = op.dense.float().abs()
+
+    def ahop(t):
+        return (absL @ t.float().abs().reshape(V, -1)).reshape(t.shape)
+
+    x = torch.randn(V, B, fin, generator=gen, device="cuda").to(dtype)
+    gy = torch.randn(V, B, 3 * fin, generator=gen, device="cuda").to(dtype)
+    xk = x.clone().requires_grad_(True)
+    got = dc.dense_cheby_stack(op, xk)
+    (dx,) = torch.autograd.grad(got, xk, gy)
+    got = got.detach().reshape(V, B, fin, 3)
+    plain = dc.dense_cheby_plain(op, x).reshape(got.shape)
+    z1 = got[..., 1]
+    z2_of_z1 = (2.0 * dc.dense_cheby_plain(op, z1).reshape(got.shape)[..., 1].float()
+                - x.float()).to(dtype)
+    xr = x.clone().requires_grad_(True)
+    ref = chebyshev_stack(op, xr, 3)
+    (dx_ref,) = torch.autograd.grad(ref, xr, gy)
+    ref = ref.detach().reshape(got.shape)
+    g3 = gy.reshape(V, B, fin, 3).float().abs()
+    dscale = g3[..., 0] + g3[..., 2] + ahop(g3[..., 1] + 2 * ahop(g3[..., 2]))
+    z2scale = 2 * ahop(z1) + x.float().abs()
+    worst = max(
+        0.0 if torch.equal(got[..., 0], x) else math.inf,
+        _dense_worst(z1, plain[..., 1], ahop(x), eps),
+        _dense_worst(z1, ref[..., 1], ahop(x), eps),
+        _dense_worst(got[..., 2], z2_of_z1, z2scale, eps),
+        _dense_worst(got[..., 2], (2.0 * spmm(op, z1) - x), z2scale, eps),
+        _dense_worst(dx, dc.dense_cheby_bwd_plain(op, gy), dscale, eps),
+        _dense_worst(dx, dx_ref, dscale, eps))
+
+    def train(fn):
+        xt = x.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xt), xt, gy)
+
+    with torch.no_grad():
+        ms = graph_ms(lambda: dc.dense_cheby_stack(op, x))
+        parent_ms = graph_ms(lambda: chebyshev_stack(op, x, 3))
+    train_ms = graph_ms(lambda: train(lambda t: dc.dense_cheby_stack(op, t)))
+    parent_train_ms = graph_ms(lambda: train(lambda t: chebyshev_stack(op, t, 3)))
+    es, nnz = x.element_size(), op.csr_col.numel()
+    # x read and the stack written (the backward: the cotangent read, dx
+    # written), the table once
+    table = nnz * (4 + es) + (V + 1) * 4
+    plan = dc.dense_plan(V, nnz, B * fin, es, torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    return {"V": V, "nnz": nnz, "Fin": fin, "B": B, "worst": worst, "ms": ms,
+            "parent_ms": parent_ms, "bound_ms": (4 * x.numel() * es + table) / PEAK_BYTES * 1e3,
+            "train_ms": train_ms, "parent_train_ms": parent_train_ms,
+            "train_bound_ms": (8 * x.numel() * es + 2 * table) / PEAK_BYTES * 1e3,
+            "w": plan.w}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3857,6 +4035,9 @@ def main() -> int:
             elif any(w in line for w in ("registers", "spill", "error", "wgmma")):
                 report["ptxas"].append(f"ptxas {stem} {fn}: {line.strip()}")
                 log(f"  {report['ptxas'][-1]}")
+
+    # -- phase 1b: the dense levels' basis --------------------------------
+    report["dense"] = dense_levels(card)
 
     # -- phase 2: kernel checks at the main path's shapes -----------------
     deploy = smpl_deploy_forward(dtype=torch.bfloat16, device="cuda", seed=0)
@@ -4181,6 +4362,9 @@ def main() -> int:
                                                                "launches_per_forward")},
         "jax_ckpt": jck, "converter": done["converter"],
         "rooflines": done["rooflines"]["levels"]}}), flush=True)
+    print(json.dumps({"dense": {"card": card, "calls_per_forward":
+                                report["dense"]["calls_per_forward"],
+                                "sums_ms": report["dense"]["sums"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,12 @@ then stored as
   * bcsr: padded block-sparse rows (`blk_col`, `blk_val`).
 
 Every kind also carries the ELL form (`ell_idx`, `ell_w`; padded entries
-point at their own row with weight 0).  Pooling (the x2 nearest upsample
-between levels) and the final un-permutation to the original vertex order
-are index gathers (`up_idx`, `vertex_gather`).  The artifact also carries
+point at their own row with weight 0); dense levels also its rows without
+their zero entries (`dense_rows`: `csr_ptr`, `csr_col`, `csr_val`, the table
+of `ops.dense_cheby`), derived at pack and load time like the window form.
+Pooling (the x2 nearest upsample between levels) and the final
+un-permutation to the original vertex order are index gathers (`up_idx`,
+`vertex_gather`).  The artifact also carries
 the face tables of the face losses' backward (`face_band_tables`,
 `face_inverse_tables`).  The numpy packing mirrors the JAX package's
 `graphs/artifact.py` value for value, and `save_artifact` /
@@ -75,6 +78,9 @@ class LevelOperator:
         block of row tile t, `blk_val` (nt, maxb, T, T) its values (padding
         blocks are zero and point at column tile 0).
     Every kind: `ell_idx`, `ell_w` (V, D), the neighbours of each row.
+    kind == "dense" also: `csr_ptr` (V+1,) int32, `csr_col` (nnz,) int32,
+        `csr_val` (nnz,), the ELL form's nonzero entries row by row
+        (`dense_rows`, derived at pack and load time, not saved).
     """
 
     dense: torch.Tensor = _empty()
@@ -93,6 +99,9 @@ class LevelOperator:
     band_bw: int = 0
     window_val: torch.Tensor = _empty(0, 0)
     window_off: torch.Tensor = _empty(dtype=torch.int32)
+    csr_ptr: torch.Tensor = _empty(dtype=torch.int32)
+    csr_col: torch.Tensor = _empty(dtype=torch.int32)
+    csr_val: torch.Tensor = _empty()
 
     @property
     def padded_vertices(self) -> int:
@@ -177,6 +186,28 @@ def _pack_ell(L: sp.csr_matrix) -> Tuple[np.ndarray, np.ndarray]:
     idx[rows, slot] = L.indices
     w[rows, slot] = L.data
     return idx, w
+
+
+def dense_rows(ell_idx: torch.Tensor, ell_w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A dense level's row-compressed table from its ELL form: csr_ptr
+    (V+1,) int32, csr_col (nnz,) int32 and csr_val (nnz,) float32, each
+    row's entries of nonzero weight in ELL order.  `ops.dense_cheby` runs
+    the backward of its hops as the same hops (the VJP of L x is L^T g), so
+    L must be symmetric: raises ValueError where an entry differs from its
+    transpose by more than float32 rounding."""
+    idx, w = ell_idx.cpu().numpy(), ell_w.detach().cpu().float().numpy()
+    V = idx.shape[0]
+    keep = w != 0
+    rows = np.repeat(np.arange(V), keep.sum(1))
+    L = sp.csr_matrix((w[keep].astype(np.float64), (rows, idx[keep])), shape=(V, V))
+    gap = abs(L - L.T)
+    if gap.nnz and (gap > 1e-6 * abs(L).maximum(abs(L.T))).nnz:
+        raise ValueError(f"the dense level's Laplacian ({V} vertices) is not symmetric: "
+                         f"max |L - L^T| = {gap.max()}")
+    ptr = np.concatenate([[0], np.cumsum(keep.sum(1))]).astype(np.int32)
+    return dict(csr_ptr=torch.from_numpy(ptr),
+                csr_col=torch.from_numpy(idx[keep].astype(np.int32)),
+                csr_val=torch.from_numpy(w[keep].astype(np.float32)))
 
 
 def _pack_bcsr(L: sp.csr_matrix, T: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -293,7 +324,7 @@ def _make_level_op(L: sp.csr_matrix, kind: str, block_size: int,
                   ell_idx=torch.from_numpy(ell_idx), ell_w=torch.from_numpy(ell_w))
     if kind == "dense":
         return LevelOperator(dense=torch.from_numpy(L.toarray().astype(np.float32)),
-                             **common)
+                             **dense_rows(common["ell_idx"], common["ell_w"]), **common)
     if kind == "bcsr":
         blk_col, blk_val = _pack_bcsr(L, block_size)
         return LevelOperator(blk_col=torch.from_numpy(blk_col),
@@ -583,6 +614,8 @@ def load_artifact(path: str, *, device: str | torch.device | None = "cuda"
         kind = bytes(z[f"{prefix}/kind"]).decode()
         if kind == "band":
             fields.update(_window_form(fields["band_val"], meta["band_k"]))
+        if kind == "dense":
+            fields.update(dense_rows(fields["ell_idx"], fields["ell_w"]))
         return LevelOperator(kind=kind, **meta, **fields)
 
     n = int(z["meta/num_levels"])

@@ -8,7 +8,7 @@ vertex upsampling between levels as index gathers.  It comes in two forms.
 Deploy form (`inference_fused=True`): BatchNorm is folded into the conv
 weights (`models.fold`) and each conv is one pass.
   * Dense levels (the joint graph and small mesh levels) run
-    `chebyshev_stack` + matmul + ReLU.
+    `ops.dense_cheby.dense_cheby_stack` + matmul + ReLU.
   * Band levels run on a vertex-major (Vp, B, F) layout at the pack-time
     padded row count Vp.  `flat_impl` picks the fused kernels (the JAX
     package's P2M_FLAT_IMPL, routed per level by `flat_route`), each with
@@ -29,7 +29,7 @@ Training form (`inference_fused=False`, `forward(art, x, train)`): every
 conv but the last has a BatchNorm (`bn.N`), batch statistics in float32 in
 training, running ones at eval; activations stay (V, B, F) at the real row
 count.
-  * Dense levels: `chebyshev_stack` + matmul, BatchNorm, ReLU.
+  * Dense levels: `dense_cheby_stack` + matmul, BatchNorm, ReLU.
   * Band levels: the fused training convs of `ops.fused_cheby_train`, in the
     JAX package's fold chain: a conv that is not the last of its block
     hands its BatchNorm's (scale, shift) to the next conv, which applies
@@ -69,7 +69,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..graphs.artifact import LevelOperator, PyramidArtifact
-from ..ops.cheby import chebyshev_stack
+from ..ops.dense_cheby import dense_cheby_stack
 from ..ops.fused_cheby import fused_cheby_conv, fused_cheby_conv_commuted
 from ..ops.fused_cheby_train import (
     cheby_project_unfused, fused_cheby_project, fused_cheby_project_folded,
@@ -158,10 +158,12 @@ class MeshNet(nn.Module):
             self._interp[key] = M.to(device=device, dtype=dtype)
         return self._interp[key]
 
-    def _dense_conv(self, op: LevelOperator, x, lin: nn.Linear, relu: bool):
-        x = x.to(self.dtype)
-        y = linear(chebyshev_stack(op, x, self.K), lin, self.dtype)
-        return torch.relu(y) if relu else y
+    def _dense_conv(self, op: LevelOperator, x, lin: nn.Linear, relu: bool = False):
+        """One conv on a dense level: the basis (`dense_cheby_stack`) and its
+        projection, then the ReLU where `relu`."""
+        with span("p2m.dense_conv", dtype=self.dtype_name, vertices=op.num_vertices):
+            y = linear(dense_cheby_stack(op, x.to(self.dtype)), lin, self.dtype)
+            return torch.relu(y) if relu else y
 
     def _conv_weights(self, lin: nn.Linear, commuted: bool = False):
         """The kernels' weight layout of one band conv, (3*fin, fout) and
@@ -411,8 +413,7 @@ class MeshNet(nn.Module):
                     x = self._band_block(op, x, convs, block_bns, train)
                 else:
                     for lin, bn in zip(convs, block_bns):
-                        x = linear(chebyshev_stack(op, x.to(self.dtype), self.K), lin,
-                                   self.dtype)
+                        x = self._dense_conv(op, x, lin)
                         if bn is not None:
                             x = self._bn_apply_relu(x, bn, train)
                 if i == 0:

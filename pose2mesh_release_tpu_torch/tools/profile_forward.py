@@ -21,8 +21,10 @@ captures its CUDA graph), then:
      False)`) and prints the device time per forward by kernel, grouped into
      the port's band kernels, matrix products and the rest, the CUDA
      launches per forward of each group, all that `p2m.band_conv` launched,
-     the spans by their own device and idle ms (`span_breakdown`), and the
-     device's idle share of the traced window.
+     all that `p2m.dense_conv` launched (the dense levels' basis kernel and
+     projection) and `ops/dense_cheby.launches` a forward, the spans by
+     their own device and idle ms (`span_breakdown`), and the device's idle
+     share of the traced window.
 Needs a CUDA device; writes chiprun_out/profile_forward.json (the group
 path, bf16) or chiprun_out/profile_forward[_<path>][_float32].json.
 """
@@ -38,11 +40,13 @@ import torch
 
 from ..core.train import graph_counters, make_eval_step
 from ..deploy import smpl_deploy_forward
+from ..ops import dense_cheby
 from ..utils.profiling import profile_spans
 from .profile_train import graphed_trace
 
 GROUPS = (("band kernels", ("band_hop_kernel", "band_hop_f32", "cheby_proj_kernel",
                             "cheby_proj_f32_kernel")),
+          ("dense basis", ("dense_cheby_kernel",)),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 
 
@@ -91,6 +95,7 @@ def main(argv=None) -> int:
     graphed = graphed_trace(lambda: d.eval_step(d.art_compute, pose2d), args.steps, GROUPS)
 
     traced = {}
+    dense_before = dense_cheby.launches["dense_cheby_stack"]
 
     def run():
         t0 = time.perf_counter()
@@ -100,6 +105,7 @@ def main(argv=None) -> int:
         traced["ms"] = (time.perf_counter() - t0) * 1e3
     b = profile_spans(run)
     traced_ms = traced["ms"]
+    dense_calls = (dense_cheby.launches["dense_cheby_stack"] - dense_before) / args.steps
     kernels, counts = b.ops_us, b.ops_calls
     device_ms = b.busy_us / 1e3 / args.steps
     groups = {name: 0.0 for name, _ in GROUPS}
@@ -125,6 +131,9 @@ def main(argv=None) -> int:
         "groups_launches_per_forward": group_launches,
         "band_conv_spans_ms_per_forward": b.per_step(b.device_us_inclusive,
                                                      "p2m.band_conv") / 1e3,
+        "dense_conv_spans_ms_per_forward": b.per_step(b.device_us_inclusive,
+                                                      "p2m.dense_conv") / 1e3,
+        "dense_cheby_launches_per_forward": dense_calls,
         "spans": b.summary(),
         "top_kernels_ms_per_forward": [(k, us / 1e3 / args.steps) for k, us in top],
     }
@@ -144,6 +153,8 @@ def main(argv=None) -> int:
     for name, ms in groups.items():
         print(f"  {name:16s} {ms:8.3f} ms in {group_launches[name]:g} launches")
     print(f"  all that p2m.band_conv launched {result['band_conv_spans_ms_per_forward']:.3f} ms")
+    print(f"  all that p2m.dense_conv launched {result['dense_conv_spans_ms_per_forward']:.3f} ms; "
+          f"ops/dense_cheby.launches a forward {dense_calls:g}")
     print(json.dumps({"spans": result["spans"]}))
     for key, ms in result["top_kernels_ms_per_forward"]:
         print(f"  {ms:8.3f} ms  {key[:100]}")

@@ -23,7 +23,10 @@ eager step on the same model (`make_train_step(graph=False)`), warms both up
      `p2m.backward` with what autograd's thread ran under it, optimizer =
      `p2m.optimizer`); K1 = all that `p2m.band_conv` launched, K2 = all that
      `p2m.band_conv.bwd` launched, beside the time of K1's and K2's kernels
-     by name; the spans by their own device and idle ms; the launches inside
+     by name; the dense convs = all that `p2m.dense_conv` launched (the
+     basis kernel and the projection), their backward = all that
+     `p2m.dense_conv.bwd` launched, and `ops/dense_cheby.launches` a step;
+     the spans by their own device and idle ms; the launches inside
      `p2m.step`; the device's idle share.  The spans on, these steps run
      eagerly (a replay launches no span).
 Needs a CUDA device; writes chiprun_out/profile_train.json (bf16) or
@@ -41,6 +44,7 @@ import time
 import torch
 
 from ..core.train import graph_counters, make_train_step
+from ..ops import dense_cheby
 from ..train_setup import mano_train_setup, smpl_train_setup
 from ..utils.profiling import STEP, profile_spans, span_breakdown
 
@@ -51,6 +55,7 @@ GROUPS = (("K1 kernels", ("cheby_proj_kernel", "cheby_proj_f32_kernel", "fold_ke
           ("K2 kernels", ("bwd_dx_kernel", "bwd_dw_kernel", "bwd_dx_f32_kernel",
                           "bwd_dw_f32_kernel", "dw_reduce_kernel")),
           ("hop engine (K1 and K2)", ("band_hop_kernel", "band_hop_f32")),
+          ("dense basis", ("dense_cheby_kernel",)),
           ("matrix products", ("gemm", "gemv", "cutlass", "xmma", "sm90_")))
 PHASES = (("network forward", ("p2m.posenet", "p2m.meshnet")),
           ("extract_mesh and regressor", ("p2m.extract_mesh", "p2m.regressor")),
@@ -58,7 +63,9 @@ PHASES = (("network forward", ("p2m.posenet", "p2m.meshnet")),
           ("backward", ("p2m.backward",)),
           ("optimizer", ("p2m.optimizer",)),
           ("K1 (p2m.band_conv)", ("p2m.band_conv",)),
-          ("K2 (p2m.band_conv.bwd)", ("p2m.band_conv.bwd",)))
+          ("K2 (p2m.band_conv.bwd)", ("p2m.band_conv.bwd",)),
+          ("dense convs (p2m.dense_conv)", ("p2m.dense_conv",)),
+          ("dense backward (p2m.dense_conv.bwd)", ("p2m.dense_conv.bwd",)))
 
 
 def _group(name: str, groups=GROUPS) -> str:
@@ -137,6 +144,7 @@ def main(argv=None) -> int:
     graphed = graphed_trace(lambda: step("graphed"), n)
 
     traced = {}
+    dense_before = dict(dense_cheby.launches)
 
     def run():
         t0 = time.perf_counter()
@@ -153,6 +161,7 @@ def main(argv=None) -> int:
     phases = {p: sum(b.per_step(b.device_us_inclusive, k) for k in spans) / 1e3
               for p, spans in PHASES}
     device_ms = b.busy_us / 1e3 / n
+    dense_calls = {k: (dense_cheby.launches[k] - dense_before[k]) / n for k in dense_before}
     result = {
         "card": card, "model": "mano" if args.hand else "smpl", "dtype": args.dtype,
         "batch": args.batch,
@@ -166,6 +175,7 @@ def main(argv=None) -> int:
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - b.busy_us / b.window_us if b.window_us else None,
         "phases_device_ms_per_step": phases,
+        "dense_cheby_launches_per_step": dense_calls,
         "kernel_groups_ms_per_step": groups,
         "spans": b.summary(),
         "top_kernels_ms_per_step": [(k, us / 1e3 / n) for k, us in
@@ -187,6 +197,7 @@ def main(argv=None) -> int:
     print("device ms a step by phase (all the phase's spans launched):")
     for name, ms in phases.items():
         print(f"  {name:40s} {ms:8.3f} ms")
+    print(f"ops/dense_cheby.launches a step (eager, spans on): {dense_calls}")
     print("device ms a step by kernel name:")
     for name, ms in groups.items():
         print(f"  {name:40s} {ms:8.3f} ms")

@@ -208,7 +208,7 @@ def _c_entry_points():
 LOADERS = [
     ("fused_cheby", "_fused_lib"), ("fused_cheby", "_commuted_lib"),
     ("fused_cheby_train", "_train_lib"), ("fused_cheby_train", "_bwd_lib"),
-    ("hop", "_hop_lib"), ("strip_cheby", "_strip_lib")]
+    ("hop", "_hop_lib"), ("strip_cheby", "_strip_lib"), ("dense_cheby", "_lib")]
 
 
 @pytest.mark.parametrize("module,loader", LOADERS)
@@ -241,7 +241,8 @@ def test_every_cuda_entry_point_has_a_loader(monkeypatch):
 
 
 ENTRY_POINTS = ["p2m_fused_cheby_conv", "p2m_fused_cheby_conv_commuted", "p2m_train_conv",
-                "p2m_fused_cheby_bwd", "p2m_banded_hop", "p2m_strip_cheby_conv"]
+                "p2m_fused_cheby_bwd", "p2m_banded_hop", "p2m_strip_cheby_conv",
+                "p2m_dense_cheby"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
