@@ -11,7 +11,11 @@ the mean taken over the rest" in the reference put in the program's place.
 Prints one JSON line a run (its numbers, and for a training cell its five
 worst leaves of each number), then each number's lower reading (the
 program's largest) and upper reading (the least of the control's and the
-fault's).  A state left unchanged reads 1 on the training cells' gradient
+fault's).  For a loader-fed training cell (kind "train_loader") the control
+and the faults replace the train step alone (the port's loader still feeds
+them), and one more fault, the loader's mesh targets moved one row on
+(`control.RolledTargets`), reads the data layer's own check.  A state left
+unchanged reads 1 on the training cells' gradient
 and change numbers, and a loss altered by a fifth where it is produced reads
 0.2 on loss_gap, by construction: neither needs a run.  Writes the lines to
 chiprun_out/calibrate_<cell>.jsonl as well.
@@ -28,7 +32,7 @@ import time
 import torch
 
 from . import harness
-from .control import RefServe, RefTrain
+from .control import RefServe, RefTrain, RolledTargets
 
 
 def _leaves(prog, ref, n=5):
@@ -76,6 +80,9 @@ def main(argv=None) -> int:
         runs += [("control_fp8", s, {"train_factory": RefTrain}) for s in args.control_seeds]
         runs += [("fault_half_batch", s, {"train_factory": lambda *a: RefTrain(
             *a, precision="f32", fault="half_batch")}) for s in args.fault_seeds]
+    if kind == "train_loader":
+        runs += [("fault_rolled_targets", s, {"data_factory": RolledTargets})
+                 for s in args.fault_seeds]
     os.makedirs("chiprun_out", exist_ok=True)
     readings = {}
     with open(os.path.join("chiprun_out", f"calibrate_{args.workload}.jsonl"), "a") as f:

@@ -2,7 +2,9 @@
 faults that set the upper readings of the limits (`calibrate.py`): the same
 step interface as `system.ServeSystem` / `system.TrainSystem`, computed by
 `reference.model.RefModel` at `precision` ("fp8": the control of a bf16
-configuration), optionally with a planted fault ("half_batch")."""
+configuration), optionally with a planted fault ("half_batch"); and a
+planted fault of the port's data layer for the loader-fed cells
+(`RolledTargets`)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -11,8 +13,9 @@ import torch
 
 from .reference.model import RMSPROP_ALPHA, RefModel
 from .reference.pyramid import build_ref_pyramid
+from .system import LoaderData
 
-__all__ = ["RefServe", "RefTrain"]
+__all__ = ["RefServe", "RefTrain", "RolledTargets"]
 
 
 def _ref(cfg, mesh, state, device, precision, fault=None) -> RefModel:
@@ -47,3 +50,17 @@ class RefTrain:
     def grad_norms_from_state(self) -> Dict[str, float]:
         return {k: float(torch.sqrt(self.ref.sq[k].double().sum() / (1.0 - RMSPROP_ALPHA)))
                 for k in self.ref.trainable}
+
+
+class RolledTargets(LoaderData):
+    """The data layer with each batch's mesh targets moved one row on (row
+    i gets row i + 1's), its joint targets kept: the samples' targets
+    mixed where the batch is produced."""
+
+    def batches(self):
+        it = super().batches()
+        try:
+            for b in it:
+                yield dict(b, mesh=b["mesh"].roll(-1, 0))
+        finally:
+            it.close()

@@ -7,8 +7,9 @@ multiply-add: PoseNet's GEMMs; each Chebyshev conv's two hops at the
 level's nonzeros (2 * 2 * nnz * B * fin) and its projection (2 * V * B *
 3 fin * fout), V the level's rows; the FC onto the coarsest level; the
 residual skip's channel interpolation where the width changes (two taps an
-output, 4 * V * B * fout); the joint regressor.  The upsampling and
-`extract_mesh` are gathers and count 0.  A training step counts 3x the
+output, 4 * V * B * fout); the joint regressor (the rows of the
+configuration's `target_joint_set` where it names one, else of its input
+set).  The upsampling and `extract_mesh` are gathers and count 0.  A training step counts 3x the
 forward's (forward, and the backward's two products per product), no
 recompute; BatchNorm, activations and losses are not counted.
 
@@ -80,7 +81,8 @@ def forward_flops(cfg: Dict, convs: Sequence[Conv], coarse_vertices: int, B: int
             V = next(c.V for c in convs if c.block == i)
             mesh += 4 * V * B * chans[-1]
     V0 = convs[-1].V
-    regressor = 2 * B * J * V0 * 3
+    Jt = cfg.get("target_joint_set", cfg["joint_set"])["joint_num"]
+    regressor = 2 * B * Jt * V0 * 3
     return float(posenet + fc + mesh + regressor)
 
 

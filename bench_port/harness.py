@@ -5,8 +5,11 @@ Everything a cell needs is found by name: `BENCHMARK.json` names the cell's
 configuration (`configs/<config>.json` and the mesh file it names) and
 traffic mix (`traffic/<mix>.json`); the cell's limits are
 `limits/<cell>.json`; each metric is `metrics/<metric>.py`, whose
-`read(run)` returns its number or None.  Adding a cell adds files and
-entries; no code here names a cell, a configuration or a metric.
+`read(run)` returns its number or None.  The kinds "serve" and "train" run
+here; any other traffic kind k is `kinds/<k>.py`, whose `run(cell, seed,
+seconds, trace, device, *, t0, log, **factories)` returns what `run_cell`
+returns.  Adding a cell adds files and entries, a new kind included; no
+code here names a cell, a configuration, a metric or a kind of `kinds/`.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ from .weights import make_state_dict, sub_seed
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 
-__all__ = ["BENCH", "ROOT", "Cell", "Run", "load_cell", "load_metric", "cell_metrics",
-           "run_cell", "check_numbers"]
+__all__ = ["BENCH", "ROOT", "Cell", "Run", "load_cell", "load_metric", "load_kind",
+           "cell_metrics", "run_cell", "check_numbers"]
 
 
 def _json(path: Path) -> Dict:
@@ -76,13 +79,24 @@ def cell_metrics(entries: List[Dict], cell: str) -> List[Dict]:
     return [m for m in entries if "workloads" not in m or cell in m["workloads"]]
 
 
-def load_metric(name: str, bench: Optional[Path] = None) -> ModuleType:
-    path = (bench or BENCH) / "metrics" / f"{name}.py"
+def _load_file(path: Path, prefix: str, name: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
-        "bench_port_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(name: str, bench: Optional[Path] = None) -> ModuleType:
+    return _load_file((bench or BENCH) / "metrics" / f"{name}.py", "bench_port_metric_", name)
+
+
+def load_kind(name: str, bench: Optional[Path] = None) -> ModuleType:
+    """The module of traffic kind `name` (`kinds/<name>.py`)."""
+    path = (bench or BENCH) / "kinds" / f"{name}.py"
+    if not path.exists():
+        raise ValueError(f"traffic kind {name!r}: no {path}")
+    return _load_file(path, "bench_port_kind_", name)
 
 
 @dataclass
@@ -96,6 +110,7 @@ class Run:
     band_bound_s_per_step: float = 0.0
     trace: Optional[TraceSummary] = None
     launches_per_step: Dict[str, float] = field(default_factory=dict)
+    loader_wait: Optional[List[float]] = None   # each window step's wait for its batch, s
 
 
 # ---- the comparison -------------------------------------------------------
@@ -187,18 +202,21 @@ def compare_train(prog: Dict, ref: Dict) -> Dict[str, float]:
 # ---- one run ------------------------------------------------------------
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device, *,
-             t0: float, serve_factory: Callable = ServeSystem,
-             train_factory: Callable = TrainSystem, log: Callable = print) -> Dict:
+             t0: float, log: Callable = print, **factories: Callable) -> Dict:
     """Run `cell` once; returns the result's fields (and "checks") without
     `device` readings of the card, which the caller adds.  The factories
     build the system under test (the port's; calibration and tests put
-    the reference or a planted fault in its place)."""
+    the reference or a planted fault in its place): `serve_factory` and
+    `train_factory` for the kinds run here, and whatever a kind's module
+    takes for its own."""
     kind = cell.traffic["kind"]
     if kind == "serve":
-        return _run_serve(cell, seed, seconds, trace, device, t0, serve_factory, log)
+        return _run_serve(cell, seed, seconds, trace, device, t0,
+                          factories.get("serve_factory", ServeSystem), log)
     if kind == "train":
-        return _run_train(cell, seed, seconds, trace, device, t0, train_factory, log)
-    raise ValueError(f"traffic kind {kind!r}")
+        return _run_train(cell, seed, seconds, trace, device, t0,
+                          factories.get("train_factory", TrainSystem), log)
+    return load_kind(kind).run(cell, seed, seconds, trace, device, t0=t0, log=log, **factories)
 
 
 def _free() -> None:
@@ -384,13 +402,16 @@ def _run_train(cell, seed, seconds, trace, device, t0, factory, log) -> Dict:
 
 
 def _result(cell, rec, setup_s, numbers, failed, pyr, summary, launches, peak, B,
-            train: bool) -> Dict:
+            train: bool, **run_fields) -> Dict:
+    """The result's fields; `run_fields` set the Run's other fields (a kind
+    of `kinds/` gives the kind whose metric readers read its Run)."""
     convs = counts.conv_table(cell.cfg, pyr.sizes, pyr.nnz, int(pyr.joint_laplacian.nnz))
-    run = Run(kind=cell.traffic["kind"], window=rec, setup_s=setup_s,
+    run_fields.setdefault("kind", cell.traffic["kind"])
+    run = Run(window=rec, setup_s=setup_s,
               flops_per_step=counts.step_flops(cell.cfg, convs, cell.cfg["coarse_vertices"],
                                                B, train),
               band_bound_s_per_step=counts.band_bound_s(convs, B, train),
-              trace=summary, launches_per_step=launches)
+              trace=summary, launches_per_step=launches, **run_fields)
     checks = check_numbers(numbers, cell.limits)
     return {"run": run, "attempted": rec.requests, "failed": int(failed),
             "checks": checks, "memory_peak_bytes": peak}

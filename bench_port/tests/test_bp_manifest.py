@@ -6,8 +6,10 @@ import re
 import shutil
 
 import pytest
+import torch
 
-from bench_port.harness import BENCH, ROOT, Run, load_cell, load_metric, read_metrics
+from bench_port.harness import (BENCH, ROOT, Run, load_cell, load_kind, load_metric,
+                                read_metrics)
 from bench_port.generator import WindowRecord
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -83,7 +85,8 @@ def test_everything_named_resolves(cell):
     c = load_cell(cell, MANIFEST)
     assert c.cfg["name"] == next(w["config"] for w in MANIFEST["workloads"]
                                  if w["name"] == cell)
-    assert c.traffic["kind"] in ("serve", "train")
+    kind = c.traffic["kind"]
+    assert kind in ("serve", "train") or (BENCH / "kinds" / f"{kind}.py").exists()
     assert set(c.limits), f"limits/{cell}.json"
     for m in c.end_to_end + c.per_layer:
         assert callable(load_metric(m["name"]).read)
@@ -97,13 +100,33 @@ def _fake_run(kind="serve"):
     return Run(kind=kind, window=w, setup_s=3.0, flops_per_step=1e12)
 
 
-def test_a_new_cell_needs_only_new_files_and_entries(tmp_path):
+NEW_KIND = """
+from bench_port.generator import WindowRecord
+from bench_port.harness import Run
+
+
+def run(cell, seed, seconds, trace, device, *, t0, log, **factories):
+    w = WindowRecord(requests=10, items=10 * cell.traffic["batch"], t_start=0.0, t_end=0.5,
+                     latencies=[0.05] * 10, dispatch=[0.01] * 10)
+    return {"run": Run(kind="serve", window=w, setup_s=3.0, flops_per_step=1e12),
+            "attempted": 10, "failed": 0, "checks": {}, "memory_peak_bytes": 0}
+"""
+
+
+@pytest.mark.parametrize("kind", ["serve", "new_kind"])
+def test_a_new_cell_needs_only_new_files_and_entries(tmp_path, kind):
+    """A cell of a kind that `harness.py` runs, and one of a kind brought as
+    a file of its own (`kinds/<kind>.py`), each added with new files and
+    entries only."""
     bench = tmp_path / "bench_port"
-    for sub in ("configs", "traffic", "metrics", "limits"):
+    for sub in ("configs", "traffic", "metrics", "limits", "kinds"):
         shutil.copytree(BENCH / sub, bench / sub)
     manifest = json.loads(json.dumps(MANIFEST))
     (bench / "traffic" / "serve_b32.json").write_text(json.dumps(
-        dict(json.loads((BENCH / "traffic" / "serve_b64.json").read_text()), batch=32)))
+        dict(json.loads((BENCH / "traffic" / "serve_b64.json").read_text()), batch=32,
+             kind=kind)))
+    if kind != "serve":
+        (bench / "kinds" / f"{kind}.py").write_text(NEW_KIND)
     (bench / "limits" / "mano_freihand21.serve_b32.json").write_text(
         (BENCH / "limits" / "smpl_h36m17.serve_b64.json").read_text())
     (bench / "metrics" / "meshes_per_s_new.py").write_text(
@@ -119,6 +142,11 @@ def test_a_new_cell_needs_only_new_files_and_entries(tmp_path):
     assert [m["name"] for m in cell.end_to_end] == ["setup_s", "meshes_per_s_new"]
     got = read_metrics(_fake_run(), cell.end_to_end, bench)
     assert got["meshes_per_s_new"]["value"] == pytest.approx(2560.0)
+    if kind != "serve":
+        res = load_kind(kind, bench).run(cell, 1, 0.5, False, torch.device("cpu"), t0=0.0,
+                                         log=print)
+        got = read_metrics(res["run"], cell.end_to_end, bench)
+        assert got["meshes_per_s_new"]["value"] == pytest.approx(1280.0)
 
 
 def test_readers_return_nothing_where_nothing_is_read():
